@@ -1,0 +1,103 @@
+"""The port's boundaries: no JAX inside it, the card by default, and no
+quiet fallback from a kernel to its plain version."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.ann import AnnEngine, CodeStore
+from repro_torch.core.schemes import CodeSpec
+from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+from repro_torch.kernels import ops
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: CodedRandomProjection(SketchConfig(k=32), 8),
+    lambda: CodedRandomProjection(SketchConfig(k=32), 8, device="cuda"),
+    lambda: CodeStore.from_words(np.zeros((2, 2), np.int32), 32, 2),
+    lambda: convert.store_from_numpy(np.zeros((2, 2), np.uint32), 32, 2),
+    lambda: convert.sketch_from_numpy(SketchConfig(k=32), 8,
+                                      np.zeros((8, 32), np.float32)),
+], ids=["sketch-default", "sketch-cuda", "store", "store-numpy",
+        "sketch-numpy"])
+def test_entry_points_need_the_card_unless_asked(no_cuda, make):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+
+
+def test_cpu_on_request(no_cuda):
+    crp = CodedRandomProjection(SketchConfig(k=64), 8, device="cpu")
+    eng = AnnEngine.build(crp, np.ones((4, 8), np.float32))
+    assert eng.store.words.device.type == "cpu"
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, r, c, w: ops.coded_project(x, r, CodeSpec("2bit", 0.75),
+                                         impl="kernel"),
+    lambda x, r, c, w: ops.encode_fused(x, r, CodeSpec("2bit", 0.75),
+                                        impl="kernel"),
+    lambda x, r, c, w: ops.pack_codes(c, 2, impl="kernel"),
+    lambda x, r, c, w: ops.packed_topk(w, w, 2, 32, 3, impl="kernel"),
+], ids=["coded_project", "encode_fused", "pack_codes", "packed_topk"])
+def test_kernel_impl_on_cpu_raises(call):
+    x, r = torch.zeros(4, 8), torch.zeros(8, 32)
+    codes, words = torch.zeros(4, 32, dtype=torch.int32), torch.zeros(
+        4, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        call(x, r, codes, words)
+
+
+def test_unknown_impl_raises():
+    with pytest.raises(ValueError, match="impl"):
+        ops.pack_codes(torch.zeros(2, 4, dtype=torch.int32), 2, impl="pallas")
+
+
+def test_import_builds_nothing():
+    """Importing every module of the port compiles and loads nothing."""
+    mods = sorted(os.path.relpath(f, os.path.join(ROOT, "src"))[:-3]
+                  .replace(os.sep, ".").removesuffix(".__init__")
+                  for f in _port_files() if f.startswith(PORT))
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from repro_torch.kernels import _build\n"
+            "sys.exit(1 if _build._libs else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120)
