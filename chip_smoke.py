@@ -11,23 +11,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` per source, all at once) and print the build time, the
    compiler's register and spill report, and the card's name and power
    limit.
-2. Kernel checks. Small ragged shapes over every scheme and bit width,
-   then the main path's shapes: each kernel against its plain PyTorch
-   version on the same inputs, on the card. ``pack_codes`` and
-   ``packed_topk`` must be bit-exact; the two GEMM kernels may differ
-   from ``torch.matmul``'s float32 sum order only in fields whose
-   reference projection lies within 1e-5 of a bin edge. Each kernel is
-   timed (CUDA events, median of 10) beside its plain version and its
-   bound.
+2. Kernel checks. Small ragged shapes over every scheme, bit width and
+   table type (rerank_m above N, top_k above the survivors, all rows
+   tied, N = 0), then the main path's shapes: each kernel against its
+   plain PyTorch version on the same inputs, on the card. Every kernel
+   but the two GEMMs must be bit-exact; the GEMMs may differ from
+   ``torch.matmul``'s float32 sum order only in fields whose reference
+   projection lies within 1e-5 of a bin edge. Each kernel is timed (CUDA
+   events, median of 10; 3 for the plain versions that build the whole
+   [256, 4,194,304] count matrix) beside its plain version and its bound.
 3. Main path at N = 4,194,304 rows, D = 1024, k = 256, 2-bit codes at
    w = 0.75: seeded Gaussian rows made on the card in 65,536-row chunks
    go through ``CodedRandomProjection.sketch`` into a ``CodeStore``;
    ``AnnEngine`` searches 1,024 queries (512 of them noisy corpus rows
    that must come back at rank 0), ``add``s a batch and searches again.
    Launch counts are reset just before and read just after; every kernel
-   must have launched. 16 queries are then rechecked against the plain
-   ``packed_topk_ref`` over the whole store.
-4. A ``kernels`` JSON line, the card line, and as the last line
+   of the path must have launched. 16 queries are then rechecked against
+   the plain ``packed_topk_ref`` over the whole store.
+4. Scored and LSH path, on the engine after ``add`` (4,259,840 rows):
+   the rank tables are checked against JAX's to a relative 1e-4; scored
+   search (fused with f32, then int8 tables, then two-stage) over the
+   1,024 queries and LSH search (count-ranked, then scored; 16 bands of
+   4 codes, no probes, one band to match) over 256 of them, with launch
+   counts reset before and read after. Gates: planted queries at rank 0
+   (512/512 scored f32 and two-stage, 128/128 LSH), two-stage equal to
+   fused on every query but those whose plain versions differ too
+   (LUT scores tied across collision counts; counted), and 16 queries of
+   each mode bit-exact against the same engine on the plain versions.
+   Printed, not gated: queries/s of each mode, and the rank-0 hit rate
+   of count-ranked against scored search on planted queries at cosine
+   0.9 and 0.6.
+5. A ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -59,6 +73,12 @@ R_SHA256 = "a7a08cc49a0e89c4387cc9ac787b6f72a52d45fdb94e468ea171f3a24bd96818"
 
 N_ROWS, D, K, CHUNK = 4_194_304, 1024, 256, 65_536
 N_QUERIES, N_PLANTED, CHUNK_Q, TOP_K = 1024, 512, 256, 10
+RERANK_M = 64                 # SearchConfig().resolve_m(N) at top_k = 10
+N_LSH, N_LSH_PLANTED = 256, 128
+FIRST_SLICE = ("encode_fused", "coded_project", "pack_codes", "packed_topk")
+SCORED_KERNELS = ("coded_project", "pack_codes", "packed_topk",
+                  "packed_collision_counts", "packed_lut_rerank",
+                  "fused_scored_topk")
 EDGE_TOL = 1e-5
 
 
@@ -187,6 +207,134 @@ def small_checks(device) -> None:
     torch.cuda.synchronize()
 
 
+def rand_tables(gen, nq: int, w: int, bits: int, dtype: str, device):
+    """Random query tables [nq, F*P] of ``dtype`` (f32, bf16, or int8 with
+    power-of-two float32 scales [nq, w])."""
+    import torch
+    fp = (w * (32 // bits)) << bits
+    if dtype == "int8":
+        t = torch.randint(-127, 128, (nq, fp), generator=gen, device=device,
+                          dtype=torch.int8)
+        e = torch.randint(-8, 2, (nq, w), generator=gen, device=device)
+        return t, torch.pow(2.0, e.to(torch.float32))
+    t = torch.randn((nq, fp), generator=gen, device=device)
+    return (t.to(torch.bfloat16) if dtype == "bf16" else t), None
+
+
+def same(got, want) -> bool:
+    """Kernel and plain outputs (tuples): same shapes, bit-identical."""
+    import torch
+    return all(g.shape == w.shape and bool(torch.equal(g, w))
+               for g, w in zip(got, want))
+
+
+def scored_checks(device) -> None:
+    """Ragged shapes for the scored-search and LSH kernels: kernel ==
+    plain, bit-exact (packed_collision_counts, packed_lut_rerank,
+    fused_scored_topk)."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(12)
+
+    def words(n, k, bits):
+        return packing.pack_codes(torch.randint(
+            0, 1 << bits, (n, k), generator=gen, device=device), bits)
+
+    for bits in (1, 2, 4, 8):
+        for nq, n, k in ((33, 2000, 100), (5, 37, 64), (9, 70_000, 64),
+                         (40, 129, 256), (3, 0, 17)):
+            wq, wdb = words(nq, k, bits), words(n, k, bits)
+            got = ops.packed_collision_counts(wq, wdb, bits, k, impl="kernel")
+            if not same((got,), (ref.packed_collision_ref(wq, wdb, bits, k),)):
+                raise AssertionError(f"packed_collision_counts bits={bits} "
+                                     f"{(nq, n, k)}")
+    log("check packed_collision_counts bits 1/2/4/8: bit-exact")
+    for bits in (1, 2, 4):
+        for dtype in ("f32", "bf16"):
+            # (queries, candidates, k, top_k): random invalid slots, M in the
+            # thousands, top_k above the valid count, one candidate
+            for nq, m, k, top_k in ((13, 50, 33, 7), (7, 3000, 100, 10),
+                                    (4, 5, 17, 9), (2, 1, 64, 3)):
+                tab, _ = rand_tables(gen, nq, packing.packed_width(k, bits),
+                                     bits, dtype, device)
+                cand = words(nq * m, k, bits).reshape(nq, m, -1)
+                valid = torch.rand((nq, m), generator=gen, device=device) > 0.3
+                got = ops.packed_lut_rerank(tab, cand, valid, bits, top_k,
+                                            impl="kernel")
+                want = ref.packed_lut_rerank_ref(tab, cand, valid, bits, top_k)
+                if not same(got, want):
+                    raise AssertionError(f"packed_lut_rerank bits={bits} "
+                                         f"{dtype} {(nq, m, k, top_k)}")
+            # all candidates tied: equal rows, so positions ascending
+            tab, _ = rand_tables(gen, 3, packing.packed_width(33, bits), bits,
+                                 dtype, device)
+            cand = words(3, 33, bits)[:, None, :].expand(3, 40, -1).contiguous()
+            valid = torch.ones((3, 40), dtype=torch.bool, device=device)
+            got = ops.packed_lut_rerank(tab, cand, valid, bits, 12,
+                                        impl="kernel")
+            if not same(got, ref.packed_lut_rerank_ref(tab, cand, valid, bits,
+                                                       12)):
+                raise AssertionError(f"packed_lut_rerank tied bits={bits}")
+        log(f"check packed_lut_rerank bits={bits} f32/bf16: bit-exact")
+        for dtype in ("f32", "bf16", "int8"):
+            # (queries, rows, k, rerank_m, top_k): rerank_m > N, top_k above
+            # the survivors, N not a multiple of any tile, N = 0
+            for nq, n, k, m, top_k in ((3, 37, 17, 9, 7), (5, 130, 33, 32, 7),
+                                       (9, 5000, 64, 64, 10),
+                                       (4, 20, 33, 30, 10),
+                                       (6, 3000, 100, 3, 10),
+                                       (17, 70_000, 256, 256, 50),
+                                       (3, 0, 17, 5, 4)):
+                wq, wdb = words(nq, k, bits), words(n, k, bits)
+                if n:
+                    wdb[n // 2] = wq[0]
+                    wdb[n // 3] = wq[0]
+                tab, scl = rand_tables(gen, nq, wq.shape[1], bits, dtype,
+                                       device)
+                got = ops.fused_scored_topk(wq, tab, wdb, bits, k, m, top_k,
+                                            scales=scl, impl="kernel")
+                want = ref.fused_scored_topk_ref(wq, tab, wdb, bits, k, m,
+                                                 top_k, scales=scl)
+                if not same(got, want):
+                    raise AssertionError(f"fused_scored_topk bits={bits} "
+                                         f"{dtype} {(nq, n, k, m, top_k)}")
+            # every row tied on count and score: ids ascending
+            wq = words(4, 50, bits)
+            wdb = wq[1:2].expand(600, -1).contiguous()
+            tab, scl = rand_tables(gen, 4, wq.shape[1], bits, dtype, device)
+            got = ops.fused_scored_topk(wq, tab, wdb, bits, 50, 40, 12,
+                                        scales=scl, impl="kernel")
+            if not same(got, ref.fused_scored_topk_ref(wq, tab, wdb, bits, 50,
+                                                       40, 12, scales=scl)):
+                raise AssertionError(f"fused_scored_topk tied bits={bits}")
+        log(f"check fused_scored_topk bits={bits} f32/bf16/int8: bit-exact")
+    # 8- and 16-bit tables too large for shared memory: read from device
+    # memory
+    for bits, k in ((8, 400), (16, 40)):
+        for dtype in ("f32", "bf16", "int8"):
+            wq, wdb = words(3, k, bits), words(900, k, bits)
+            wdb[5] = wq[0]
+            tab, scl = rand_tables(gen, 3, wq.shape[1], bits, dtype, device)
+            got = ops.fused_scored_topk(wq, tab, wdb, bits, k, 20, 7,
+                                        scales=scl, impl="kernel")
+            if not same(got, ref.fused_scored_topk_ref(wq, tab, wdb, bits, k,
+                                                       20, 7, scales=scl)):
+                raise AssertionError(f"fused_scored_topk bits={bits} {dtype}")
+            if dtype == "int8":
+                continue
+            cand = wdb[:150].reshape(3, 50, -1)
+            valid = torch.rand((3, 50), generator=gen, device=device) > 0.3
+            got = ops.packed_lut_rerank(tab, cand, valid, bits, 7,
+                                        impl="kernel")
+            if not same(got, ref.packed_lut_rerank_ref(tab, cand, valid, bits,
+                                                       7)):
+                raise AssertionError(f"packed_lut_rerank bits={bits} {dtype}")
+    log("check fused_scored_topk + packed_lut_rerank bits 8/16 (tables in "
+        "device memory): bit-exact")
+    torch.cuda.synchronize()
+
+
 def kernel_phase(crp, device) -> dict:
     """Main-path shapes: each kernel vs its plain version, times, bounds."""
     import torch
@@ -247,8 +395,9 @@ def kernel_phase(crp, device) -> dict:
         f"plain_ms={rows['pack_codes']['plain_ms']:.4f} "
         f"bound_ms={b_ms:.6f} ({b_by}, {pipe})")
 
-    wq = packing.pack_codes(torch.randint(0, 1 << bits, (CHUNK_Q, K),
-                                          generator=gen, device=device), bits)
+    codes_q = torch.randint(0, 1 << bits, (CHUNK_Q, K), generator=gen,
+                            device=device)
+    wq = packing.pack_codes(codes_q, bits)
     wdb = torch.randint(-2 ** 31, 2 ** 31, (N_ROWS, w_words), generator=gen,
                         device=device, dtype=torch.int64).to(torch.int32)
     got = ops.packed_topk(wq, wdb, bits, K, TOP_K, impl="kernel")
@@ -275,9 +424,77 @@ def kernel_phase(crp, device) -> dict:
         f"top_k={TOP_K} bit-exact ms={rows['packed_topk']['ms']:.4f} "
         f"plain_ms={rows['packed_topk']['plain_ms']:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by}, {pipe})")
+    scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word)
     del wdb
     torch.cuda.empty_cache()
     return rows
+
+
+def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
+    """The scored-search and LSH kernels at the main path's shapes, on the
+    packed_topk phase's queries and corpus, with the sketcher's tables."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, ref
+    from repro_torch.rank import build_rank_tables
+    bits, nq = crp.spec.bits, CHUNK_Q
+    w_words = packing.packed_width(K, bits)
+    q_tab = build_rank_tables(crp).query_tables(codes_q)
+    fp = q_tab.shape[1]
+    pairs = float(nq) * N_ROWS * w_words
+    count_ops = [("popc", pairs, POPC_OP_S),
+                 ("int32", pairs * int_word, INT32_OP_S)]
+
+    def row(name, fn_kernel, fn_plain, want, b, shape, plain_reps=10):
+        t0 = time.perf_counter()
+        got = fn_kernel()
+        if not same(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+            raise AssertionError(f"{name} differs from its plain version")
+        del got, want
+        ms = time_ms(fn_kernel)
+        plain_ms = time_ms(fn_plain, reps=plain_reps, warmup=1)
+        b_ms, b_by, pipe = b
+        rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe,
+                          library_ms=None, shape=shape)
+        log(f"kernel {name}: {shape} bit-exact ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, {pipe}); "
+            f"phase {time.perf_counter() - t0:.1f} s")
+
+    row("packed_collision_counts",
+        lambda: ops.packed_collision_counts(wq, wdb, bits, K, impl="kernel"),
+        lambda: ref.packed_collision_ref(wq, wdb, bits, K),
+        ref.packed_collision_ref(wq, wdb, bits, K),
+        bound(count_ops, 4.0 * (N_ROWS * w_words + nq * w_words
+                                + nq * N_ROWS)),
+        [nq, N_ROWS, w_words], plain_reps=3)
+    torch.cuda.empty_cache()
+    # the least work is one count sweep: the popcounts of B4, no more
+    row("fused_scored_topk",
+        lambda: ops.fused_scored_topk(wq, q_tab, wdb, bits, K, RERANK_M,
+                                      TOP_K, impl="kernel"),
+        lambda: ref.fused_scored_topk_ref(wq, q_tab, wdb, bits, K, RERANK_M,
+                                          TOP_K),
+        ref.fused_scored_topk_ref(wq, q_tab, wdb, bits, K, RERANK_M, TOP_K),
+        bound(count_ops, 4.0 * (N_ROWS * w_words + nq * (w_words + fp)
+                                + 2 * nq * TOP_K)),
+        [nq, N_ROWS, w_words, RERANK_M, TOP_K], plain_reps=3)
+    torch.cuda.empty_cache()
+    cand_ids = torch.randint(0, N_ROWS, (nq, RERANK_M), generator=gen,
+                             device=wdb.device)
+    cand = wdb[cand_ids]
+    valid = torch.rand((nq, RERANK_M), generator=gen, device=wdb.device) > 0.1
+    lookups = float(nq) * RERANK_M * w_words * (32 // bits)
+    row("packed_lut_rerank",
+        lambda: ops.packed_lut_rerank(q_tab, cand, valid, bits, TOP_K,
+                                      impl="kernel"),
+        lambda: ref.packed_lut_rerank_ref(q_tab, cand, valid, bits, TOP_K),
+        ref.packed_lut_rerank_ref(q_tab, cand, valid, bits, TOP_K),
+        bound([("f32", lookups, F32_FLOP_S)],
+              4.0 * nq * (fp + RERANK_M * w_words + 2 * TOP_K)
+              + nq * RERANK_M),
+        [nq, RERANK_M, w_words, TOP_K])
 
 
 def main_path(device) -> tuple:
@@ -378,7 +595,7 @@ def main_path(device) -> tuple:
         raise AssertionError(f"after add: {hits2}/{N_PLANTED + n_new}")
     if engine.n != N_ROWS + CHUNK:
         raise AssertionError(f"engine.n {engine.n}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in FIRST_SLICE if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
@@ -395,15 +612,158 @@ def main_path(device) -> tuple:
         f"{engine.n} rows")
     rates = dict(ingest_rows_s=N_ROWS / t_ingest,
                  search_queries_s=N_QUERIES / t_search)
-    return counts, rates, engine, queries2
+    return counts, rates, engine, queries2, dict(
+        queries=queries, src_ids=src_ids, sources=sources)
+
+
+# JAX's float32 2-bit, w = 0.75, k = 256 tables
+# (repro.rank.build_rank_tables(CodeSpec("2bit", 0.75), 256)): the pair
+# table, and score_grid at five indices
+JAX_PAIR = [
+    [1.2127269506454468, -0.2013745903968811, -2.9478564262390137,
+     -7.9080915451049805],
+    [-0.2013746201992035, 0.7243614196777344, -0.1354592740535736,
+     -2.9478559494018555],
+    [-2.9478559494018555, -0.13545948266983032, 0.7243613004684448,
+     -0.2013746201992035],
+    [-7.908156871795654, -2.9478561878204346, -0.2013745754957199,
+     1.2127269506454468]]
+JAX_SCORE_POINTS = {0: -353.320068359375, 128: -224.7241668701172,
+                    256: -92.25975799560547, 384: 48.576019287109375,
+                    511: 239.96676635742188}
+
+def check_rank_tables(tables) -> None:
+    """The port's float64-built tables against JAX's float32 ones."""
+    import torch
+    pair = tables.pair.cpu().double()
+    want = torch.tensor(JAX_PAIR, dtype=torch.float64)
+    err = float(((pair - want).abs() / want.abs()).max())
+    grid = tables.score_grid.cpu().double()
+    g_err = max(abs(float(grid[i]) - v) / abs(v)
+                for i, v in JAX_SCORE_POINTS.items())
+    log(f"rank tables: pair max relative error {err:.3e}, score_grid "
+        f"{g_err:.3e} at {len(JAX_SCORE_POINTS)} points (limit 1e-4)")
+    if err > 1e-4 or g_err > 1e-4:
+        raise AssertionError("rank tables differ from JAX's beyond 1e-4")
+
+
+def scored_path(engine, queries, src_ids, sources, device) -> tuple:
+    """Scored and LSH search over the store after ``add``, counted:
+    scored fused (f32 and int8 tables) and two-stage over 1,024 queries,
+    LSH count-ranked and scored over one 256-query chunk; then gates, a
+    16-query recheck of each mode through the plain versions, and the
+    count-vs-scored hit rate on harder queries."""
+    import torch
+    from repro_torch.ann.engine import SearchConfig
+    from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
+    tables = engine.rank_tables
+    torch.cuda.synchronize()
+    log(f"rank tables set-up: {1e3 * (time.perf_counter() - t0):.3f} ms")
+    check_rank_tables(tables)
+    lsh_q = torch.cat([queries[:N_LSH_PLANTED],
+                       queries[N_PLANTED:N_PLANTED + N_LSH - N_LSH_PLANTED]])
+    modes = {   # name: (queries, warm-up chunk, search kwargs)
+        "scored_f32": (queries, True, dict(scored=True)),
+        "scored_int8": (queries, True, dict(scored=True, table_dtype="int8")),
+        "two_stage": (queries, True, dict(scored=True, fused=False)),
+        "lsh": (lsh_q, False, dict(mode="lsh")),
+        "lsh_scored": (lsh_q, False, dict(mode="lsh", scored=True)),
+    }
+    out, rates = {}, {}
+    ops.reset_launch_counts()
+    for name, (qs, warm, kw) in modes.items():
+        if warm:
+            engine.search(qs[:CHUNK_Q], top_k=TOP_K, chunk_q=CHUNK_Q, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = engine.search(qs, top_k=TOP_K, chunk_q=CHUNK_Q, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates[f"{name}_queries_s"] = qs.shape[0] / dt
+        ids, rho = out[name]
+        n_pl = N_PLANTED if qs is queries else N_LSH_PLANTED
+        hits = int((ids[:n_pl, 0] == src_ids[:n_pl]).sum())
+        log(f"search {name}: {qs.shape[0]} queries in {dt:.4f} s = "
+            f"{qs.shape[0] / dt:.1f} queries/s; planted at rank 0: "
+            f"{hits}/{n_pl}; planted rho_hat median "
+            f"{float(rho[:n_pl, 0].median()):.4f}")
+        if ids.shape != (qs.shape[0], TOP_K) or \
+                not bool(torch.isfinite(rho).all()):
+            raise AssertionError(f"{name}: wrong shape or non-finite rho")
+        if name != "scored_int8" and hits != n_pl:
+            raise AssertionError(f"{name}: planted at rank 0 {hits}/{n_pl}")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"launch counts on the scored and LSH path: {json.dumps(counts)}")
+    missing = [k for k in SCORED_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the scored path: "
+                             f"{missing}")
+
+    # fused == two-stage, but where LUT scores tie across counts
+    (fi, fr), (ti, tr) = out["scored_f32"], out["two_stage"]
+    diff = torch.nonzero(((fi != ti) | (fr != tr)).any(dim=1)).flatten()
+    q_codes = engine.encode_queries(queries[diff])
+    q_words = ref.pack_codes_ref(q_codes, engine.store.bits)
+    q_tab = tables.query_tables(q_codes)
+    m = SearchConfig(top_k=TOP_K).resolve_m(engine.n)
+    ties = 0
+    for i in range(diff.numel()):
+        sl = slice(i, i + 1)
+        a = ref.fused_scored_topk_ref(q_words[sl], q_tab[sl],
+                                      engine.store.words, engine.store.bits,
+                                      K, m, TOP_K)
+        b = ref.two_stage_scored_ref(q_words[sl], q_tab[sl],
+                                     engine.store.words, engine.store.bits,
+                                     K, m, TOP_K)
+        if same(a, b):
+            raise AssertionError(f"query {int(diff[i])}: fused and two-stage "
+                                 f"differ without a cross-count tie")
+        ties += 1
+    log(f"fused vs two-stage: {N_QUERIES - ties}/{N_QUERIES} queries equal "
+        f"in ids and rho_hat; {ties} differ, each at LUT scores tied across "
+        f"collision counts (the plain versions differ there too)")
+
+    # each mode against the same engine through the plain versions
+    pick = torch.cat([torch.arange(8, device=device),
+                      torch.arange(N_LSH - 8, N_LSH, device=device)])
+    for name, (qs, _, kw) in modes.items():
+        cfg = SearchConfig(top_k=TOP_K, chunk_q=16, impl="ref", **kw)
+        want = engine.search_codes(engine.encode_queries(qs[pick]), cfg)
+        if not same(tuple(t[pick] for t in out[name]), want):
+            raise AssertionError(f"{name}: 16-query recheck failed")
+    log(f"recheck: 16 queries of each mode bit-exact against the plain "
+        f"versions over {engine.n} rows")
+
+    # quality: planted neighbours at cosine about 0.9 (noise norm 0.48)
+    # and about 0.6 (noise norm 1.33), count-ranked against scored
+    gen = torch.Generator(device=device).manual_seed(90)
+    for noise in (0.48, 1.33):
+        hard = sources + (noise / math.sqrt(D)) * torch.randn(
+            sources.shape, generator=gen, device=device)
+        cos = float(((hard / hard.norm(dim=1, keepdim=True)) * sources)
+                    .sum(1).mean())
+        hit = {}
+        for name, kw in (("count", {}), ("scored", dict(scored=True))):
+            ids, _ = engine.search(hard, top_k=TOP_K, chunk_q=CHUNK_Q, **kw)
+            hit[name] = float((ids[:, 0] == src_ids).float().mean())
+            rates[f"rank0_{name}_cos{cos:.2f}"] = hit[name]
+        log(f"planted queries at mean cosine {cos:.4f} ({sources.shape[0]} "
+            f"queries): rank-0 hit rate count-ranked {hit['count']:.4f}, "
+            f"scored {hit['scored']:.4f}")
+    rates["fused_two_stage_cross_count_ties"] = ties
+    return counts, rates
 
 
 def profile_main_path(engine, queries, device) -> None:
     """``--profile``: device time by kernel for 8 ``sketch`` calls, each
     on a 65,536-row chunk made beforehand and each followed by a
-    synchronisation (the window the ingest rate times), and for one
-    1,024-query search over the main path's store, with the device's idle
-    share of each window's wall time (torch.profiler)."""
+    synchronisation (the window the ingest rate times), for one
+    1,024-query search over the main path's store, for the same search
+    scored (fused, f32 tables), and for one 256-query LSH chunk, scored,
+    with the device's idle share of each window's wall time
+    (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -416,9 +776,14 @@ def profile_main_path(engine, queries, device) -> None:
             crp.sketch(x)
             torch.cuda.synchronize()
 
-    for what, fn in (("ingest 8 chunks", ingest),
-                     ("search", lambda: engine.search(queries, top_k=TOP_K,
-                                                      chunk_q=CHUNK_Q))):
+    def search(**kw):
+        return lambda: engine.search(queries if kw.get("mode") != "lsh"
+                                     else queries[:N_LSH], top_k=TOP_K,
+                                     chunk_q=CHUNK_Q, **kw)
+
+    for what, fn in (("ingest 8 chunks", ingest), ("search", search()),
+                     ("scored search", search(scored=True)),
+                     ("lsh scored search", search(mode="lsh", scored=True))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -455,6 +820,12 @@ REPLACES = {
                    "src/repro/kernels/pack_codes.py:32"),
     "packed_topk": ("src/repro_torch/kernels/csrc/packed_topk.cu",
                     "src/repro/kernels/packed_collision.py:170"),
+    "fused_scored_topk": ("src/repro_torch/kernels/csrc/fused_scored.cu",
+                          "src/repro/kernels/fused_scored.py:265"),
+    "packed_collision_counts": ("src/repro_torch/kernels/csrc/packed_counts.cu",
+                                "src/repro/kernels/packed_collision.py:90"),
+    "packed_lut_rerank": ("src/repro_torch/kernels/csrc/packed_lut.cu",
+                          "src/repro/kernels/packed_lut.py:296"),
 }
 
 
@@ -485,7 +856,10 @@ def main(argv) -> int:
                 log(f"ptxas {name}: {line.strip()}")
     log(f"card: {card}")
 
+    t0 = time.perf_counter()
     small_checks(device)
+    scored_checks(device)
+    log(f"phase small checks: {time.perf_counter() - t0:.1f} s")
     if "--check" in argv:
         log("check mode: stopping after the small-shape kernel checks")
         return 0
@@ -497,16 +871,29 @@ def main(argv) -> int:
     if digest != R_SHA256:
         raise AssertionError(f"R digest {digest} != the JAX reference's")
     log("R: bit-identical to the JAX reference (SHA-256)")
+    t0 = time.perf_counter()
     rows = kernel_phase(crp, device)
-    counts, rates, engine, queries = main_path(device)
+    log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts, rates, engine, queries, state = main_path(device)
     log(f"rates: {json.dumps(rates)}")
+    log(f"phase main path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_scored, rates_scored = scored_path(engine, state["queries"],
+                                              state["src_ids"],
+                                              state["sources"], device)
+    log(f"scored path: {json.dumps(rates_scored)}")
+    log(f"phase scored and LSH path: {time.perf_counter() - t0:.1f} s")
     if "--profile" in argv:
         profile_main_path(engine, queries, device)
     kernels = []
-    for name in ("encode_fused", "coded_project", "pack_codes", "packed_topk"):
-        src, rep = REPLACES[name]
+    for name, src_rep in REPLACES.items():
+        src, rep = src_rep
+        # the first slice's kernels count on the main path, this slice's
+        # on the scored and LSH path
+        n_launch = counts[name] if name in FIRST_SLICE else counts_scored[name]
         row = dict(name=name, route="cuda", source=src, replaces=rep,
-                   launches=counts[name])
+                   launches=n_launch)
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))

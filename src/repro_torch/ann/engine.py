@@ -1,12 +1,23 @@
-"""Batched exact search over packed codes on one device.
+"""Batched search over packed codes on one device.
 
-Counterpart of ``repro/ann/engine.py:61-178,241-458,474-480`` in its
-count-ranked exact mode: queries are coded by the fused project + code
-kernel, packed, and matched against a ``CodeStore`` by the streaming
-packed top-k kernel; rho_hat comes from the paper's collision estimator.
-Queries run in chunks of ``chunk_q`` rows. Scored (LUT) search, LSH
-candidates and the sharded search are later slices of the port and
-raise ``NotImplementedError`` naming their ROADMAP items.
+Counterpart of ``repro/ann/engine.py:61-518``. Queries are coded by the
+fused project + code kernel, packed, and matched against a ``CodeStore``
+in chunks of ``chunk_q`` rows. Two candidate modes:
+
+``exact``  the whole store: the streaming packed top-k kernel by
+           collision count, or, scored, the fused kernel that LUT-scores
+           the stable top-``rerank_m`` by count in one call;
+``lsh``    banded candidates: rows sharing at least ``min_bands`` band
+           buckets with the query (probes prefix-nested in
+           ``n_probes``) are ranked by their full collision count, over
+           the whole count matrix.
+
+``scored=True`` ranks by the per-code-pair LUT scores of ``rank`` and
+calibrates rho_hat from them; ``fused=False`` (and every scored LSH
+search) takes the two-stage path: coarse top-m by count, then the LUT
+re-rank kernel over the gathered candidates. Count-ranked rho_hat
+comes from the paper's collision estimator. The sharded search is a
+later slice and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -14,14 +25,17 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from repro_torch.ann.bands import BandSpec, band_hashes
+from repro_torch.ann.bands import BandSpec, band_hashes, probe_hashes
 from repro_torch.ann.store import CodeStore
 from repro_torch.core import packing as _packing
 from repro_torch.core.sketch import CodedRandomProjection
 from repro_torch.kernels import ops as _ops
+from repro_torch.kernels import ref as _ref
+from repro_torch.rank.tables import RankTables, build_rank_tables
 
 __all__ = ["SearchConfig", "AnnEngine", "QueryCoder", "merge_topk",
-           "run_chunked"]
+           "run_chunked", "lut_rerank_stage", "rho_scored",
+           "resolve_query_tables"]
 
 _HASH_ROWS = 1 << 16   # rows per band-hash step (bounds the temporaries)
 
@@ -30,10 +44,42 @@ _HASH_ROWS = 1 << 16   # rows per band-hash step (bounds the temporaries)
 class SearchConfig:
     """Static knobs of one search variant."""
     top_k: int = 10
-    mode: str = "exact"          # exact | lsh (lsh: a later slice)
+    mode: str = "exact"          # exact | lsh
+    min_bands: int = 1           # lsh: matching bands required to be a candidate
+    n_probes: int = 0            # lsh: multi-probe expansions per band
     chunk_q: int = 256           # query rows per device step
     impl: str = "auto"           # kernel dispatch (see kernels.ops)
-    scored: bool = False         # scored search (a later slice)
+    scored: bool = False         # scored search: LUT scores, calibrated rho
+    rerank_m: int = 0            # scored: coarse candidates (0 = auto)
+    fused: bool = True           # scored exact: one fused call (False =
+    #                              coarse top-m, then the LUT re-rank)
+    table_dtype: str = "auto"    # LUT storage: auto | f32 | bf16 | int8
+
+    def resolve_m(self, n: int) -> int:
+        """Coarse candidates for ``n`` rows: ``rerank_m`` (default
+        max(64, 4*top_k)), never below ``top_k`` nor above ``n``."""
+        m = self.rerank_m or max(64, 4 * self.top_k)
+        return max(1, min(max(m, self.top_k), n))
+
+    def use_fused(self) -> bool:
+        """Scored exact search takes the fused kernel unless fused=False;
+        scored LSH stays two-stage (its band filter is in the coarse
+        stage)."""
+        return self.scored and self.fused and self.mode == "exact"
+
+
+def resolve_query_tables(tables: RankTables, q_codes: torch.Tensor,
+                         table_dtype: str):
+    """Per-query LUTs in the configured storage -> (tables [Q, F*P],
+    scales [Q, W] or None): ``auto`` takes the bundle's dtype, ``f32``
+    and ``bf16`` force one, ``int8`` gives power-of-two-scaled int8
+    tables, which only the fused kernel takes."""
+    if table_dtype == "int8":
+        return tables.query_tables_int8(q_codes)
+    named = {"auto": None, "f32": torch.float32, "bf16": torch.bfloat16}
+    if table_dtype not in named:
+        raise ValueError(f"unknown table_dtype {table_dtype!r}")
+    return tables.query_tables(q_codes, dtype=named[table_dtype]), None
 
 
 class QueryCoder:
@@ -89,16 +135,55 @@ def run_chunked(q_codes: torch.Tensor, cfg: SearchConfig, chunk_fn):
     return torch.cat(ids)[:q], torch.cat(rho)[:q]
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is ROADMAP queue A item {item}, not "
-                               f"yet ported to repro_torch")
+def lut_rerank_stage(tables: RankTables, q_codes: torch.Tensor,
+                     cand_ids: torch.Tensor, words_src: torch.Tensor,
+                     top_k: int, impl: str = "auto"):
+    """Second stage of a two-stage scored search: candidate rows
+    ``cand_ids`` int32 [c, M] into ``words_src`` [n, W] (-1 = empty) ->
+    (rows int32 [c, top_k], -1 empty; scores float32 [c, top_k], -inf
+    empty), by gathering the candidates' words and running the LUT
+    re-rank kernel on the queries' tables."""
+    n = words_src.shape[0]
+    cand = words_src[cand_ids.clamp(0, n - 1).to(torch.int64)]
+    scores, pos = _ops.packed_lut_rerank(tables.query_tables(q_codes), cand,
+                                         cand_ids >= 0, tables.bits, top_k,
+                                         impl=impl)
+    rows = torch.gather(cand_ids, 1,
+                        pos.clamp(0, cand_ids.shape[1] - 1).to(torch.int64))
+    return torch.where(pos < 0, torch.full_like(rows, -1), rows), scores
+
+
+def rho_scored(tables: RankTables, ids: torch.Tensor,
+               scores: torch.Tensor) -> torch.Tensor:
+    """LUT scores -> calibrated rho_hat float32; empty slots (id < 0)
+    give -1."""
+    rho = tables.rho_from_scores(scores)
+    return torch.where(ids < 0, torch.full_like(rho, -1.0), rho)
+
+
+def _coarse_band_scores(q_probe_hashes: torch.Tensor,
+                        db_hashes: torch.Tensor) -> torch.Tensor:
+    """Matching-band counts: [c, P, L] vs [N, L] -> int32 [c, N]; a band
+    matches when any probe hits its bucket. Each band's column of corpus
+    hashes is made contiguous first, so the [c, N] comparisons stream."""
+    c, p_n, l_n = q_probe_hashes.shape
+    score = torch.zeros((c, db_hashes.shape[0]), dtype=torch.int32,
+                        device=db_hashes.device)
+    for band in range(l_n):
+        col = db_hashes[:, band].contiguous()
+        hit = q_probe_hashes[:, 0, band, None] == col
+        for p in range(1, p_n):
+            hit |= q_probe_hashes[:, p, band, None] == col
+        score += hit
+    return score
 
 
 class AnnEngine:
     """Immutable search engine: sketcher + packed corpus + band hashes."""
 
     def __init__(self, sketcher: CodedRandomProjection, store: CodeStore,
-                 band_spec: BandSpec = BandSpec(), db_band_hashes=None):
+                 band_spec: BandSpec = BandSpec(), db_band_hashes=None,
+                 rank_tables: RankTables = None):
         if store.words.device != sketcher.device:
             raise ValueError(f"store on {store.words.device}, sketcher on "
                              f"{sketcher.device}")
@@ -109,6 +194,7 @@ class AnnEngine:
             db_band_hashes = self._hash_words(store.words)
         self.db_band_hashes = db_band_hashes      # uint32 values, int64 [n, L]
         self._coder = QueryCoder(sketcher)
+        self._rank_tables = rank_tables
 
     def _hash_words(self, words: torch.Tensor) -> torch.Tensor:
         """Band hashes of packed rows, in row chunks: only the words that
@@ -145,17 +231,28 @@ class AnnEngine:
                    db_band_hashes=band_hashes(codes, band_spec))
 
     def add(self, x, impl: str = "auto") -> "AnnEngine":
-        """New engine with rows appended (ids continue from n)."""
+        """New engine with rows appended (ids continue from n); the rank
+        tables carry across."""
         codes = self._coder.encode(x, impl=impl)
         hashes = torch.cat([self.db_band_hashes,
                             band_hashes(codes, self.band_spec)])
         return AnnEngine(self.sketcher, self.store.add(codes, impl=impl),
-                         self.band_spec, db_band_hashes=hashes)
+                         self.band_spec, db_band_hashes=hashes,
+                         rank_tables=self._rank_tables)
 
     @property
     def n(self) -> int:
         """Corpus rows resident in the store."""
         return self.store.n
+
+    @property
+    def rank_tables(self) -> RankTables:
+        """LUT scoring tables for scored search, built on first use from
+        the sketcher's scheme and k (pass ``rank_tables`` to ``__init__``
+        for others, e.g. bf16-quantized ones)."""
+        if self._rank_tables is None:
+            self._rank_tables = build_rank_tables(self.sketcher)
+        return self._rank_tables
 
     # -- queries -------------------------------------------------------------
     def encode_queries(self, x, impl: str = "auto") -> torch.Tensor:
@@ -169,21 +266,24 @@ class AnnEngine:
                                      self.sketcher.cfg.k)
 
     def search(self, queries, top_k: int = 10, *, mode: str = "exact",
-               chunk_q: int = 256, impl: str = "auto", scored: bool = False):
+               min_bands: int = 1, n_probes: int = 0, chunk_q: int = 256,
+               impl: str = "auto", scored: bool = False, rerank_m: int = 0,
+               fused: bool = True, table_dtype: str = "auto"):
         """queries float [Q, D] -> (ids int32 [Q, top_k], rho_hat float32
         [Q, top_k]); ids of -1 mark empty slots."""
-        cfg = SearchConfig(top_k=top_k, mode=mode, chunk_q=chunk_q,
-                           impl=impl, scored=scored)
+        cfg = SearchConfig(top_k=top_k, mode=mode, min_bands=min_bands,
+                           n_probes=n_probes, chunk_q=chunk_q, impl=impl,
+                           scored=scored, rerank_m=rerank_m, fused=fused,
+                           table_dtype=table_dtype)
         self._check(cfg)
         return self.search_codes(self.encode_queries(queries, impl=impl), cfg)
 
     def _check(self, cfg: SearchConfig):
         if cfg.mode not in ("exact", "lsh"):
             raise ValueError(f"unknown mode {cfg.mode!r}")
-        if cfg.mode == "lsh":
-            raise _not_ported("LSH candidate search (mode='lsh')", "4")
-        if cfg.scored:
-            raise _not_ported("scored search (scored=True)", "5")
+        if cfg.table_dtype == "int8" and not cfg.use_fused():
+            raise ValueError("int8 tables require the fused scored exact "
+                             "path (scored=True, fused=True, mode='exact')")
 
     def search_codes(self, q_codes: torch.Tensor, cfg: SearchConfig):
         """Search pre-encoded queries [Q, k] in chunks of ``cfg.chunk_q``."""
@@ -195,12 +295,14 @@ class AnnEngine:
                                device=dev),
                     torch.full((q, cfg.top_k), -1.0, dtype=torch.float32,
                                device=dev))
-        return run_chunked(q_codes, cfg,
-                           lambda chunk, c: self._exact_chunk(chunk, cfg=c))
+        body = self._exact_chunk if cfg.mode == "exact" else self._lsh_chunk
+        return run_chunked(q_codes, cfg, lambda chunk, c: body(chunk, cfg=c))
 
     def search_sharded(self, *args, **kwargs):
         """Row-sharded search across devices: not yet ported."""
-        raise _not_ported("search_sharded (torch.distributed merge)", "4")
+        raise NotImplementedError(
+            "search_sharded (torch.distributed merge) is ROADMAP queue A "
+            "item 4, not yet ported to repro_torch")
 
     def _rho(self, counts: torch.Tensor) -> torch.Tensor:
         """Collision counts -> rho_hat; empty slots (count < 0) give -1."""
@@ -208,15 +310,81 @@ class AnnEngine:
         rho = self.sketcher._estimator(counts.to(torch.float32) / k)
         return torch.where(counts < 0, torch.full_like(rho, -1.0), rho)
 
+    def _rerank(self, q_codes: torch.Tensor, cand_ids: torch.Tensor,
+                cfg: SearchConfig):
+        """Coarse candidate rows -> (ids, rho) by the LUT re-rank."""
+        ids, scores = lut_rerank_stage(self.rank_tables, q_codes, cand_ids,
+                                       self.store.words, cfg.top_k,
+                                       impl=cfg.impl)
+        return ids, rho_scored(self.rank_tables, ids, scores)
+
     def _exact_coarse(self, q_codes: torch.Tensor, *, cfg: SearchConfig):
-        """One exact chunk -> (counts, ids) at top-k: pack the query codes,
-        then the streaming packed top-k over the whole store."""
+        """One exact chunk -> (counts, ids) at top-m (scored) or top-k:
+        pack the query codes, then the streaming packed top-k over the
+        whole store."""
         q_words = _ops.pack_codes(q_codes, self.store.bits, impl=cfg.impl)
+        top = cfg.resolve_m(self.store.n) if cfg.scored else cfg.top_k
         vals, ids = _ops.packed_topk(q_words, self.store.words,
                                      self.store.bits, self.sketcher.cfg.k,
-                                     cfg.top_k, impl=cfg.impl)
+                                     top, impl=cfg.impl)
         return vals, torch.where(vals < 0, torch.full_like(ids, -1), ids)
 
+    def _fused_chunk(self, q_codes: torch.Tensor, *, cfg: SearchConfig):
+        """One scored exact chunk through the fused kernel: the coarse
+        top-m by count and the LUT re-rank in one call."""
+        q_words = _ops.pack_codes(q_codes, self.store.bits, impl=cfg.impl)
+        q_tables, scales = resolve_query_tables(self.rank_tables, q_codes,
+                                                cfg.table_dtype)
+        scores, ids = _ops.fused_scored_topk(
+            q_words, q_tables, self.store.words, self.store.bits,
+            self.sketcher.cfg.k, cfg.resolve_m(self.store.n), cfg.top_k,
+            scales=scales, impl=cfg.impl)
+        return ids, rho_scored(self.rank_tables, ids, scores)
+
     def _exact_chunk(self, q_codes: torch.Tensor, *, cfg: SearchConfig):
+        if cfg.use_fused():
+            return self._fused_chunk(q_codes, cfg=cfg)
         vals, ids = self._exact_coarse(q_codes, cfg=cfg)
+        if cfg.scored:
+            return self._rerank(q_codes, ids, cfg)
         return ids, self._rho(vals)
+
+    def _lsh_coarse(self, q_codes: torch.Tensor, *, cfg: SearchConfig):
+        """One lsh chunk -> (counts, ids): full collision counts, rows
+        with fewer than ``min_bands`` matching bands set to -1, then a
+        stable top-m (scored) or top-k."""
+        q_words = _ops.pack_codes(q_codes, self.store.bits, impl=cfg.impl)
+        qh = probe_hashes(q_codes, self.band_spec, cfg.n_probes)
+        coarse = _coarse_band_scores(qh, self.db_band_hashes)
+        counts = _ops.packed_collision_counts(
+            q_words, self.store.words, self.store.bits, self.sketcher.cfg.k,
+            impl=cfg.impl)
+        counts = torch.where(coarse >= cfg.min_bands, counts,
+                             torch.full_like(counts, -1))
+        del coarse
+        top = cfg.resolve_m(self.store.n) if cfg.scored else cfg.top_k
+        return _ref.topk_stable_ref(counts, top)
+
+    def _lsh_chunk(self, q_codes: torch.Tensor, *, cfg: SearchConfig):
+        vals, ids = self._lsh_coarse(q_codes, cfg=cfg)
+        if cfg.scored:
+            return self._rerank(q_codes, ids, cfg)
+        return ids, self._rho(vals)
+
+    # -- candidate introspection ---------------------------------------------
+    def band_match_counts(self, q_codes: torch.Tensor,
+                          n_probes: int = 0) -> torch.Tensor:
+        """[Q, k] codes -> int32 [Q, n] matching-band counts (a row is a
+        candidate iff its count > 0); non-decreasing in ``n_probes``."""
+        qh = probe_hashes(q_codes, self.band_spec, n_probes)
+        return _coarse_band_scores(qh, self.db_band_hashes)
+
+    def rerank(self, q_codes: torch.Tensor, cand_ids):
+        """Full packed collision counts of one query row's candidate list
+        -> (counts [c], rho_hat [c])."""
+        q_words = _ops.pack_codes(q_codes[None, :], self.store.bits,
+                                  impl="ref")
+        counts = _packing.match_count_packed(
+            q_words, self.store.take(torch.as_tensor(cand_ids)),
+            self.store.bits, self.sketcher.cfg.k)
+        return counts, self._rho(counts)

@@ -4,7 +4,9 @@
 vector (``r`` = ``crp.stream_encoder().r_matrix()`` of a ``repro``
 sketcher, ``offsets`` = its ``_offsets``), so both packages can run on
 identical R; ``store_from_numpy`` wraps uint32 words packed by ``repro``
-as a searchable ``CodeStore``.
+as a searchable ``CodeStore``; ``rank_tables_from_numpy`` wraps the
+arrays of a ``repro.rank.RankTables`` so that both packages score with
+identical tables.
 """
 from __future__ import annotations
 
@@ -12,10 +14,12 @@ import numpy as np
 import torch
 
 from repro_torch.ann.store import CodeStore
+from repro_torch.core.schemes import CodeSpec
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
 from repro_torch.device import resolve_device
+from repro_torch.rank.tables import RankTables
 
-__all__ = ["sketch_from_numpy", "store_from_numpy"]
+__all__ = ["sketch_from_numpy", "store_from_numpy", "rank_tables_from_numpy"]
 
 
 def sketch_from_numpy(cfg: SketchConfig, d: int, r, offsets=None,
@@ -40,3 +44,22 @@ def store_from_numpy(words_u32, k: int, bits: int, device=None) -> CodeStore:
     words = np.ascontiguousarray(words_u32, dtype=np.uint32).view(np.int32)
     return CodeStore(words=torch.from_numpy(words.copy()).to(
         resolve_device(device)), k=k, bits=bits)
+
+
+def rank_tables_from_numpy(spec: CodeSpec, k: int, pair, rho_grid,
+                           score_grid, dtype=torch.float32,
+                           device=None) -> RankTables:
+    """``RankTables`` holding float32 ``pair`` [P, P], ``rho_grid`` [G]
+    and ``score_grid`` [G] as given (``np.asarray`` of a ``repro``
+    bundle's fields), with query-table storage ``dtype``."""
+    p = 1 << spec.bits
+    pair = np.asarray(pair, dtype=np.float32)
+    if pair.shape != (p, p):
+        raise ValueError(f"pair {pair.shape} != ({p}, {p}) for {spec}")
+    dev = resolve_device(device)
+
+    def on(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return RankTables(spec=spec, k=k, pair=on(pair), rho_grid=on(rho_grid),
+                      score_grid=on(score_grid), dtype=dtype)

@@ -60,7 +60,7 @@ def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
     pad = (-k) % cpw
     if pad:
         c = torch.nn.functional.pad(c, (0, pad))
-    c = c.reshape(c.shape[:-1] + (-1, cpw))
+    c = c.reshape(c.shape[:-1] + (c.shape[-1] // cpw, cpw))
     return as_i32(torch.sum((c << _shifts(bits, c.device)) & MASK32, dim=-1))
 
 
@@ -68,7 +68,8 @@ def unpack_codes(words: torch.Tensor, bits: int, k: int) -> torch.Tensor:
     """Inverse of ``pack_codes``: int32 words [..., W] -> int32 [..., k]."""
     c = (as_u32(words)[..., None] >> _shifts(bits, words.device)) \
         & ((1 << bits) - 1)
-    return c.reshape(words.shape[:-1] + (-1,))[..., :k].to(torch.int32)
+    return c.reshape(words.shape[:-1] + (words.shape[-1] * c.shape[-1],))[
+        ..., :k].to(torch.int32)
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "normal", "erfinv_xla"]
+           "normal", "erfinv_xla", "log2_xla"]
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -125,7 +125,7 @@ def _log_xla(v: torch.Tensor) -> torch.Tensor:
     x = torch.where(small, m + m - 1.0, m - 1.0)
     x2 = x * x
     x3 = x2 * x
-    c = [_f32(p).expand_as(x) for p in _LOG_P]
+    c = [_f32(p).to(x.device).expand_as(x) for p in _LOG_P]
     y = _fma(_fma(c[0], x, c[1]), x, c[2])
     y1 = _fma(_fma(c[3], x, c[4]), x, c[5])
     y2 = _fma(_fma(c[6], x, c[7]), x, c[8])
@@ -134,6 +134,12 @@ def _log_xla(v: torch.Tensor) -> torch.Tensor:
     x = x - x2 * _f32(0.5)
     x = x + y
     return x + e * _f32(0.693359375)
+
+
+def log2_xla(v: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 log2: its log times float32(1/ln 2), each
+    rounded to float32 (not correctly rounded near powers of two)."""
+    return _log_xla(v) * _f32(1.0 / math.log(2.0)).to(v.device)
 
 
 _LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,

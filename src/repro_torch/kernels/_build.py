@@ -1,6 +1,7 @@
 """Builds and loads the CUDA kernels of ``kernels/csrc`` on first use.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles with its own
+Each ``csrc/<name>.cu`` has a plain C interface (with the shared
+``csrc/*.cuh`` headers) and compiles with its own
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` call (no PyTorch headers, no ``--use_fast_math``);
 ``build_all`` starts one such call per source, all at once. The shared
@@ -21,7 +22,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "function"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("coded_gemm", "pack_codes", "packed_topk")
+SOURCES = ("coded_gemm", "pack_codes", "packed_topk", "packed_counts",
+           "packed_lut", "fused_scored")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,6 +43,8 @@ def _target(name: str) -> Path:
     # hashed over the code-generating flags only: ``-Xptxas -v`` changes
     # the compiler's report, not the library, so there is one per source
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,0 +1,124 @@
+// Scored exact search: the top_k by LUT score over the stable top-m by
+// collision count, in one call.
+//
+// Replaces src/repro/kernels/fused_scored.py::fused_scored_topk_pallas:
+// query words [Q, W], query tables [Q, F*P] (float32, bf16, or int8 with
+// float32 scales [Q, W]) and corpus words [N, W] -> (scores float32, ids
+// int32) [Q, top_k]. Survivors are the exact stable top-m by count
+// (ties to the lowest id); the result is their top_k by (score desc, id
+// asc), with (-inf, -1) past the last survivor.
+//
+// Bound on this card: operations, the same popcount rate as
+// packed_topk.cu. Every (query, row, word) needs one popcount to count
+// collisions (Q*N*W = 1.7e10 at the main path), against N*W*4 bytes of
+// corpus; the scoring touches m rows a query and is negligible.
+//
+// Design. The TPU kernel sweeps the corpus twice in grid order: an
+// exceedance histogram of counts, inverted into a threshold and a tie
+// quota, then a second sweep that admits rows by that rule, counting
+// ties in id order through a counter carried across grid steps. That
+// order does not exist across the blocks of a GPU, and the rule
+// describes no more than the stable top-m by count. So this kernel runs
+// one sweep, packed_topk.cu's partial kernel with m in place of top_k:
+// per query, the stable top-m of each of S contiguous corpus ranges
+// (rows walked in rising id order; a row enters only if it strictly
+// beats the list's last entry). A second kernel gives each query one
+// block: warp 0 merges the S lists in range order under the same rule,
+// which yields exactly the survivor set; meanwhile the block loads the
+// query's table into shared memory when it fits (4 KB at the main path).
+// Each thread then LUT-scores survivors (lut_common.cuh, the reference's
+// accumulation order) and the block selects the top_k by (score, -id).
+// The [Q, N] count matrix and the survivor ids never reach device
+// memory; m is at most 2048, the per-warp lists' room in shared memory.
+#include "topk_common.cuh"
+#include "lut_common.cuh"
+
+namespace {
+
+constexpr size_t SMEM_TABLE_MAX = 96 * 1024;
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+score_survivors(const int32_t* __restrict__ part_vals,
+                const int32_t* __restrict__ part_ids,
+                const T* __restrict__ tables, const float* __restrict__ scales,
+                const uint32_t* __restrict__ db, float* __restrict__ scratch,
+                float* __restrict__ out_s, int32_t* __restrict__ out_ids,
+                int nq, int m, int w, int bits, int top_k, int n_ranges,
+                int fp, int tab_in_smem) {
+  extern __shared__ __align__(16) unsigned char score_smem[];
+  uint64_t* red = reinterpret_cast<uint64_t*>(score_smem);
+  int* lv = reinterpret_cast<int*>(red + 64);
+  int* li = lv + m;
+  T* stab = reinterpret_cast<T*>(li + m);
+  const int qi = blockIdx.x;
+  const T* tab = tables + (size_t)qi * fp;
+  const float* scl = scales ? scales + (size_t)qi * w : nullptr;
+  if (tab_in_smem) {
+    for (int i = threadIdx.x; i < fp; i += THREADS) stab[i] = tab[i];
+    tab = stab;
+  }
+  if (threadIdx.x < 32)
+    warp_merge_ranges(part_vals, part_ids, lv, li, nq, qi, m, n_ranges,
+                      threadIdx.x);
+  __syncthreads();
+  float* sc = scratch + (size_t)qi * m;
+  for (int i = threadIdx.x; i < m; i += THREADS)
+    sc[i] = lv[i] >= 0
+                ? score_row(tab, scl, db + (size_t)li[i] * w, w, bits)
+                : -INFINITY;
+  __syncthreads();
+  block_select(sc, m, [li](int i) { return li[i]; }, top_k,
+               out_s + (size_t)qi * top_k, out_ids + (size_t)qi * top_k, red);
+}
+
+template <typename T>
+cudaError_t launch_score(const int32_t* pv, const int32_t* pi,
+                         const void* tables, const float* scales,
+                         const uint32_t* db, float* scratch, float* out_s,
+                         int32_t* out_ids, int nq, int m, int w, int bits,
+                         int top_k, int n_ranges, cudaStream_t st) {
+  const int fp = (w * (32 / bits)) << bits;
+  const size_t tab_bytes = (size_t)fp * sizeof(T);
+  const int in_smem = tab_bytes <= SMEM_TABLE_MAX;
+  const size_t smem = 64 * sizeof(uint64_t) + 2 * (size_t)m * sizeof(int) +
+                      (in_smem ? tab_bytes : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      score_survivors<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  score_survivors<T><<<nq, THREADS, smem, st>>>(
+      pv, pi, static_cast<const T*>(tables), scales, db, scratch, out_s,
+      out_ids, nq, m, w, bits, top_k, n_ranges, fp, in_smem);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// tab_dtype: 0 float32, 1 bf16, 2 int8 (scales [nq, w], else null).
+// part_vals/part_ids: scratch [n_ranges, nq, m]; scratch: [nq, m] float32.
+extern "C" int fused_scored_launch(const uint32_t* q, const uint32_t* db,
+                                   const void* tables, int tab_dtype,
+                                   const float* scales, int32_t* part_vals,
+                                   int32_t* part_ids, float* scratch,
+                                   float* out_s, int32_t* out_ids, int nq,
+                                   int n, int w, int bits, int k, int m,
+                                   int top_k, int n_ranges, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = launch_partial_ranges(q, db, part_vals, part_ids, nq, n,
+                                          w, bits, k, m, n_ranges, st);
+  if (err != cudaSuccess) return (int)err;
+  if (tab_dtype == 0)
+    err = launch_score<float>(part_vals, part_ids, tables, nullptr, db,
+                              scratch, out_s, out_ids, nq, m, w, bits, top_k,
+                              n_ranges, st);
+  else if (tab_dtype == 1)
+    err = launch_score<uint16_t>(part_vals, part_ids, tables, nullptr, db,
+                                 scratch, out_s, out_ids, nq, m, w, bits,
+                                 top_k, n_ranges, st);
+  else
+    err = launch_score<int8_t>(part_vals, part_ids, tables, scales, db,
+                               scratch, out_s, out_ids, nq, m, w, bits, top_k,
+                               n_ranges, st);
+  return (int)err;
+}

@@ -1,0 +1,81 @@
+"""Wrapper of the fused scored search CUDA kernels (``csrc/fused_scored.cu``).
+
+Counterpart of ``repro/kernels/fused_scored.py::fused_scored_topk_pallas``:
+query words int32 [Q, W], query tables [Q, F*P] (float32, bf16, or int8
+with float32 scales [Q, W]) and corpus words int32 [N, W] -> (scores
+float32, corpus ids int32) [Q, top_k]: the stable top-k by LUT score
+over the stable top-``rerank_m`` by collision count, (-inf, -1) in empty
+slots.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.packed_collision import check_words, n_ranges
+from repro_torch.kernels.packed_lut import check_tables
+
+__all__ = ["fused_scored_topk_cuda", "MAX_RERANK_M", "MAX_TOP_K", "launches"]
+
+MAX_RERANK_M = 2048   # the partial kernel's per-warp lists in shared memory
+MAX_TOP_K = 2048      # one block-wide selection round per output slot
+launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def fused_scored_topk_cuda(words_q: torch.Tensor, tables: torch.Tensor,
+                           words_db: torch.Tensor, bits: int, k: int,
+                           rerank_m: int, top_k: int, scales=None):
+    """Launches the partial top-``rerank_m`` kernel over S corpus ranges
+    and the merge, score and select kernel -> (scores float32, ids
+    int32) [Q, top_k]."""
+    global launches
+    from repro_torch.kernels import _build
+    nq, n, w = check_words(words_q, words_db, bits)
+    code = check_tables(tables, nq, w, bits,
+                        (torch.float32, torch.bfloat16, torch.int8))
+    if tables.device != words_q.device:
+        raise ValueError(f"tables on {tables.device}, words on "
+                         f"{words_q.device}")
+    if (scales is None) != (tables.dtype != torch.int8):
+        raise ValueError("int8 tables need scales, and only int8 tables "
+                         "take them")
+    if scales is not None and (
+            scales.dtype != torch.float32 or tuple(scales.shape) != (nq, w)
+            or not scales.is_contiguous() or scales.device != words_q.device):
+        raise ValueError(f"scales must be a contiguous float32 tensor "
+                         f"[{nq}, {w}] on {words_q.device}, got "
+                         f"{scales.dtype} {tuple(scales.shape)} on "
+                         f"{scales.device}")
+    if not 1 <= rerank_m <= MAX_RERANK_M:
+        raise ValueError(f"rerank_m must be in [1, {MAX_RERANK_M}], got "
+                         f"{rerank_m}")
+    if not 1 <= top_k <= MAX_TOP_K:
+        raise ValueError(f"top_k must be in [1, {MAX_TOP_K}], got {top_k}")
+    dev = words_q.device
+    if nq == 0 or n == 0:
+        return (torch.full((nq, top_k), float("-inf"), dtype=torch.float32,
+                           device=dev),
+                torch.full((nq, top_k), -1, dtype=torch.int32, device=dev))
+    s = n_ranges(nq, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_v = torch.empty((s, nq, rerank_m), dtype=torch.int32, device=dev)
+    part_i = torch.empty((s, nq, rerank_m), dtype=torch.int32, device=dev)
+    scratch = torch.empty((nq, rerank_m), dtype=torch.float32, device=dev)
+    scores = torch.empty((nq, top_k), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, top_k), dtype=torch.int32, device=dev)
+    fn = _build.function("fused_scored", "fused_scored_launch",
+                         [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _P])
+    err = fn(words_q.data_ptr(), words_db.data_ptr(), tables.data_ptr(),
+             code, None if scales is None else scales.data_ptr(),
+             part_v.data_ptr(), part_i.data_ptr(), scratch.data_ptr(),
+             scores.data_ptr(), ids.data_ptr(), nq, n, w, bits, k, rerank_m,
+             top_k, s, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_scored_topk kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return scores, ids

@@ -1,6 +1,6 @@
 """Dispatch between the CUDA kernels and their plain versions.
 
-Counterpart of ``repro/kernels/ops.py:51-164``. ``impl``:
+Counterpart of ``repro/kernels/ops.py:51-164, 278-316``. ``impl``:
 
 * ``"auto"``: the kernel for CUDA tensors, the plain version (``ref.py``)
   for CPU tensors;
@@ -17,16 +17,25 @@ import torch
 
 from repro_torch.core.schemes import CodeSpec
 from repro_torch.kernels import encode_fused as _encode_fused
+from repro_torch.kernels import fused_scored as _fused_scored
 from repro_torch.kernels import pack_codes as _pack_codes
 from repro_torch.kernels import packed_collision as _packed_collision
+from repro_torch.kernels import packed_lut as _packed_lut
 from repro_torch.kernels import proj_code as _proj_code
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["coded_project", "encode_fused", "pack_codes", "packed_topk",
-           "launch_counts", "reset_launch_counts"]
+           "packed_collision_counts", "packed_lut_rerank",
+           "fused_scored_topk", "launch_counts", "reset_launch_counts"]
 
-_WRAPPERS = {"coded_project": _proj_code, "encode_fused": _encode_fused,
-             "pack_codes": _pack_codes, "packed_topk": _packed_collision}
+# wrapper name -> (module, its launch counter)
+_WRAPPERS = {"coded_project": (_proj_code, "launches"),
+             "encode_fused": (_encode_fused, "launches"),
+             "pack_codes": (_pack_codes, "launches"),
+             "packed_topk": (_packed_collision, "launches"),
+             "packed_collision_counts": (_packed_collision, "counts_launches"),
+             "packed_lut_rerank": (_packed_lut, "launches"),
+             "fused_scored_topk": (_fused_scored, "launches")}
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -78,12 +87,53 @@ def packed_topk(words_q: torch.Tensor, words_db: torch.Tensor, bits: int,
     return _ref.packed_topk_ref(words_q, words_db, bits, k, top_k)
 
 
+def packed_collision_counts(words_q: torch.Tensor, words_db: torch.Tensor,
+                            bits: int, k: int,
+                            impl: str = "auto") -> torch.Tensor:
+    """All-pairs collision counts: int32 words [Q, W] x [N, W] -> int32
+    [Q, N]."""
+    if _use_kernel(impl, words_q):
+        return _packed_collision.packed_collision_counts_cuda(
+            words_q.contiguous(), words_db.contiguous(), bits, k)
+    return _ref.packed_collision_ref(words_q, words_db, bits, k)
+
+
+def packed_lut_rerank(q_tables: torch.Tensor, cand_words: torch.Tensor,
+                      cand_valid: torch.Tensor, bits: int, top_k: int,
+                      impl: str = "auto"):
+    """Re-rank gathered candidates [Q, M, W] by per-query LUT score ->
+    (scores float32, candidate positions int32) [Q, top_k]."""
+    if _use_kernel(impl, cand_words):
+        return _packed_lut.packed_lut_rerank_cuda(
+            q_tables.contiguous(), cand_words.contiguous(),
+            (cand_valid != 0).contiguous(), bits, top_k)
+    return _ref.packed_lut_rerank_ref(q_tables, cand_words, cand_valid, bits,
+                                      top_k)
+
+
+def fused_scored_topk(q_words: torch.Tensor, q_tables: torch.Tensor,
+                      words_db: torch.Tensor, bits: int, k: int,
+                      rerank_m: int, top_k: int, scales=None,
+                      impl: str = "auto"):
+    """Top-``top_k`` by LUT score over the stable top-``rerank_m`` by
+    collision count -> (scores float32, corpus ids int32) [Q, top_k].
+    ``scales`` float32 [Q, W] (powers of two) selects the int8 tables."""
+    if _use_kernel(impl, q_words):
+        return _fused_scored.fused_scored_topk_cuda(
+            q_words.contiguous(), q_tables.contiguous(),
+            words_db.contiguous(), bits, k, rerank_m, top_k,
+            None if scales is None else scales.contiguous())
+    return _ref.fused_scored_topk_ref(q_words, q_tables, words_db, bits, k,
+                                      rerank_m, top_k, scales=scales)
+
+
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset."""
-    return {name: mod.launches for name, mod in _WRAPPERS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
     """Sets every wrapper's launch count to 0."""
-    for mod in _WRAPPERS.values():
-        mod.launches = 0
+    for mod, attr in _WRAPPERS.values():
+        setattr(mod, attr, 0)

@@ -1,8 +1,13 @@
-"""Wrapper of the packed top-k search CUDA kernel (``csrc/packed_topk.cu``).
+"""Wrappers of the packed collision-count CUDA kernels.
 
-Counterpart of ``repro/kernels/packed_collision.py::packed_topk_pallas``:
-int32 words [Q, W] x [N, W] -> (counts, ids) int32 [Q, top_k], a stable
-descending top-k by collision count, (-1, -1) in empty slots.
+Counterparts of ``repro/kernels/packed_collision.py``:
+
+* ``packed_topk_cuda`` (``csrc/packed_topk.cu``, ``packed_topk_pallas``):
+  int32 words [Q, W] x [N, W] -> (counts, ids) int32 [Q, top_k], a
+  stable descending top-k by collision count, (-1, -1) in empty slots;
+* ``packed_collision_counts_cuda`` (``csrc/packed_counts.cu``,
+  ``packed_collision_counts_pallas``): the whole int32 count matrix
+  [Q, N].
 """
 from __future__ import annotations
 
@@ -10,11 +15,16 @@ import ctypes
 
 import torch
 
-__all__ = ["packed_topk_cuda", "n_ranges", "MAX_TOP_K", "launches"]
+__all__ = ["packed_topk_cuda", "packed_collision_counts_cuda", "n_ranges",
+           "check_words", "MAX_TOP_K", "MAX_COUNT_QUERIES", "launches",
+           "counts_launches"]
 
 MAX_TOP_K = 2048   # the per-warp lists of a block fit in shared memory
 WARPS = 8          # queries per block (csrc/packed_topk.cu)
-launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+MAX_COUNT_QUERIES = 65535 * 32   # grid rows of 32 queries (packed_counts.cu)
+# kernel launches since the last reset (ops.reset_launch_counts)
+launches = 0          # packed_topk
+counts_launches = 0   # packed_collision_counts
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -27,12 +37,9 @@ def n_ranges(nq: int, n: int, sms: int) -> int:
     return max(1, min(-(-4 * sms // tiles), n // 2048))
 
 
-def packed_topk_cuda(words_q: torch.Tensor, words_db: torch.Tensor,
-                     bits: int, k: int, top_k: int):
-    """Launches the partial top-k kernel over S corpus ranges and the
-    merge kernel -> (counts, ids) int32 [Q, top_k]."""
-    global launches
-    from repro_torch.kernels import _build
+def check_words(words_q: torch.Tensor, words_db: torch.Tensor, bits: int):
+    """Raises unless both are contiguous 2-D int32 CUDA tensors of one
+    width on one device and bits is 1, 2, 4, 8 or 16 -> (Q, N, W)."""
     for name, t in (("words_q", words_q), ("words_db", words_db)):
         if not t.is_cuda or t.dtype != torch.int32 or t.dim() != 2 \
                 or not t.is_contiguous():
@@ -40,10 +47,21 @@ def packed_topk_cuda(words_q: torch.Tensor, words_db: torch.Tensor,
                              f"tensor, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
     nq, w = words_q.shape
-    n = words_db.shape[0]
     if words_db.shape[1] != w or words_db.device != words_q.device:
         raise ValueError(f"words {tuple(words_q.shape)} vs "
                          f"{tuple(words_db.shape)}: widths or devices differ")
+    if bits not in (1, 2, 4, 8, 16):
+        raise ValueError(f"bits must be 1, 2, 4, 8 or 16, got {bits}")
+    return nq, words_db.shape[0], w
+
+
+def packed_topk_cuda(words_q: torch.Tensor, words_db: torch.Tensor,
+                     bits: int, k: int, top_k: int):
+    """Launches the partial top-k kernel over S corpus ranges and the
+    merge kernel -> (counts, ids) int32 [Q, top_k]."""
+    global launches
+    from repro_torch.kernels import _build
+    nq, n, w = check_words(words_q, words_db, bits)
     if not 1 <= top_k <= MAX_TOP_K:
         raise ValueError(f"top_k must be in [1, {MAX_TOP_K}], got {top_k}")
     dev = words_q.device
@@ -65,3 +83,27 @@ def packed_topk_cuda(words_q: torch.Tensor, words_db: torch.Tensor,
         raise RuntimeError(f"packed_topk kernel launch failed: CUDA error {err}")
     launches += 1
     return vals, ids
+
+
+def packed_collision_counts_cuda(words_q: torch.Tensor,
+                                 words_db: torch.Tensor, bits: int,
+                                 k: int) -> torch.Tensor:
+    """Launches the all-pairs count kernel -> int32 counts [Q, N]."""
+    global counts_launches
+    from repro_torch.kernels import _build
+    nq, n, w = check_words(words_q, words_db, bits)
+    if nq > MAX_COUNT_QUERIES:
+        raise ValueError(f"at most {MAX_COUNT_QUERIES} queries a call, "
+                         f"got {nq}")
+    out = torch.empty((nq, n), dtype=torch.int32, device=words_q.device)
+    if nq == 0 or n == 0:
+        return out
+    fn = _build.function("packed_counts", "packed_counts_launch",
+                         [_P, _P, _P, _I, _I, _I, _I, _I, _P])
+    err = fn(words_q.data_ptr(), words_db.data_ptr(), out.data_ptr(), nq, n,
+             w, bits, k, torch.cuda.current_stream(words_q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"packed_collision_counts kernel launch failed: "
+                           f"CUDA error {err}")
+    counts_launches += 1
+    return out

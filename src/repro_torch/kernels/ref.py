@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the slice's kernels (counterpart of
-``repro/kernels/ref.py:30-151``).
+"""Plain PyTorch versions of the port's kernels (counterpart of
+``repro/kernels/ref.py:30-257, 348-520``).
 
 They define the semantics the CUDA kernels are held to on the card, and
 they are what ``ops`` runs for tensors on the CPU. Integer outputs are
 bit-exact against the JAX oracles; the projections follow
-``torch.matmul``'s float32 sum order.
+``torch.matmul``'s float32 sum order. LUT scores add float32 table
+entries one by one in (word, field) order, and every top-k is a stable
+sort: ties go to the lowest index, as ``lax.top_k`` gives them.
 """
 from __future__ import annotations
 
@@ -15,7 +17,11 @@ from repro_torch.core import schemes as _schemes
 from repro_torch.core.schemes import CodeSpec
 
 __all__ = ["coded_project_ref", "pack_codes_ref", "encode_fused_ref",
-           "packed_collision_ref", "topk_stable_ref", "packed_topk_ref"]
+           "packed_collision_ref", "topk_stable_ref", "packed_topk_ref",
+           "lut_scores_rowwise_ref", "lut_scores_rowwise_int8_ref",
+           "topk_scored_ref", "packed_lut_rerank_ref",
+           "coarse_survivor_mask_ref", "fused_scored_topk_ref",
+           "two_stage_scored_ref"]
 
 
 def coded_project_ref(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
@@ -79,3 +85,168 @@ def packed_topk_ref(words_q: torch.Tensor, words_db: torch.Tensor, bits: int,
     then the stable top-k."""
     return topk_stable_ref(packed_collision_ref(words_q, words_db, bits, k),
                            top_k)
+
+
+# -- LUT-scored ranking -------------------------------------------------------
+
+def lut_scores_rowwise_ref(q_tables: torch.Tensor, cand_words: torch.Tensor,
+                           bits: int) -> torch.Tensor:
+    """Float tables [Q, F*P] x per-query candidate words [Q, M, W] ->
+    float32 scores [Q, M]: one float32 add per field, in (word, field)
+    order, of the entry the field's code selects."""
+    p, cpw = 1 << bits, 32 // bits
+    n_words = cand_words.shape[-1]
+    if q_tables.shape[-1] != n_words * cpw * p:
+        raise ValueError(f"tables {tuple(q_tables.shape)} do not fit words "
+                         f"{tuple(cand_words.shape)} at bits={bits}")
+    tab, u = q_tables.to(torch.float32), _packing.as_u32(cand_words)
+    score = torch.zeros(cand_words.shape[:-1], dtype=torch.float32,
+                        device=cand_words.device)
+    for w in range(n_words):
+        for f in range(cpw):
+            c = (u[..., w] >> (f * bits)) & (p - 1)
+            col = (w * cpw + f) * p
+            score = score + torch.gather(tab[:, col:col + p], 1, c)
+    return score
+
+
+def lut_scores_rowwise_int8_ref(q_tables: torch.Tensor, scales: torch.Tensor,
+                                cand_words: torch.Tensor,
+                                bits: int) -> torch.Tensor:
+    """int8 tables [Q, F*P] with float32 scales [Q, W] -> float32 [Q, M]:
+    each word's 32/b entries sum exactly in int32, then the word joins
+    the total as ``score + scale[w] * float(isum)`` (a multiply and an
+    add, each rounded), in word order."""
+    p, cpw = 1 << bits, 32 // bits
+    n_words = cand_words.shape[-1]
+    if q_tables.shape[-1] != n_words * cpw * p or \
+            tuple(scales.shape) != (q_tables.shape[0], n_words):
+        raise ValueError(f"tables {tuple(q_tables.shape)}, scales "
+                         f"{tuple(scales.shape)} do not fit words "
+                         f"{tuple(cand_words.shape)} at bits={bits}")
+    tab, u = q_tables.to(torch.int32), _packing.as_u32(cand_words)
+    score = torch.zeros(cand_words.shape[:-1], dtype=torch.float32,
+                        device=cand_words.device)
+    for w in range(n_words):
+        isum = torch.zeros_like(score, dtype=torch.int32)
+        for f in range(cpw):
+            c = (u[..., w] >> (f * bits)) & (p - 1)
+            col = (w * cpw + f) * p
+            isum = isum + torch.gather(tab[:, col:col + p], 1, c)
+        score = score + scales[:, w:w + 1] * isum.to(torch.float32)
+    return score
+
+
+def topk_scored_ref(scores: torch.Tensor, top_k: int):
+    """Stable descending top-k of float scores [c, n] -> (float32
+    [c, top_k], int32 ids [c, top_k]); -inf slots, and slots past n,
+    are (-inf, -1)."""
+    scores = scores.to(torch.float32)
+    if top_k > scores.shape[1]:
+        scores = torch.nn.functional.pad(scores,
+                                         (0, top_k - scores.shape[1]),
+                                         value=float("-inf"))
+    vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals, ids = vals[:, :top_k], ids[:, :top_k].to(torch.int32)
+    return vals, torch.where(torch.isneginf(vals), torch.full_like(ids, -1),
+                             ids)
+
+
+def packed_lut_rerank_ref(q_tables: torch.Tensor, cand_words: torch.Tensor,
+                          cand_valid: torch.Tensor, bits: int, top_k: int):
+    """Re-rank per-query candidates [Q, M, W] by LUT score -> (scores
+    float32, candidate positions int32) [Q, top_k]; invalid candidates
+    score -inf, empty slots are (-inf, -1)."""
+    scores = lut_scores_rowwise_ref(q_tables, cand_words, bits)
+    scores = torch.where(cand_valid != 0, scores,
+                         torch.full_like(scores, float("-inf")))
+    return topk_scored_ref(scores, top_k)
+
+
+def coarse_survivor_mask_ref(counts: torch.Tensor, k: int,
+                             rerank_m: int) -> torch.Tensor:
+    """Membership mask [Q, N] of the stable top-``rerank_m`` by collision
+    count: with t the smallest c in [0, k] such that fewer than rerank_m
+    rows have count > c (a binary search), a row survives if its count
+    is above t, or equals t and its id-ascending rank among those ties
+    is within the quota rerank_m - #{count > t}. Rows with count < 0
+    never survive."""
+    q = counts.shape[0]
+    lo = torch.zeros((q, 1), dtype=torch.int32, device=counts.device)
+    hi = torch.full((q, 1), k, dtype=torch.int32, device=counts.device)
+    for _ in range(max(1, (k + 1).bit_length())):
+        mid = (lo + hi) >> 1
+        done = (counts > mid).sum(dim=1, keepdim=True) < rerank_m
+        lo = torch.where(done, lo, mid + 1)
+        hi = torch.where(done, mid, hi)
+    quota = rerank_m - (counts > lo).sum(dim=1, keepdim=True)
+    is_tie = counts == lo
+    tie_rank = torch.cumsum(is_tie.to(torch.int32), dim=1, dtype=torch.int32)
+    return (counts > lo) | (is_tie & (tie_rank <= quota))
+
+
+def _compact_survivors(sm: torch.Tensor, rerank_m: int) -> torch.Tensor:
+    """Survivor mask [Q, N] -> id-ascending survivor ids [Q, rerank_m],
+    -1 padded: the j-th survivor is where the mask's running sum first
+    reaches j + 1."""
+    csum = torch.cumsum(sm.to(torch.int32), dim=1, dtype=torch.int32)
+    targets = torch.arange(1, rerank_m + 1, dtype=torch.int32,
+                           device=sm.device).expand(sm.shape[0], rerank_m)
+    pos = torch.searchsorted(csum, targets.contiguous(), side="left")
+    found = targets <= csum[:, -1:]
+    return torch.where(found, pos.to(torch.int32),
+                       torch.full_like(targets, -1))
+
+
+def _score_candidates(q_tables, words_db, cand, bits: int, top_k: int,
+                      scales):
+    """LUT-score candidate ids [Q, m] (-1 = empty, scores -inf) and take
+    the stable top-k -> (scores, corpus ids)."""
+    n, m = words_db.shape[0], cand.shape[1]
+    cand_words = words_db[cand.clamp(0, n - 1).to(torch.int64)]
+    if scales is None:
+        s = lut_scores_rowwise_ref(q_tables, cand_words, bits)
+    else:
+        s = lut_scores_rowwise_int8_ref(q_tables, scales, cand_words, bits)
+    s = torch.where(cand >= 0, s, torch.full_like(s, float("-inf")))
+    vals, pos = topk_scored_ref(s, top_k)
+    ids = torch.gather(cand, 1, pos.clamp(0, m - 1).to(torch.int64))
+    return vals, torch.where(pos < 0, torch.full_like(ids, -1), ids)
+
+
+def _empty_scored(q: int, top_k: int, device):
+    return (torch.full((q, top_k), float("-inf"), dtype=torch.float32,
+                       device=device),
+            torch.full((q, top_k), -1, dtype=torch.int32, device=device))
+
+
+def fused_scored_topk_ref(q_words: torch.Tensor, q_tables: torch.Tensor,
+                          words_db: torch.Tensor, bits: int, k: int,
+                          rerank_m: int, top_k: int, scales=None):
+    """Top-``top_k`` by LUT score over the stable top-``rerank_m`` by
+    collision count -> (scores float32, corpus ids int32) [Q, top_k];
+    score ties go to the lowest id, empty slots are (-inf, -1).
+    ``scales`` float32 [Q, W] selects the int8 table path."""
+    if words_db.shape[0] == 0:
+        return _empty_scored(q_words.shape[0], top_k, q_words.device)
+    counts = packed_collision_ref(q_words, words_db, bits, k)
+    cand = _compact_survivors(coarse_survivor_mask_ref(counts, k, rerank_m),
+                              rerank_m)
+    return _score_candidates(q_tables, words_db, cand, bits, top_k, scales)
+
+
+def two_stage_scored_ref(q_words: torch.Tensor, q_tables: torch.Tensor,
+                         words_db: torch.Tensor, bits: int, k: int,
+                         rerank_m: int, top_k: int):
+    """Coarse ``packed_topk_ref`` to rerank_m, gather, then
+    ``packed_lut_rerank_ref``: equal to ``fused_scored_topk_ref``
+    wherever LUT scores do not tie across different collision counts."""
+    n = words_db.shape[0]
+    if n == 0:
+        return _empty_scored(q_words.shape[0], top_k, q_words.device)
+    _, ci = packed_topk_ref(q_words, words_db, bits, k, rerank_m)
+    vals, pos = packed_lut_rerank_ref(
+        q_tables, words_db[ci.clamp(0, n - 1).to(torch.int64)], ci >= 0,
+        bits, top_k)
+    ids = torch.gather(ci, 1, pos.clamp(0, rerank_m - 1).to(torch.int64))
+    return vals, torch.where(pos < 0, torch.full_like(ids, -1), ids)

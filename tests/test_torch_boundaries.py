@@ -75,7 +75,15 @@ def test_cpu_on_request(no_cuda):
                                         impl="kernel"),
     lambda x, r, c, w: ops.pack_codes(c, 2, impl="kernel"),
     lambda x, r, c, w: ops.packed_topk(w, w, 2, 32, 3, impl="kernel"),
-], ids=["coded_project", "encode_fused", "pack_codes", "packed_topk"])
+    lambda x, r, c, w: ops.packed_collision_counts(w, w, 2, 32,
+                                                   impl="kernel"),
+    lambda x, r, c, w: ops.packed_lut_rerank(
+        torch.zeros(4, 128), w[:, None, :], torch.ones(4, 1, dtype=torch.bool),
+        2, 3, impl="kernel"),
+    lambda x, r, c, w: ops.fused_scored_topk(w, torch.zeros(4, 128), w, 2, 32,
+                                             4, 3, impl="kernel"),
+], ids=["coded_project", "encode_fused", "pack_codes", "packed_topk",
+        "packed_collision_counts", "packed_lut_rerank", "fused_scored_topk"])
 def test_kernel_impl_on_cpu_raises(call):
     x, r = torch.zeros(4, 8), torch.zeros(8, 32)
     codes, words = torch.zeros(4, 32, dtype=torch.int32), torch.zeros(

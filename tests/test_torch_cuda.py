@@ -63,3 +63,98 @@ def test_pack_and_topk_kernels_bit_exact(gen, bits):
         got = ops.packed_topk(wq, wdb, bits, 100, top_k, impl="kernel")
         want = ref.packed_topk_ref(wq, wdb, bits, 100, top_k)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _tables(gen, nq, w, bits, dtype):
+    fp = (w * (32 // bits)) << bits
+    if dtype == "int8":
+        t = torch.randint(-127, 128, (nq, fp), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        e = torch.randint(-8, 2, (nq, w), generator=gen, device="cuda")
+        return t, torch.pow(2.0, e.to(torch.float32))
+    t = torch.randn((nq, fp), generator=gen, device="cuda")
+    return (t.to(torch.bfloat16) if dtype == "bf16" else t), None
+
+
+def _words(gen, n, k, bits):
+    return ref.pack_codes_ref(torch.randint(0, 1 << bits, (n, k), generator=gen,
+                                            device="cuda"), bits)
+
+
+def _same(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_collision_counts_kernel_bit_exact(gen, bits):
+    wq, wdb = _words(gen, 37, 100, bits), _words(gen, 3001, 100, bits)
+    assert torch.equal(ops.packed_collision_counts(wq, wdb, bits, 100,
+                                                   impl="kernel"),
+                       ref.packed_collision_ref(wq, wdb, bits, 100))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_lut_rerank_kernel_bit_exact(gen, bits, dtype):
+    for nq, m, top_k in ((13, 50, 7), (5, 2000, 10), (3, 4, 9)):
+        tab, _ = _tables(gen, nq, -(-33 // (32 // bits)), bits, dtype)
+        cand = _words(gen, nq * m, 33, bits).reshape(nq, m, -1)
+        valid = torch.rand((nq, m), generator=gen, device="cuda") > 0.3
+        assert _same(ops.packed_lut_rerank(tab, cand, valid, bits, top_k,
+                                           impl="kernel"),
+                     ref.packed_lut_rerank_ref(tab, cand, valid, bits, top_k))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_fused_scored_kernel_bit_exact(gen, bits, dtype):
+    for nq, n, k, m, top_k in ((3, 37, 17, 9, 7), (9, 5000, 64, 64, 10),
+                               (4, 20, 33, 30, 10), (2, 0, 17, 5, 3)):
+        wq, wdb = _words(gen, nq, k, bits), _words(gen, n, k, bits)
+        if n:
+            wdb[n // 2] = wq[0]
+        tab, scl = _tables(gen, nq, wq.shape[1], bits, dtype)
+        assert _same(ops.fused_scored_topk(wq, tab, wdb, bits, k, m, top_k,
+                                           scales=scl, impl="kernel"),
+                     ref.fused_scored_topk_ref(wq, tab, wdb, bits, k, m, top_k,
+                                               scales=scl))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(scored=True), dict(scored=True, table_dtype="int8"),
+    dict(scored=True, fused=False), dict(mode="lsh"),
+    dict(mode="lsh", scored=True, n_probes=1)])
+def test_engine_modes_match_plain_versions(gen, kwargs):
+    from repro_torch.ann import AnnEngine, BandSpec
+    from repro_torch.ann.engine import SearchConfig
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    crp = CodedRandomProjection(SketchConfig(k=100), 96)
+    x = torch.randn((3000, 96), generator=gen, device="cuda")
+    x = x / x.norm(dim=1, keepdim=True)
+    eng = AnnEngine.build(crp, x, BandSpec(8, 4))
+    codes = eng.encode_queries(x[:40] + 0.001 * torch.randn(
+        (40, 96), generator=gen, device="cuda"))
+    got = eng.search_codes(codes, SearchConfig(chunk_q=16, **kwargs))
+    want = eng.search_codes(codes, SearchConfig(chunk_q=16, impl="ref",
+                                                **kwargs))
+    assert _same(got, want)
+    assert bool((got[0][:, 0] == torch.arange(40, device="cuda")).all())
+
+
+@pytest.mark.parametrize("bits,k", [(8, 400), (16, 40)])
+def test_scored_kernels_with_tables_in_device_memory(gen, bits, k):
+    # tables over 96 KB a query are read from device memory
+    wq, wdb = _words(gen, 3, k, bits), _words(gen, 900, k, bits)
+    wdb[5] = wq[0]
+    for dtype in ("f32", "bf16", "int8"):
+        tab, scl = _tables(gen, 3, wq.shape[1], bits, dtype)
+        assert _same(ops.fused_scored_topk(wq, tab, wdb, bits, k, 20, 7,
+                                           scales=scl, impl="kernel"),
+                     ref.fused_scored_topk_ref(wq, tab, wdb, bits, k, 20, 7,
+                                               scales=scl))
+        if dtype != "int8":
+            cand = wdb[:150].reshape(3, 50, -1)
+            valid = torch.rand((3, 50), generator=gen, device="cuda") > 0.3
+            assert _same(ops.packed_lut_rerank(tab, cand, valid, bits, 7,
+                                               impl="kernel"),
+                         ref.packed_lut_rerank_ref(tab, cand, valid, bits, 7))

@@ -141,14 +141,14 @@ def test_empty_store_and_empty_queries():
     assert bool((rho == -1.0).all())
 
 
-@pytest.mark.parametrize("kwargs", [dict(scored=True), dict(mode="lsh")])
+@pytest.mark.parametrize("kwargs", [dict(), dict(scored=True)])
 def test_later_slices_raise(kwargs):
+    # the row-sharded search is the one mode of the reference's engine
+    # still to port
     tc = CodedRandomProjection(SketchConfig(k=32), 8, device="cpu")
     eng = AnnEngine.build(tc, np.ones((4, 8), np.float32), BandSpec(4, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.search(np.ones((2, 8), np.float32), **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.search_sharded(np.ones((2, 8), np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
+        eng.search_sharded(np.ones((2, 8), np.float32), **kwargs)
 
 
 def test_streaming_regime_raises_above_cap():
@@ -188,15 +188,34 @@ def test_run_chunked_pads_and_unpads(q, chunk_q):
 @pytest.mark.parametrize("kwargs", [
     dict(rerank_m=64), dict(fused=False), dict(table_dtype="int8"),
     dict(min_bands=2), dict(n_probes=1)])
-def test_search_refuses_knobs_of_later_slices(kwargs):
-    # the reference's LSH and scored knobs have no effect on count-ranked
-    # exact search, so the port takes none of them rather than ignore them
-    tc = CodedRandomProjection(SketchConfig(k=32), 8, device="cpu")
-    eng = AnnEngine.build(tc, np.ones((4, 8), np.float32), BandSpec(4, 4))
-    with pytest.raises(TypeError):
-        eng.search(np.ones((2, 8), np.float32), **kwargs)
-    with pytest.raises(TypeError):
-        SearchConfig(**kwargs)
+def test_search_config_matches_jax(kwargs):
+    for extra in (dict(), dict(scored=True), dict(scored=True, mode="lsh"),
+                  dict(top_k=40)):
+        t = SearchConfig(**kwargs, **extra)
+        j = JaxSearchConfig(**kwargs, **extra)
+        for f in ("top_k", "mode", "min_bands", "n_probes", "chunk_q", "impl",
+                  "scored", "rerank_m", "fused", "table_dtype"):
+            assert getattr(t, f) == getattr(j, f), f
+        assert t.use_fused() == j.use_fused()
+        for n in (1, 9, 64, 200, 10_000):
+            assert t.resolve_m(n) == j.resolve_m(n)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(scored=True, fused=False), dict(scored=True, mode="lsh"),
+    dict(scored=False)])
+def test_search_refuses_int8_tables_off_the_fused_path(kwargs):
+    jc, tc, words = _case(*CASES[0])
+    eng = AnnEngine(tc, convert.store_from_numpy(words, 100, 2, device="cpu"),
+                    BandSpec(4, 4))
+    with pytest.raises(ValueError, match="int8 tables require"):
+        eng.search(np.ones((2, D), np.float32), table_dtype="int8", **kwargs)
+    codes = np.zeros((2, 100), np.int32)
+    for e, c, cfg in ((eng, torch.from_numpy(codes), SearchConfig),
+                      (_jax_engine(*CASES[0]), jnp.asarray(codes),
+                       JaxSearchConfig)):
+        with pytest.raises(ValueError, match="int8 tables require"):
+            e.search_codes(c, cfg(table_dtype="int8", **kwargs))
 
 
 def test_unknown_mode_raises():

@@ -61,6 +61,16 @@ def test_pack_unpack_bit_exact(bits, k):
 
 
 @pytest.mark.parametrize("bits", BITS)
+def test_pack_unpack_zero_rows(bits):
+    # the reference raises here (a reshape with -1 over an empty axis);
+    # the port packs an empty corpus to [0, W] and back
+    w = tpk.packed_width(17, bits)
+    words = tpk.pack_codes(torch.zeros((0, 17), dtype=torch.int32), bits)
+    assert words.shape == (0, w) and words.dtype == torch.int32
+    assert tpk.unpack_codes(words, bits, 17).shape == (0, 17)
+
+
+@pytest.mark.parametrize("bits", BITS)
 def test_mismatch_count_words_bit_exact(bits):
     rng = np.random.default_rng(bits)
     x = rng.integers(0, 2 ** 32, size=(257,), dtype=np.uint64).astype(np.uint32)
