@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # full run: build, kernel checks, main path
     python3 chip_smoke.py --check    # build and the small-shape kernel checks only
-    python3 chip_smoke.py --profile  # full run plus a torch.profiler breakdown
+    python3 chip_smoke.py --profile  # full run plus torch.profiler breakdowns
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -13,7 +13,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    limit.
 2. Kernel checks. Small ragged shapes over every scheme, bit width and
    table type (rerank_m above N, top_k above the survivors, all rows
-   tied, N = 0), then the main path's shapes: each kernel against its
+   tied, N = 0; for the masked kernels N = 0, 1, 31, 33 and 3,000 with
+   all, none, 10 % and 90 % of the rows dead), then the main path's
+   shapes (the masked kernels on one 262,144-row segment and on the
+   4,194,304 rows with 10 % dead): each kernel against its
    plain PyTorch version on the same inputs, on the card. Every kernel
    but the two GEMMs must be bit-exact; the GEMMs may differ from
    ``torch.matmul``'s float32 sum order only in fields whose reference
@@ -41,7 +44,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    Printed, not gated: queries/s of each mode, and the rank-0 hit rate
    of count-ranked against scored search on planted queries at cosine
    0.9 and 0.6.
-5. A ``kernels`` JSON line, the card line, and as the last line
+5. Mutable path (``repro_torch.index``): ``MutableAnnEngine`` with
+   262,144-row segments ingests the main path's 4,194,304 rows (64
+   ``ingest`` calls of 65,536 rows made on the card from its seed; the
+   words must equal the main path's store), deletes 419,430 ids (a
+   quarter of the planted sources among them), upserts 65,536 ids (64
+   planted sources re-planted under their old ids) and adds 65,536
+   rows: 17 segments. It then searches in six modes (count-ranked,
+   scored fused f32 and int8 and two-stage over the 1,024 queries; LSH
+   count-ranked and scored over 256), compacts (target 1,048,576 rows,
+   5 % dead), searches again, saves a snapshot, restores it and
+   searches again. Launch counts cover the path's own calls. Gates: no
+   deleted id comes back; live planted and re-planted sources at rank
+   0; count-ranked modes bit-exact against a fresh immutable engine over
+   ``live_words()``, and unchanged by compaction; scored modes
+   bit-exact against the same search without masks, one segment's live
+   rows at a time (the coarse top-m is per segment, so they need not
+   equal the whole-store engine; the agreement is printed); 16 queries
+   of each mode bit-exact against the plain versions; the restored
+   index bit-exact in every mode. Printed: rows/s of ingest, ms and
+   rows/s of delete, upsert and add, queries/s per mode at each stage,
+   ms of the compaction, MB/s of the snapshot's save and restore.
+6. A ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -75,11 +99,48 @@ N_ROWS, D, K, CHUNK = 4_194_304, 1024, 256, 65_536
 N_QUERIES, N_PLANTED, CHUNK_Q, TOP_K = 1024, 512, 256, 10
 RERANK_M = 64                 # SearchConfig().resolve_m(N) at top_k = 10
 N_LSH, N_LSH_PLANTED = 256, 128
-FIRST_SLICE = ("encode_fused", "coded_project", "pack_codes", "packed_topk")
-SCORED_KERNELS = ("coded_project", "pack_codes", "packed_topk",
-                  "packed_collision_counts", "packed_lut_rerank",
-                  "fused_scored_topk")
 EDGE_TOL = 1e-5
+CORPUS_SEED = 2014
+# mutable path: 16 sealed segments of 262,144 rows after the ingest
+TAIL_ROWS, N_DELETE, N_UPSERT, N_REPLANT = 262_144, 419_430, 65_536, 64
+
+# kernel -> (the path whose launch count it reports, its source, the TPU
+# kernel it replaces)
+KERNELS = {
+    "encode_fused": ("main", "src/repro_torch/kernels/csrc/coded_gemm.cu",
+                     "src/repro/kernels/encode_fused.py:80"),
+    "coded_project": ("main", "src/repro_torch/kernels/csrc/coded_gemm.cu",
+                      "src/repro/kernels/proj_code.py:76"),
+    "pack_codes": ("main", "src/repro_torch/kernels/csrc/pack_codes.cu",
+                   "src/repro/kernels/pack_codes.py:32"),
+    "packed_topk": ("main", "src/repro_torch/kernels/csrc/packed_topk.cu",
+                    "src/repro/kernels/packed_collision.py:170"),
+    "fused_scored_topk": ("scored",
+                          "src/repro_torch/kernels/csrc/fused_scored.cu",
+                          "src/repro/kernels/fused_scored.py:265"),
+    "packed_collision_counts": ("scored",
+                                "src/repro_torch/kernels/csrc/packed_counts.cu",
+                                "src/repro/kernels/packed_collision.py:90"),
+    "packed_lut_rerank": ("scored",
+                          "src/repro_torch/kernels/csrc/packed_lut.cu",
+                          "src/repro/kernels/packed_lut.py:296"),
+    "packed_topk_masked": ("mutable",
+                           "src/repro_torch/kernels/csrc/packed_topk.cu",
+                           "src/repro/kernels/packed_collision.py:247"),
+    "fused_scored_topk_masked": ("mutable",
+                                 "src/repro_torch/kernels/csrc/fused_scored.cu",
+                                 "src/repro/kernels/fused_scored.py:289"),
+}
+# path -> every kernel it must launch
+PATH_KERNELS = {
+    "main": ("encode_fused", "coded_project", "pack_codes", "packed_topk"),
+    "scored": ("coded_project", "pack_codes", "packed_topk",
+               "packed_collision_counts", "packed_lut_rerank",
+               "fused_scored_topk"),
+    "mutable": ("encode_fused", "coded_project", "pack_codes",
+                "packed_topk_masked", "fused_scored_topk_masked",
+                "packed_collision_counts", "packed_lut_rerank"),
+}
 
 
 def log(msg: str) -> None:
@@ -124,6 +185,14 @@ def bound(ops_s: list, n_bytes: float):
     return 1e3 * t, ("bytes" if pipes == "bytes" else "operations"), pipes
 
 
+def require_launched(counts: dict, path: str) -> None:
+    """Fails unless every kernel the path runs launched on it."""
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: "
+                             f"{missing}")
+
+
 def edge_distance(z, spec, q):
     """Distance of each projection from its nearest bin edge."""
     import torch
@@ -150,6 +219,17 @@ def unit_rows(n: int, d: int, gen, device):
     import torch
     x = torch.randn((n, d), generator=gen, device=device)
     return x / x.norm(dim=1, keepdim=True)
+
+
+def corpus_chunk(gen, device):
+    """The next corpus chunk from ``gen``: unit rows [CHUNK, D] and the
+    positions of its planted sources; seeded with ``CORPUS_SEED``, the
+    64 calls give the main path's corpus."""
+    import torch
+    x = unit_rows(CHUNK, D, gen, device)
+    pick = torch.randint(0, CHUNK, (N_PLANTED // (N_ROWS // CHUNK),),
+                         generator=gen, device=device)
+    return x, pick
 
 
 def small_checks(device) -> None:
@@ -335,6 +415,93 @@ def scored_checks(device) -> None:
     torch.cuda.synchronize()
 
 
+def masked_checks(device) -> None:
+    """Ragged shapes for the mutable index's masked kernels: kernel ==
+    plain, bit-exact (packed_topk_masked, fused_scored_topk_masked)."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(13)
+
+    def words(n, k, bits):
+        return packing.pack_codes(torch.randint(
+            0, 1 << bits, (n, k), generator=gen, device=device), bits)
+
+    def mask(n, dead):
+        return packing.pack_bitmask(
+            torch.rand((n,), generator=gen, device=device) >= dead)
+
+    # N: empty, one row, inside one mask word, across two, several ranges;
+    # dead share: all, none, 10 %, 90 %
+    sizes, deads = (0, 1, 31, 33, 3000), (1.0, 0.0, 0.1, 0.9)
+    for bits in (1, 2, 4, 8, 16):
+        for n in sizes:
+            wq, wdb = words(5, 100, bits), words(n, 100, bits)
+            if n:
+                wdb[n // 2] = wq[0]
+                wdb[n // 3] = wq[0]            # a tie with a lower id
+            for dead in deads:
+                valid = mask(n, dead)
+                # top_k above the live count where the limit allows
+                for top_k in (1, 10, min(n + 5, 2048)):
+                    got = ops.packed_topk_masked(wq, wdb, valid, bits, 100,
+                                                 top_k, impl="kernel")
+                    if not same(got, ref.packed_topk_masked_ref(
+                            wq, wdb, valid, bits, 100, top_k)):
+                        raise AssertionError(
+                            f"packed_topk_masked bits={bits} n={n} "
+                            f"dead={dead} top_k={top_k}")
+        # every row tied, half dead: live ids ascending
+        wq = words(3, 100, bits)
+        wdb = wq[1:2].expand(700, -1).contiguous()
+        valid = mask(700, 0.5)
+        if not same(ops.packed_topk_masked(wq, wdb, valid, bits, 100, 400,
+                                           impl="kernel"),
+                    ref.packed_topk_masked_ref(wq, wdb, valid, bits, 100,
+                                               400)):
+            raise AssertionError(f"packed_topk_masked tied bits={bits}")
+    log("check packed_topk_masked bits 1/2/4/8/16, N 0/1/31/33/3000, dead "
+        "all/none/10 %/90 %, top_k above the live rows, all tied: bit-exact")
+    for bits in (1, 2, 4, 8, 16):
+        k = 40 if bits == 16 else 100       # 16-bit tables are 10 MB a query
+        for dtype in ("f32", "bf16", "int8"):
+            for n in sizes:
+                wq, wdb = words(4, k, bits), words(n, k, bits)
+                if n:
+                    wdb[n // 2] = wq[0]
+                    wdb[n // 3] = wq[0]
+                tab, scl = rand_tables(gen, 4, wq.shape[1], bits, dtype,
+                                       device)
+                for dead in deads:
+                    valid = mask(n, dead)
+                    # rerank_m below and above the live count
+                    for m, top_k in ((16, 10), (min(n + 3, 2048), 12)):
+                        got = ops.fused_scored_topk_masked(
+                            wq, tab, wdb, valid, bits, k, m, top_k,
+                            scales=scl, impl="kernel")
+                        if not same(got, ref.fused_scored_topk_masked_ref(
+                                wq, tab, wdb, valid, bits, k, m, top_k,
+                                scales=scl)):
+                            raise AssertionError(
+                                f"fused_scored_topk_masked bits={bits} "
+                                f"{dtype} n={n} dead={dead} m={m}")
+            wq = words(3, k, bits)
+            wdb = wq[1:2].expand(700, -1).contiguous()
+            valid = mask(700, 0.5)
+            tab, scl = rand_tables(gen, 3, wq.shape[1], bits, dtype, device)
+            if not same(ops.fused_scored_topk_masked(
+                    wq, tab, wdb, valid, bits, k, 300, 40, scales=scl,
+                    impl="kernel"),
+                    ref.fused_scored_topk_masked_ref(
+                        wq, tab, wdb, valid, bits, k, 300, 40, scales=scl)):
+                raise AssertionError(f"fused_scored_topk_masked tied "
+                                     f"bits={bits} {dtype}")
+    log("check fused_scored_topk_masked bits 1/2/4/8/16, f32/bf16/int8, N "
+        "0/1/31/33/3000, dead all/none/10 %/90 %, rerank_m below and above "
+        "the live rows, all tied: bit-exact")
+    torch.cuda.synchronize()
+
+
 def kernel_phase(crp, device) -> dict:
     """Main-path shapes: each kernel vs its plain version, times, bounds."""
     import torch
@@ -425,6 +592,7 @@ def kernel_phase(crp, device) -> dict:
         f"plain_ms={rows['packed_topk']['plain_ms']:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by}, {pipe})")
     scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word)
+    masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word)
     del wdb
     torch.cuda.empty_cache()
     return rows
@@ -497,6 +665,70 @@ def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
         [nq, RERANK_M, w_words, TOP_K])
 
 
+def masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
+    """The masked kernels at the mutable path's shapes: one 262,144-row
+    segment, and the whole 4,194,304-row corpus with 10 % of its rows
+    dead (the row of the kernels line), on the packed_topk phase's
+    queries and corpus."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, ref
+    from repro_torch.rank import build_rank_tables
+    bits, nq = crp.spec.bits, CHUNK_Q
+    w_words = packing.packed_width(K, bits)
+    q_tab = build_rank_tables(crp).query_tables(codes_q)
+    fp = q_tab.shape[1]
+    segment_ms = {}
+    for n in (TAIL_ROWS, N_ROWS):
+        db = wdb[:n]
+        live = torch.rand((n,), generator=gen, device=db.device) >= 0.1
+        valid = packing.pack_bitmask(live)
+        n_live = int(live.sum())
+        # dead rows skip their popcounts: the least work counts live rows;
+        # every row's words and the mask are read once
+        pairs = float(nq) * n_live * w_words
+        count_ops = [("popc", pairs, POPC_OP_S),
+                     ("int32", pairs * int_word, INT32_OP_S)]
+        db_bytes = 4.0 * n * w_words + n / 8
+        cases = {
+            "packed_topk_masked": (
+                lambda: ops.packed_topk_masked(wq, db, valid, bits, K, TOP_K,
+                                               impl="kernel"),
+                lambda: ref.packed_topk_masked_ref(wq, db, valid, bits, K,
+                                                   TOP_K),
+                db_bytes + 4.0 * (nq * w_words + 2 * nq * TOP_K),
+                [nq, n, w_words, TOP_K]),
+            "fused_scored_topk_masked": (
+                lambda: ops.fused_scored_topk_masked(
+                    wq, q_tab, db, valid, bits, K, RERANK_M, TOP_K,
+                    impl="kernel"),
+                lambda: ref.fused_scored_topk_masked_ref(
+                    wq, q_tab, db, valid, bits, K, RERANK_M, TOP_K),
+                db_bytes + 4.0 * (nq * (w_words + fp) + 2 * nq * TOP_K),
+                [nq, n, w_words, RERANK_M, TOP_K]),
+        }
+        for name, (fn_kernel, fn_plain, n_bytes, shape) in cases.items():
+            t0 = time.perf_counter()
+            if not same(fn_kernel(), fn_plain()):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at N={n}")
+            ms = time_ms(fn_kernel)
+            plain_ms = time_ms(fn_plain, reps=3, warmup=1)
+            b_ms, b_by, pipe = bound(count_ops, n_bytes)
+            log(f"kernel {name}: {shape} live {n_live} bit-exact "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by}, {pipe}); phase {time.perf_counter() - t0:.1f} s")
+            if n == N_ROWS:
+                rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  bound_pipe=pipe, library_ms=None,
+                                  shape=shape, live_rows=n_live,
+                                  segment_ms=segment_ms[name])
+            else:
+                segment_ms[name] = ms
+        torch.cuda.empty_cache()
+
+
 def main_path(device) -> tuple:
     """Ingest -> store -> engine -> search -> add -> search, counted."""
     import torch
@@ -506,8 +738,7 @@ def main_path(device) -> tuple:
 
     crp = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,
                                              seed=0), D)
-    gen = torch.Generator(device=device).manual_seed(2014)
-    per_chunk = N_PLANTED // (N_ROWS // CHUNK)
+    gen = torch.Generator(device=device).manual_seed(CORPUS_SEED)
     ops.reset_launch_counts()
     # set-up, once per sketcher: R drawn on the CPU and cached on the card
     t0 = time.perf_counter()
@@ -519,9 +750,7 @@ def main_path(device) -> tuple:
     # outside it, behind a synchronisation
     words, sources, src_ids, chunk_s = [], [], [], []
     for c in range(N_ROWS // CHUNK):
-        x = unit_rows(CHUNK, D, gen, device)
-        pick = torch.randint(0, CHUNK, (per_chunk,), generator=gen,
-                             device=device)
+        x, pick = corpus_chunk(gen, device)
         sources.append(x[pick])
         src_ids.append(pick + c * CHUNK)
         torch.cuda.synchronize()
@@ -595,9 +824,7 @@ def main_path(device) -> tuple:
         raise AssertionError(f"after add: {hits2}/{N_PLANTED + n_new}")
     if engine.n != N_ROWS + CHUNK:
         raise AssertionError(f"engine.n {engine.n}")
-    missing = [k for k in FIRST_SLICE if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    require_launched(counts, "main")
 
     pick = torch.cat([torch.arange(8, device=device),
                       torch.arange(N_QUERIES - 8, N_QUERIES, device=device)])
@@ -696,10 +923,7 @@ def scored_path(engine, queries, src_ids, sources, device) -> tuple:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"launch counts on the scored and LSH path: {json.dumps(counts)}")
-    missing = [k for k in SCORED_KERNELS if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the scored path: "
-                             f"{missing}")
+    require_launched(counts, "scored")
 
     # fused == two-stage, but where LUT scores tie across counts
     (fi, fr), (ti, tr) = out["scored_f32"], out["two_stage"]
@@ -756,6 +980,296 @@ def scored_path(engine, queries, src_ids, sources, device) -> tuple:
     return counts, rates
 
 
+def per_segment_oracle(mut, queries, kw: dict):
+    """Scored search as the mutable engine defines it, without masks:
+    each segment's live rows gathered into a dense corpus and searched
+    with the unmasked kernels (B5; or B4 or B9 then B10) at that
+    segment's rerank_m, rows mapped to external ids, the lists merged in
+    log order -> (ids, rho_hat)."""
+    import torch
+    from repro_torch.ann.bands import probe_hashes
+    from repro_torch.ann.engine import (SearchConfig, _coarse_band_scores,
+                                        lut_rerank_stage, merge_topk,
+                                        resolve_query_tables, rho_scored)
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, ref
+    cfg = SearchConfig(top_k=TOP_K, **kw)
+    tables, bits = mut.rank_tables, mut.store.bits
+    q_codes = mut.encode_queries(queries)
+    q_words = ops.pack_codes(q_codes, bits)
+    q_tab, scales = resolve_query_tables(tables, q_codes, cfg.table_dtype)
+    qh = packing.as_i32(probe_hashes(q_codes, mut.band_spec, cfg.n_probes))
+    vals_l, ids_l = [], []
+    for seg in mut.store.segments():
+        if seg.live == 0:
+            continue
+        live_np = seg.live_rows()
+        live = torch.from_numpy(live_np).to(q_codes.device)
+        words, m = seg.words[live], cfg.resolve_m(seg.cap)
+        if cfg.use_fused():
+            vals, rows = ops.fused_scored_topk(q_words, q_tab, words, bits, K,
+                                               m, TOP_K, scales=scales)
+        else:
+            if cfg.mode == "exact":
+                _, rows = ops.packed_topk(q_words, words, bits, K, m)
+            else:
+                counts = ops.packed_collision_counts(q_words, words, bits, K)
+                keep = _coarse_band_scores(qh, seg.hashes[live]) >= \
+                    cfg.min_bands
+                _, rows = ref.topk_stable_ref(
+                    torch.where(keep, counts, torch.full_like(counts, -1)), m)
+            rows, vals = lut_rerank_stage(tables, q_codes, rows, words, TOP_K,
+                                          q_tables=q_tab)
+        ext = torch.from_numpy(seg.ids[live_np].astype("int32")).to(
+            q_codes.device)[rows.clamp(min=0).long()]
+        ids_l.append(torch.where(rows < 0, torch.full_like(ext, -1), ext))
+        vals_l.append(vals)
+    vals, ids = merge_topk(vals_l, ids_l, TOP_K)
+    return ids, rho_scored(tables, ids, vals)
+
+
+def mutable_path(engine, state, device, profile: bool = False) -> tuple:
+    """Ingest -> churn -> search in every mode -> compact -> snapshot ->
+    restore -> search, through ``MutableAnnEngine`` over the main path's
+    corpus. Launches are counted over the path's own calls only; the
+    gates (fresh immutable engines, the per-segment oracle, the plain
+    versions) run between them."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.ann import AnnEngine, BandSpec, CodeStore
+    from repro_torch.ann.engine import SearchConfig
+    from repro_torch.index import CompactionPolicy, MutableAnnEngine
+    from repro_torch.kernels import ops
+    crp, bits = engine.sketcher, engine.sketcher.spec.bits
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    rates = {}
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for key, v in ops.launch_counts().items():
+            counts[key] += v
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = counted(fn)
+        return out, time.perf_counter() - t0
+
+    # 1. ingest: the main path's rows, made outside the timed window
+    mut = MutableAnnEngine(crp, band_spec=BandSpec(16, 4),
+                           tail_rows=TAIL_ROWS)
+    gen = torch.Generator(device=device).manual_seed(CORPUS_SEED)
+    chunk_s = []
+    for _ in range(N_ROWS // CHUNK):
+        x, _ = corpus_chunk(gen, device)
+        chunk_s.append(timed(lambda: mut.ingest(x, chunk_rows=CHUNK))[1])
+    store = mut.store
+    t_ingest = sum(chunk_s)
+    rates["ingest_rows_s"] = N_ROWS / t_ingest
+    chunk_ms = sorted(1e3 * c for c in chunk_s)
+    log(f"mutable ingest: {N_ROWS} rows in {t_ingest:.4f} s = "
+        f"{N_ROWS / t_ingest:.0f} rows/s; ms a {CHUNK}-row call: min "
+        f"{chunk_ms[0]:.4f} median {statistics.median(chunk_ms):.4f} max "
+        f"{chunk_ms[-1]:.4f}; {store.n_segments} segments, "
+        f"{store.nbytes} bytes")
+    if (mut.n, len(store.sealed), store.tail.length) != \
+            (N_ROWS, N_ROWS // TAIL_ROWS, 0):
+        raise AssertionError(f"after ingest: {store.stats()}")
+    if not torch.equal(store.live_words(), engine.store.words[:N_ROWS]):
+        raise AssertionError("ingested words differ from the main path's "
+                             "store")
+
+    # 2. churn: ids on the host from a seed, new rows on the card
+    rng = np.random.default_rng(CORPUS_SEED)
+    src_ids = state["src_ids"]
+    src_np = src_ids.cpu().numpy().astype(np.int64)
+    src = np.unique(src_np)
+    gone_src = rng.choice(src, src.size // 4, replace=False)
+    others = rng.permutation(N_ROWS)
+    others = others[~np.isin(others, src)]
+    n_other = N_DELETE - gone_src.size
+    del_ids = np.concatenate([gone_src, others[:n_other]])
+    killed, t_del = timed(lambda: mut.delete(del_ids))
+    replant = rng.choice(src[~np.isin(src, gone_src)], N_REPLANT,
+                         replace=False)
+    up_ids = np.concatenate([replant,
+                             others[n_other:n_other + N_UPSERT - N_REPLANT]])
+    x_up = unit_rows(N_UPSERT, D, gen, device)
+    _, t_up = timed(lambda: mut.upsert(up_ids, x_up))
+    x_add = unit_rows(CHUNK, D, gen, device)
+    add_ids, t_add = timed(lambda: mut.add(x_add))
+    for what, n, t in (("delete", killed, t_del), ("upsert", N_UPSERT, t_up),
+                       ("add", CHUNK, t_add)):
+        rates[f"{what}_ms"] = 1e3 * t
+        rates[f"{what}_rows_s"] = n / t
+        log(f"mutable {what}: {n} rows in {1e3 * t:.3f} ms = {n / t:.0f} "
+            f"rows/s")
+    want = (N_ROWS - N_DELETE + CHUNK, N_ROWS // TAIL_ROWS + 1,
+            N_UPSERT + CHUNK)
+    if killed != N_DELETE or (mut.n, store.n_segments,
+                              store.tail.length) != want:
+        raise AssertionError(f"after churn: killed {killed}, {store.stats()}")
+    log(f"after churn: {store.stats()}")
+
+    # queries: the main path's, the re-planted sources' replaced
+    noise = 0.1 / math.sqrt(D)
+    queries = state["queries"].clone()
+    at = {int(i): j for j, i in enumerate(replant)}
+    moved = np.flatnonzero(np.isin(src_np, replant))
+    rows_up = torch.tensor([at[int(i)] for i in src_np[moved]], device=device)
+    queries[torch.from_numpy(moved).to(device)] = x_up[rows_up] + noise * \
+        torch.randn((moved.size, D), generator=gen, device=device)
+    alive = torch.from_numpy(np.flatnonzero(~np.isin(src_np, gone_src))).to(
+        device)
+    moved_t = torch.from_numpy(moved).to(device)
+    lsh_q = torch.cat([queries[:N_LSH_PLANTED],
+                       queries[N_PLANTED:N_PLANTED + N_LSH - N_LSH_PLANTED]])
+    lsh_alive = alive[alive < N_LSH_PLANTED]
+    dead = torch.from_numpy(del_ids).to(device)
+    modes = {   # name: (queries, warm-up chunk, search kwargs)
+        "count": (queries, True, {}),
+        "scored_f32": (queries, True, dict(scored=True)),
+        "scored_int8": (queries, True, dict(scored=True, table_dtype="int8")),
+        "two_stage": (queries, True, dict(scored=True, fused=False)),
+        "lsh": (lsh_q, False, dict(mode="lsh")),
+        "lsh_scored": (lsh_q, False, dict(mode="lsh", scored=True)),
+    }
+
+    def search_all(eng, tag):
+        out = {}
+        for name, (qs, warm, kw) in modes.items():
+            if warm:
+                counted(lambda: eng.search(qs[:CHUNK_Q], top_k=TOP_K,
+                                           chunk_q=CHUNK_Q, **kw))
+            out[name], dt = timed(lambda: eng.search(
+                qs, top_k=TOP_K, chunk_q=CHUNK_Q, **kw))
+            rates[f"{tag}_{name}_queries_s"] = qs.shape[0] / dt
+            ids, rho = out[name]
+            if ids.shape != (qs.shape[0], TOP_K) or \
+                    not bool(torch.isfinite(rho).all()):
+                raise AssertionError(f"{tag} {name}: wrong shape or "
+                                     f"non-finite rho")
+            if bool(torch.isin(ids, dead).any()):
+                raise AssertionError(f"{tag} {name}: a deleted id came back")
+            pl = lsh_alive if kw.get("mode") == "lsh" else alive
+            hits = int((ids[pl, 0] == src_ids[pl]).sum())
+            rp = moved_t if kw.get("mode") != "lsh" else \
+                moved_t[moved_t < N_LSH_PLANTED]
+            rp_hits = int((ids[rp, 0] == src_ids[rp]).sum())
+            log(f"{tag} search {name}: {qs.shape[0]} queries in {dt:.4f} s "
+                f"= {qs.shape[0] / dt:.1f} queries/s; live planted at rank "
+                f"0: {hits}/{pl.numel()}, re-planted {rp_hits}/{rp.numel()}")
+            if name != "scored_int8" and hits != pl.numel():
+                raise AssertionError(f"{tag} {name}: planted at rank 0 "
+                                     f"{hits}/{pl.numel()}")
+        return out
+
+    def check_fresh(eng, out, tag):
+        """Count-ranked: equal to one fresh immutable engine over the live
+        rows. Scored: equal to the per-segment oracle; agreement with the
+        whole-store engine is counted."""
+        live_ids = torch.from_numpy(eng.store.live_ids().astype(np.int32)).to(
+            device)
+        fresh = AnnEngine(crp, CodeStore.from_words(eng.store.live_words(), K,
+                                                    bits),
+                          BandSpec(16, 4), rank_tables=eng.rank_tables)
+        for name, (qs, _, kw) in modes.items():
+            rows, rho = fresh.search(qs, top_k=TOP_K, chunk_q=CHUNK_Q, **kw)
+            ids = torch.where(rows < 0, torch.full_like(rows, -1),
+                              live_ids[rows.clamp(min=0).long()])
+            agree = int(((ids == out[name][0]).all(1)
+                         & (rho == out[name][1]).all(1)).sum())
+            if not kw.get("scored"):
+                if agree != qs.shape[0]:
+                    raise AssertionError(f"{tag} {name}: {agree}/"
+                                         f"{qs.shape[0]} queries equal the "
+                                         f"fresh immutable engine")
+                log(f"{tag} {name}: {agree}/{qs.shape[0]} queries bit-exact "
+                    f"against a fresh immutable engine over "
+                    f"{eng.n} live rows")
+                continue
+            if not same(out[name], per_segment_oracle(eng, qs, kw)):
+                raise AssertionError(f"{tag} {name}: differs from the "
+                                     f"per-segment oracle")
+            log(f"{tag} {name}: bit-exact against the per-segment oracle; "
+                f"{agree}/{qs.shape[0]} queries equal the whole-store "
+                f"engine (the coarse top-{RERANK_M} is taken per segment)")
+        del fresh
+
+    # 3. search, 4. gates
+    out = search_all(mut, "churned")
+    check_fresh(mut, out, "churned")
+    pick = torch.cat([torch.arange(8, device=device),
+                      torch.arange(N_LSH - 8, N_LSH, device=device)])
+    for name, (qs, _, kw) in modes.items():
+        cfg = SearchConfig(top_k=TOP_K, chunk_q=16, impl="ref", **kw)
+        want = mut.search_codes(mut.encode_queries(qs[pick]), cfg)
+        if not same(tuple(t[pick] for t in out[name]), want):
+            raise AssertionError(f"{name}: 16-query recheck failed")
+    log(f"recheck: 16 queries of each mode bit-exact against the plain "
+        f"versions over {store.n_segments} segments")
+    if profile:
+        for name in ("count", "scored_f32"):
+            kw = modes[name][2]
+            profile_window(f"mutable {name} chunk ({store.n_segments} "
+                           f"segments)",
+                           lambda: mut.search(queries[:CHUNK_Q], top_k=TOP_K,
+                                              chunk_q=CHUNK_Q, **kw), top=12)
+
+    # 5. compact, search again
+    before = store.n_segments
+    rep, t_c = timed(lambda: mut.compact(CompactionPolicy(
+        target_rows=1_048_576, max_dead_fraction=0.05)))
+    rates["compact_ms"] = 1e3 * t_c
+    log(f"compact: {rep}; segments {before} -> {store.n_segments} in "
+        f"{1e3 * t_c:.3f} ms")
+    if rep["rows_dropped"] != N_DELETE + N_UPSERT:
+        raise AssertionError(f"compaction dropped {rep['rows_dropped']}")
+    out2 = search_all(mut, "compacted")
+    for name, (qs, _, kw) in modes.items():
+        changed = int(((out2[name][0] != out[name][0]).any(1)
+                       | (out2[name][1] != out[name][1]).any(1)).sum())
+        if not kw.get("scored") and changed:
+            raise AssertionError(f"compacted {name}: {changed} queries "
+                                 f"changed")
+        log(f"compacted {name}: {changed}/{qs.shape[0]} queries changed")
+    check_fresh(mut, out2, "compacted")
+
+    # 6. snapshot, restore, search again
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    snap = tempfile.mkdtemp(prefix="snapshot-", dir=os.path.join(ROOT, "build"))
+    try:
+        path, t_s = timed(lambda: mut.save(snap, 1))
+        n_bytes = sum(os.path.getsize(os.path.join(path, f))
+                      for f in os.listdir(path))
+        restored, t_r = timed(lambda: MutableAnnEngine.restore(crp, snap))
+    finally:
+        shutil.rmtree(snap)
+    rates["save_mb_s"] = n_bytes / t_s / 1e6
+    rates["restore_mb_s"] = n_bytes / t_r / 1e6
+    log(f"snapshot: {n_bytes} bytes saved in {t_s:.3f} s = "
+        f"{n_bytes / t_s / 1e6:.1f} MB/s, restored in {t_r:.3f} s = "
+        f"{n_bytes / t_r / 1e6:.1f} MB/s")
+    if {**restored.store.stats(), "generation": 0} != \
+            {**store.stats(), "generation": 0} or \
+            restored.store.next_id != store.next_id:
+        raise AssertionError("restored store differs")
+    out3 = search_all(restored, "restored")
+    for name in modes:
+        if not same(out3[name], out2[name]):
+            raise AssertionError(f"restored {name} differs from before the "
+                                 f"snapshot")
+    log("restored: every mode bit-exact against the compacted engine")
+    require_launched(counts, "mutable")
+    log(f"launch counts on the mutable path: {json.dumps(counts)}")
+    return counts, rates
+
+
 def profile_main_path(engine, queries, device) -> None:
     """``--profile``: device time by kernel for 8 ``sketch`` calls, each
     on a 65,536-row chunk made beforehand and each followed by a
@@ -765,8 +1279,6 @@ def profile_main_path(engine, queries, device) -> None:
     with the device's idle share of each window's wall time
     (torch.profiler)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     crp, n = engine.sketcher, engine.n
     gen = torch.Generator(device=device).manual_seed(5)
     x = unit_rows(CHUNK, D, gen, device)
@@ -784,49 +1296,40 @@ def profile_main_path(engine, queries, device) -> None:
     for what, fn in (("ingest 8 chunks", ingest), ("search", search()),
                      ("scored search", search(scored=True)),
                      ("lsh scored search", search(mode="lsh", scored=True))):
+        profile_window(f"{what} (N={n})", fn)
+
+
+def profile_window(what: str, fn, top: int = 8) -> None:
+    """Device time by kernel of one synchronised call of ``fn``, and the
+    device's idle share of its wall time (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        rows = []
-        for ev in prof.key_averages():
-            # device-side events only: a host op's device time is that of
-            # the kernels it launched, which are listed on their own
-            if getattr(ev, "device_type", None) != DeviceType.CUDA or \
-                    ev.key == "Activity Buffer Request":   # the profiler's own
-                continue
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0))
-            if dev_us > 0:
-                rows.append((dev_us / 1e3, ev.key, ev.count))
-        if not rows:
-            raise AssertionError(f"profile {what}: no device kernels traced")
-        busy = sum(r[0] for r in rows)
-        log(f"profile {what} (N={n}): wall {wall:.3f} ms, device busy "
-            f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}")
-        for ms, key, count in sorted(rows, reverse=True)[:8]:
-            log(f"profile {what}:   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
-
-
-REPLACES = {
-    "encode_fused": ("src/repro_torch/kernels/csrc/coded_gemm.cu",
-                     "src/repro/kernels/encode_fused.py:80"),
-    "coded_project": ("src/repro_torch/kernels/csrc/coded_gemm.cu",
-                      "src/repro/kernels/proj_code.py:76"),
-    "pack_codes": ("src/repro_torch/kernels/csrc/pack_codes.cu",
-                   "src/repro/kernels/pack_codes.py:32"),
-    "packed_topk": ("src/repro_torch/kernels/csrc/packed_topk.cu",
-                    "src/repro/kernels/packed_collision.py:170"),
-    "fused_scored_topk": ("src/repro_torch/kernels/csrc/fused_scored.cu",
-                          "src/repro/kernels/fused_scored.py:265"),
-    "packed_collision_counts": ("src/repro_torch/kernels/csrc/packed_counts.cu",
-                                "src/repro/kernels/packed_collision.py:90"),
-    "packed_lut_rerank": ("src/repro_torch/kernels/csrc/packed_lut.cu",
-                          "src/repro/kernels/packed_lut.py:296"),
-}
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only: a host op's device time is that of
+        # the kernels it launched, which are listed on their own
+        if getattr(ev, "device_type", None) != DeviceType.CUDA or \
+                ev.key == "Activity Buffer Request":   # the profiler's own
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.key, ev.count))
+    if not rows:
+        raise AssertionError(f"profile {what}: no device kernels traced")
+    busy = sum(r[0] for r in rows)
+    log(f"profile {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+        f"idle share {1 - busy / wall:.3f}")
+    for ms, key, count in sorted(rows, reverse=True)[:top]:
+        log(f"profile {what}:   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
 def main(argv) -> int:
@@ -859,6 +1362,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     small_checks(device)
     scored_checks(device)
+    masked_checks(device)
     log(f"phase small checks: {time.perf_counter() - t0:.1f} s")
     if "--check" in argv:
         log("check mode: stopping after the small-shape kernel checks")
@@ -886,14 +1390,17 @@ def main(argv) -> int:
     log(f"phase scored and LSH path: {time.perf_counter() - t0:.1f} s")
     if "--profile" in argv:
         profile_main_path(engine, queries, device)
+    t0 = time.perf_counter()
+    counts_mutable, rates_mutable = mutable_path(
+        engine, state, device, profile="--profile" in argv)
+    log(f"mutable path: {json.dumps(rates_mutable)}")
+    log(f"phase mutable path: {time.perf_counter() - t0:.1f} s")
+    path_counts = {"main": counts, "scored": counts_scored,
+                   "mutable": counts_mutable}
     kernels = []
-    for name, src_rep in REPLACES.items():
-        src, rep = src_rep
-        # the first slice's kernels count on the main path, this slice's
-        # on the scored and LSH path
-        n_launch = counts[name] if name in FIRST_SLICE else counts_scored[name]
+    for name, (path, src, rep) in KERNELS.items():
         row = dict(name=name, route="cuda", source=src, replaces=rep,
-                   launches=n_launch)
+                   launches=path_counts[path][name])
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))

@@ -13,12 +13,15 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["BandSpec", "band_hashes", "probe_hashes"]
+from repro_torch.core import packing as _packing
+
+__all__ = ["BandSpec", "band_hashes", "probe_hashes", "word_band_hashes"]
 
 _M = 0xFFFFFFFF
 _MIX1 = 0x9E3779B9      # golden-ratio increment
 _MIX2 = 0x85EBCA6B      # murmur3 finalizer constants
 _MIX3 = 0xC2B2AE35
+_HASH_ROWS = 1 << 16   # rows per step of word_band_hashes
 
 
 @dataclass(frozen=True)
@@ -85,3 +88,19 @@ def probe_hashes(codes: torch.Tensor, spec: BandSpec,
         bump[(p - 1) // 2 % m] = 1 if p % 2 == 1 else -1
         out.append(_hash_bands(bands + bump))
     return torch.stack(out, dim=-2)
+
+
+def word_band_hashes(words: torch.Tensor, bits: int,
+                     spec: BandSpec) -> torch.Tensor:
+    """Band hashes of packed rows int32 [n, W] -> [n, L] (uint32 in
+    int64), in row steps: only the words that hold the first L*m codes
+    are unpacked, never all k codes of every row."""
+    used = spec.n_tables * spec.band_width
+    n_w = _packing.packed_width(used, bits)
+    parts = [band_hashes(_packing.unpack_codes(words[lo:lo + _HASH_ROWS, :n_w],
+                                               bits, used), spec)
+             for lo in range(0, words.shape[0], _HASH_ROWS)]
+    if not parts:
+        return torch.empty((0, spec.n_tables), dtype=torch.int64,
+                           device=words.device)
+    return torch.cat(parts)

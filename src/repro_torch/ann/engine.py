@@ -25,7 +25,8 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from repro_torch.ann.bands import BandSpec, band_hashes, probe_hashes
+from repro_torch.ann.bands import (BandSpec, band_hashes, probe_hashes,
+                                   word_band_hashes)
 from repro_torch.ann.store import CodeStore
 from repro_torch.core import packing as _packing
 from repro_torch.core.sketch import CodedRandomProjection
@@ -34,11 +35,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.rank.tables import RankTables, build_rank_tables
 
 __all__ = ["SearchConfig", "AnnEngine", "QueryCoder", "merge_topk",
-           "run_chunked", "lut_rerank_stage", "rho_scored",
+           "run_chunked", "lut_rerank_stage", "rho_scored", "rho_counts",
            "resolve_query_tables"]
-
-_HASH_ROWS = 1 << 16   # rows per band-hash step (bounds the temporaries)
-
 
 @dataclass(frozen=True)
 class SearchConfig:
@@ -137,17 +135,19 @@ def run_chunked(q_codes: torch.Tensor, cfg: SearchConfig, chunk_fn):
 
 def lut_rerank_stage(tables: RankTables, q_codes: torch.Tensor,
                      cand_ids: torch.Tensor, words_src: torch.Tensor,
-                     top_k: int, impl: str = "auto"):
+                     top_k: int, impl: str = "auto", q_tables=None):
     """Second stage of a two-stage scored search: candidate rows
     ``cand_ids`` int32 [c, M] into ``words_src`` [n, W] (-1 = empty) ->
     (rows int32 [c, top_k], -1 empty; scores float32 [c, top_k], -inf
     empty), by gathering the candidates' words and running the LUT
-    re-rank kernel on the queries' tables."""
+    re-rank kernel on the queries' tables (``q_tables`` [c, F*P] when
+    given, as a loop over segments passes them, else built here)."""
     n = words_src.shape[0]
     cand = words_src[cand_ids.clamp(0, n - 1).to(torch.int64)]
-    scores, pos = _ops.packed_lut_rerank(tables.query_tables(q_codes), cand,
-                                         cand_ids >= 0, tables.bits, top_k,
-                                         impl=impl)
+    if q_tables is None:
+        q_tables = tables.query_tables(q_codes)
+    scores, pos = _ops.packed_lut_rerank(q_tables, cand, cand_ids >= 0,
+                                         tables.bits, top_k, impl=impl)
     rows = torch.gather(cand_ids, 1,
                         pos.clamp(0, cand_ids.shape[1] - 1).to(torch.int64))
     return torch.where(pos < 0, torch.full_like(rows, -1), rows), scores
@@ -159,6 +159,15 @@ def rho_scored(tables: RankTables, ids: torch.Tensor,
     give -1."""
     rho = tables.rho_from_scores(scores)
     return torch.where(ids < 0, torch.full_like(rho, -1.0), rho)
+
+
+def rho_counts(sketcher: CodedRandomProjection,
+               counts: torch.Tensor) -> torch.Tensor:
+    """Collision counts -> rho_hat by the paper's estimator; empty slots
+    (count < 0) give -1."""
+    k = torch.tensor(float(sketcher.cfg.k), device=counts.device)
+    rho = sketcher._estimator(counts.to(torch.float32) / k)
+    return torch.where(counts < 0, torch.full_like(rho, -1.0), rho)
 
 
 def _coarse_band_scores(q_probe_hashes: torch.Tensor,
@@ -191,25 +200,11 @@ class AnnEngine:
         self.store = store
         self.band_spec = band_spec.validate(sketcher.cfg.k)
         if db_band_hashes is None:
-            db_band_hashes = self._hash_words(store.words)
+            db_band_hashes = word_band_hashes(store.words, store.bits,
+                                              self.band_spec)
         self.db_band_hashes = db_band_hashes      # uint32 values, int64 [n, L]
         self._coder = QueryCoder(sketcher)
         self._rank_tables = rank_tables
-
-    def _hash_words(self, words: torch.Tensor) -> torch.Tensor:
-        """Band hashes of packed rows, in row chunks: only the words that
-        hold the first L*m codes are unpacked, never the whole store."""
-        spec, bits = self.band_spec, self.store.bits
-        used = spec.n_tables * spec.band_width
-        n_w = _packing.packed_width(used, bits)
-        parts = [band_hashes(_packing.unpack_codes(words[lo:lo + _HASH_ROWS,
-                                                         :n_w], bits, used),
-                             spec)
-                 for lo in range(0, words.shape[0], _HASH_ROWS)]
-        if not parts:
-            return torch.empty((0, spec.n_tables), dtype=torch.int64,
-                               device=words.device)
-        return torch.cat(parts)
 
     # -- construction / ingestion -------------------------------------------
     @classmethod
@@ -306,9 +301,7 @@ class AnnEngine:
 
     def _rho(self, counts: torch.Tensor) -> torch.Tensor:
         """Collision counts -> rho_hat; empty slots (count < 0) give -1."""
-        k = torch.tensor(float(self.sketcher.cfg.k), device=counts.device)
-        rho = self.sketcher._estimator(counts.to(torch.float32) / k)
-        return torch.where(counts < 0, torch.full_like(rho, -1.0), rho)
+        return rho_counts(self.sketcher, counts)
 
     def _rerank(self, q_codes: torch.Tensor, cand_ids: torch.Tensor,
                 cfg: SearchConfig):

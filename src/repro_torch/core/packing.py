@@ -14,7 +14,8 @@ import torch
 __all__ = ["MASK32", "as_u32", "as_i32", "codes_per_word", "packed_width",
            "pack_codes", "unpack_codes", "field_lsb_mask",
            "fold_nonzero_fields", "mismatch_count_words",
-           "match_count_packed"]
+           "match_count_packed", "bitmask_width", "pack_bitmask",
+           "unpack_bitmask"]
 
 MASK32 = 0xFFFFFFFF
 
@@ -100,6 +101,23 @@ def mismatch_count_words(xor_words: torch.Tensor, bits: int) -> torch.Tensor:
     uint32 values) -> int64."""
     folded = fold_nonzero_fields(xor_words, bits)
     return _popcount32(folded & field_lsb_mask(bits))
+
+
+def bitmask_width(n: int) -> int:
+    """Words in a packed one-bit-per-row validity mask over n rows."""
+    return (n + 31) // 32
+
+
+def pack_bitmask(flags: torch.Tensor) -> torch.Tensor:
+    """Flags [..., n] -> int32 words [..., ceil(n/32)]: bit ``r % 32`` of
+    word ``r // 32`` is set iff flag r is nonzero (``pack_codes`` at
+    bits=1); bits past n are zero, which the masked kernels rely on."""
+    return pack_codes((flags != 0).to(torch.int32), 1)
+
+
+def unpack_bitmask(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of ``pack_bitmask``: int32 words [..., W] -> bool [..., n]."""
+    return unpack_codes(words, 1, n).to(torch.bool)
 
 
 def match_count_packed(a: torch.Tensor, b: torch.Tensor, bits: int,

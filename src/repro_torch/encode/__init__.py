@@ -1,2 +1,4 @@
-"""Ingest: raw vectors -> packed words through the fused kernels."""
+"""Ingest: raw vectors -> packed words through the fused kernels, and
+the chunked pipeline into a store."""
 from repro_torch.encode.encoder import R_CAP_ELEMS, StreamingEncoder  # noqa: F401
+from repro_torch.encode.pipeline import IngestPipeline  # noqa: F401

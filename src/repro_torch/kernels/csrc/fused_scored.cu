@@ -30,6 +30,17 @@
 // accumulation order) and the block selects the top_k by (score, -id).
 // The [Q, N] count matrix and the survivor ids never reach device
 // memory; m is at most 2048, the per-warp lists' room in shared memory.
+//
+// fused_scored_topk_masked_launch replaces
+// src/repro/kernels/fused_scored.py::fused_scored_topk_masked_pallas
+// (body _fused_scored_call), the mutable index's scored search over one
+// segment: the same kernels, with the partial kernel reading a validity
+// bitmask [ceil(N/32)]. A dead row takes count -1 and never enters a
+// list (an offer must strictly beat the last entry, which starts at
+// -1), so the merged lists of m are exactly the stable top-m over live
+// rows: the reference's survivor rule with tombstones at -1. Bound: the
+// unmasked kernel's count sweep over the live rows only, and N/8 more
+// bytes for the mask.
 #include "topk_common.cuh"
 #include "lut_common.cuh"
 
@@ -93,6 +104,29 @@ cudaError_t launch_score(const int32_t* pv, const int32_t* pi,
   return cudaGetLastError();
 }
 
+cudaError_t launch_fused(const uint32_t* q, const uint32_t* db,
+                         const uint32_t* valid, const void* tables,
+                         int tab_dtype, const float* scales,
+                         int32_t* part_vals, int32_t* part_ids,
+                         float* scratch, float* out_s, int32_t* out_ids,
+                         int nq, int n, int w, int bits, int k, int m,
+                         int top_k, int n_ranges, cudaStream_t st) {
+  cudaError_t err = launch_partial_ranges(q, db, valid, part_vals, part_ids,
+                                          nq, n, w, bits, k, m, n_ranges, st);
+  if (err != cudaSuccess) return err;
+  if (tab_dtype == 0)
+    return launch_score<float>(part_vals, part_ids, tables, nullptr, db,
+                               scratch, out_s, out_ids, nq, m, w, bits, top_k,
+                               n_ranges, st);
+  if (tab_dtype == 1)
+    return launch_score<uint16_t>(part_vals, part_ids, tables, nullptr, db,
+                                  scratch, out_s, out_ids, nq, m, w, bits,
+                                  top_k, n_ranges, st);
+  return launch_score<int8_t>(part_vals, part_ids, tables, scales, db,
+                              scratch, out_s, out_ids, nq, m, w, bits, top_k,
+                              n_ranges, st);
+}
+
 }  // namespace
 
 // tab_dtype: 0 float32, 1 bf16, 2 int8 (scales [nq, w], else null).
@@ -104,21 +138,21 @@ extern "C" int fused_scored_launch(const uint32_t* q, const uint32_t* db,
                                    float* out_s, int32_t* out_ids, int nq,
                                    int n, int w, int bits, int k, int m,
                                    int top_k, int n_ranges, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_partial_ranges(q, db, part_vals, part_ids, nq, n,
-                                          w, bits, k, m, n_ranges, st);
-  if (err != cudaSuccess) return (int)err;
-  if (tab_dtype == 0)
-    err = launch_score<float>(part_vals, part_ids, tables, nullptr, db,
-                              scratch, out_s, out_ids, nq, m, w, bits, top_k,
-                              n_ranges, st);
-  else if (tab_dtype == 1)
-    err = launch_score<uint16_t>(part_vals, part_ids, tables, nullptr, db,
-                                 scratch, out_s, out_ids, nq, m, w, bits,
-                                 top_k, n_ranges, st);
-  else
-    err = launch_score<int8_t>(part_vals, part_ids, tables, scales, db,
-                               scratch, out_s, out_ids, nq, m, w, bits, top_k,
-                               n_ranges, st);
-  return (int)err;
+  return (int)launch_fused(q, db, nullptr, tables, tab_dtype, scales,
+                           part_vals, part_ids, scratch, out_s, out_ids, nq,
+                           n, w, bits, k, m, top_k, n_ranges,
+                           (cudaStream_t)stream);
+}
+
+// valid: the rows' bitmask, uint32 [ceil(n/32)].
+extern "C" int fused_scored_topk_masked_launch(
+    const uint32_t* q, const uint32_t* db, const uint32_t* valid,
+    const void* tables, int tab_dtype, const float* scales,
+    int32_t* part_vals, int32_t* part_ids, float* scratch, float* out_s,
+    int32_t* out_ids, int nq, int n, int w, int bits, int k, int m,
+    int top_k, int n_ranges, void* stream) {
+  return (int)launch_fused(q, db, valid, tables, tab_dtype, scales,
+                           part_vals, part_ids, scratch, out_s, out_ids, nq,
+                           n, w, bits, k, m, top_k, n_ranges,
+                           (cudaStream_t)stream);
 }

@@ -27,6 +27,18 @@
 // reference's stable merge. A second kernel merges the S partial lists
 // of each query in range order under the same rule. Rows >= N never
 // enter; top_k up to 2048 fits in shared memory.
+//
+// packed_topk_masked_launch replaces
+// src/repro/kernels/packed_collision.py::packed_topk_masked_pallas, the
+// mutable index's count-ranked search over one segment: the same two
+// kernels with a validity bitmask [ceil(N/32)] (bit r % 32 of word
+// r / 32 marks row r live). The partial kernel gives a dead row count -1
+// and skips its popcounts; since a list starts at -1 and an offer must
+// strictly beat its last entry, a dead row never enters, and slots past
+// the live count come back (-1, -1), as the reference's masked merge
+// gives them. Bound: the unmasked kernel's operations over the live rows
+// only (a dead row's popcounts are skipped; its words are still read),
+// and N/8 more bytes for the mask.
 #include "topk_common.cuh"
 
 namespace {
@@ -51,6 +63,25 @@ packed_topk_merge(const int32_t* __restrict__ part_vals,
   }
 }
 
+cudaError_t launch_topk(const uint32_t* q, const uint32_t* db,
+                        const uint32_t* valid, int32_t* part_vals,
+                        int32_t* part_ids, int32_t* out_vals, int32_t* out_ids,
+                        int nq, int n, int w, int bits, int k, int top_k,
+                        int n_ranges, cudaStream_t st) {
+  cudaError_t err = launch_partial_ranges(q, db, valid, part_vals, part_ids,
+                                          nq, n, w, bits, k, top_k, n_ranges,
+                                          st);
+  if (err != cudaSuccess) return err;
+  const size_t msmem = 2 * (size_t)WARPS * top_k * 4;
+  err = cudaFuncSetAttribute(packed_topk_merge,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)msmem);
+  if (err != cudaSuccess) return err;
+  packed_topk_merge<<<(nq + WARPS - 1) / WARPS, THREADS, msmem, st>>>(
+      part_vals, part_ids, out_vals, out_ids, nq, top_k, n_ranges);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // part_vals/part_ids: scratch [n_ranges, nq, top_k]; out: [nq, top_k].
@@ -59,16 +90,20 @@ extern "C" int packed_topk_launch(const uint32_t* q, const uint32_t* db,
                                   int32_t* out_vals, int32_t* out_ids, int nq,
                                   int n, int w, int bits, int k, int top_k,
                                   int n_ranges, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_partial_ranges(q, db, part_vals, part_ids, nq, n,
-                                          w, bits, k, top_k, n_ranges, st);
-  if (err != cudaSuccess) return (int)err;
-  const size_t msmem = 2 * (size_t)WARPS * top_k * 4;
-  err = cudaFuncSetAttribute(packed_topk_merge,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)msmem);
-  if (err != cudaSuccess) return (int)err;
-  packed_topk_merge<<<(nq + WARPS - 1) / WARPS, THREADS, msmem, st>>>(
-      part_vals, part_ids, out_vals, out_ids, nq, top_k, n_ranges);
-  return (int)cudaGetLastError();
+  return (int)launch_topk(q, db, nullptr, part_vals, part_ids, out_vals,
+                          out_ids, nq, n, w, bits, k, top_k, n_ranges,
+                          (cudaStream_t)stream);
+}
+
+// valid: the rows' bitmask, uint32 [ceil(n/32)].
+extern "C" int packed_topk_masked_launch(const uint32_t* q, const uint32_t* db,
+                                         const uint32_t* valid,
+                                         int32_t* part_vals, int32_t* part_ids,
+                                         int32_t* out_vals, int32_t* out_ids,
+                                         int nq, int n, int w, int bits, int k,
+                                         int top_k, int n_ranges,
+                                         void* stream) {
+  return (int)launch_topk(q, db, valid, part_vals, part_ids, out_vals,
+                          out_ids, nq, n, w, bits, k, top_k, n_ranges,
+                          (cudaStream_t)stream);
 }

@@ -1,7 +1,11 @@
 // Count-ranked building blocks shared by packed_topk.cu and
 // fused_scored.cu: the field fold, the per-warp sorted (count, id) list
 // and the partial top-k kernel over S contiguous corpus ranges (its
-// design note is in packed_topk.cu).
+// design note is in packed_topk.cu). The partial kernel takes an
+// optional validity bitmask (bit r % 32 of word r / 32 marks row r
+// live; null for the unmasked kernels): a dead row gets count -1 and
+// its popcounts are skipped. Lists start at -1 and an offer must
+// strictly beat the last entry, so a dead row never enters one.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,6 +66,7 @@ template <int WQ>
 __global__ void __launch_bounds__(THREADS)
 packed_topk_partial(const uint32_t* __restrict__ q,
                     const uint32_t* __restrict__ db,
+                    const uint32_t* __restrict__ valid,
                     int32_t* __restrict__ part_vals,
                     int32_t* __restrict__ part_ids, int nq, int n, int w,
                     int bits, int k, int top_k, int rows_per_range, int tn,
@@ -97,7 +102,11 @@ packed_topk_partial(const uint32_t* __restrict__ q,
     for (int b = 0; b < rows; b += 32) {
       const int rr = b + lane;
       int cnt = -1;
-      if (rr < rows) {
+      // ranges need not start at a multiple of 32: row r's bit is read
+      // from its own word, valid[r >> 5]
+      const int row = t0 + rr;
+      if (rr < rows &&
+          (valid == nullptr || ((valid[row >> 5] >> (row & 31)) & 1u))) {
         const uint32_t* drow = tile + rr * wp;
         int mism = 0;
         if constexpr (WQ > 0) {
@@ -110,7 +119,7 @@ packed_topk_partial(const uint32_t* __restrict__ q,
         }
         cnt = k - mism;
       }
-      offer_batch(lv, li, top_k, cnt, t0 + rr, lane);
+      offer_batch(lv, li, top_k, cnt, row, lane);
     }
   }
   if (has_q) {
@@ -145,7 +154,8 @@ __device__ inline void warp_merge_ranges(const int32_t* __restrict__ part_vals,
 template <int WQ>
 cudaError_t launch_partial(dim3 grid, size_t smem, cudaStream_t stream,
                            const uint32_t* q, const uint32_t* db,
-                           int32_t* pv, int32_t* pi, int nq, int n, int w,
+                           const uint32_t* valid, int32_t* pv, int32_t* pi,
+                           int nq, int n, int w,
                            int bits, int k, int top_k, int rpr, int tn,
                            uint32_t lsb) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -153,14 +163,16 @@ cudaError_t launch_partial(dim3 grid, size_t smem, cudaStream_t stream,
       (int)smem);
   if (err != cudaSuccess) return err;
   packed_topk_partial<WQ><<<grid, THREADS, smem, stream>>>(
-      q, db, pv, pi, nq, n, w, bits, k, top_k, rpr, tn, lsb);
+      q, db, valid, pv, pi, nq, n, w, bits, k, top_k, rpr, tn, lsb);
   return cudaGetLastError();
 }
 
 // Launches the partial kernel: per query, the stable top_k by count of
 // each of n_ranges contiguous corpus ranges, into part_vals/part_ids
-// [n_ranges, nq, top_k] ((-1, -1) where a range has fewer rows).
+// [n_ranges, nq, top_k] ((-1, -1) where a range has fewer live rows).
+// valid: the bitmask over db's rows, or null when every row is live.
 inline cudaError_t launch_partial_ranges(const uint32_t* q, const uint32_t* db,
+                                  const uint32_t* valid,
                                   int32_t* part_vals, int32_t* part_ids,
                                   int nq, int n, int w, int bits, int k,
                                   int top_k, int n_ranges, cudaStream_t st) {
@@ -174,13 +186,15 @@ inline cudaError_t launch_partial_ranges(const uint32_t* q, const uint32_t* db,
   const size_t smem =
       ((size_t)tn * wp + (size_t)WARPS * w + 2 * (size_t)WARPS * top_k) * 4;
   if (w <= 16)
-    return launch_partial<16>(grid, smem, st, q, db, part_vals, part_ids, nq,
-                              n, w, bits, k, top_k, rpr, tn, lsb);
+    return launch_partial<16>(grid, smem, st, q, db, valid, part_vals,
+                              part_ids, nq, n, w, bits, k, top_k, rpr, tn,
+                              lsb);
   if (w <= 64)
-    return launch_partial<64>(grid, smem, st, q, db, part_vals, part_ids, nq,
-                              n, w, bits, k, top_k, rpr, tn, lsb);
-  return launch_partial<0>(grid, smem, st, q, db, part_vals, part_ids, nq, n,
-                           w, bits, k, top_k, rpr, tn, lsb);
+    return launch_partial<64>(grid, smem, st, q, db, valid, part_vals,
+                              part_ids, nq, n, w, bits, k, top_k, rpr, tn,
+                              lsb);
+  return launch_partial<0>(grid, smem, st, q, db, valid, part_vals, part_ids,
+                           nq, n, w, bits, k, top_k, rpr, tn, lsb);
 }
 
 }  // namespace

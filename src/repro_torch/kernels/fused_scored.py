@@ -5,7 +5,9 @@ query words int32 [Q, W], query tables [Q, F*P] (float32, bf16, or int8
 with float32 scales [Q, W]) and corpus words int32 [N, W] -> (scores
 float32, corpus ids int32) [Q, top_k]: the stable top-k by LUT score
 over the stable top-``rerank_m`` by collision count, (-inf, -1) in empty
-slots.
+slots. ``fused_scored_topk_masked_cuda``
+(``fused_scored_topk_masked_pallas``) does the same over the rows whose
+bit is set in a validity bitmask int32 [ceil(N/32)].
 """
 from __future__ import annotations
 
@@ -13,28 +15,33 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.packed_collision import check_words, n_ranges
+from repro_torch.kernels.packed_collision import (check_valid, check_words,
+                                                  n_ranges)
 from repro_torch.kernels.packed_lut import check_tables
 
-__all__ = ["fused_scored_topk_cuda", "MAX_RERANK_M", "MAX_TOP_K", "launches"]
+__all__ = ["fused_scored_topk_cuda", "fused_scored_topk_masked_cuda",
+           "MAX_RERANK_M", "MAX_TOP_K", "launches", "masked_launches"]
 
 MAX_RERANK_M = 2048   # the partial kernel's per-warp lists in shared memory
 MAX_TOP_K = 2048      # one block-wide selection round per output slot
-launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+# kernel launches since the last reset (ops.reset_launch_counts)
+launches = 0          # fused_scored_topk
+masked_launches = 0   # fused_scored_topk_masked
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def fused_scored_topk_cuda(words_q: torch.Tensor, tables: torch.Tensor,
-                           words_db: torch.Tensor, bits: int, k: int,
-                           rerank_m: int, top_k: int, scales=None):
-    """Launches the partial top-``rerank_m`` kernel over S corpus ranges
-    and the merge, score and select kernel -> (scores float32, ids
-    int32) [Q, top_k]."""
-    global launches
+def _fused(words_q, tables, words_db, valid_words, bits: int, k: int,
+           rerank_m: int, top_k: int, scales):
+    """Partial top-``rerank_m`` over S corpus ranges, then merge, score
+    and select: the unmasked entry point when ``valid_words`` is None,
+    else the masked one."""
+    global launches, masked_launches
     from repro_torch.kernels import _build
     nq, n, w = check_words(words_q, words_db, bits)
+    if valid_words is not None:
+        check_valid(valid_words, words_db)
     code = check_tables(tables, nq, w, bits,
                         (torch.float32, torch.bfloat16, torch.int8))
     if tables.device != words_q.device:
@@ -66,16 +73,50 @@ def fused_scored_topk_cuda(words_q: torch.Tensor, tables: torch.Tensor,
     scratch = torch.empty((nq, rerank_m), dtype=torch.float32, device=dev)
     scores = torch.empty((nq, top_k), dtype=torch.float32, device=dev)
     ids = torch.empty((nq, top_k), dtype=torch.int32, device=dev)
-    fn = _build.function("fused_scored", "fused_scored_launch",
-                         [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _P])
-    err = fn(words_q.data_ptr(), words_db.data_ptr(), tables.data_ptr(),
-             code, None if scales is None else scales.data_ptr(),
-             part_v.data_ptr(), part_i.data_ptr(), scratch.data_ptr(),
-             scores.data_ptr(), ids.data_ptr(), nq, n, w, bits, k, rerank_m,
-             top_k, s, torch.cuda.current_stream(dev).cuda_stream)
+    tail = [tables.data_ptr(), code,
+            None if scales is None else scales.data_ptr(), part_v.data_ptr(),
+            part_i.data_ptr(), scratch.data_ptr(), scores.data_ptr(),
+            ids.data_ptr(), nq, n, w, bits, k, rerank_m, top_k, s,
+            torch.cuda.current_stream(dev).cuda_stream]
+    types = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P]
+    if valid_words is None:
+        fn = _build.function("fused_scored", "fused_scored_launch",
+                             [_P, _P] + types)
+        err = fn(words_q.data_ptr(), words_db.data_ptr(), *tail)
+    else:
+        fn = _build.function("fused_scored",
+                             "fused_scored_topk_masked_launch",
+                             [_P, _P, _P] + types)
+        err = fn(words_q.data_ptr(), words_db.data_ptr(),
+                 valid_words.data_ptr(), *tail)
     if err:
         raise RuntimeError(f"fused_scored_topk kernel launch failed: CUDA "
                            f"error {err}")
-    launches += 1
+    if valid_words is None:
+        launches += 1
+    else:
+        masked_launches += 1
     return scores, ids
+
+
+def fused_scored_topk_cuda(words_q: torch.Tensor, tables: torch.Tensor,
+                           words_db: torch.Tensor, bits: int, k: int,
+                           rerank_m: int, top_k: int, scales=None):
+    """Launches the partial top-``rerank_m`` kernel over S corpus ranges
+    and the merge, score and select kernel -> (scores float32, ids
+    int32) [Q, top_k]."""
+    return _fused(words_q, tables, words_db, None, bits, k, rerank_m, top_k,
+                  scales)
+
+
+def fused_scored_topk_masked_cuda(words_q: torch.Tensor, tables: torch.Tensor,
+                                  words_db: torch.Tensor,
+                                  valid_words: torch.Tensor, bits: int,
+                                  k: int, rerank_m: int, top_k: int,
+                                  scales=None):
+    """``fused_scored_topk_cuda`` over the rows whose bit is set in
+    ``valid_words`` int32 [ceil(N/32)]: dead rows take count -1 before
+    the survivor rule -> (scores float32, ids int32) [Q, top_k]."""
+    return _fused(words_q, tables, words_db, valid_words, bits, k, rerank_m,
+                  top_k, scales)

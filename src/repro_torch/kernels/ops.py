@@ -1,6 +1,6 @@
 """Dispatch between the CUDA kernels and their plain versions.
 
-Counterpart of ``repro/kernels/ops.py:51-164, 278-316``. ``impl``:
+Counterpart of ``repro/kernels/ops.py:51-182, 278-332``. ``impl``:
 
 * ``"auto"``: the kernel for CUDA tensors, the plain version (``ref.py``)
   for CPU tensors;
@@ -25,17 +25,20 @@ from repro_torch.kernels import proj_code as _proj_code
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["coded_project", "encode_fused", "pack_codes", "packed_topk",
-           "packed_collision_counts", "packed_lut_rerank",
-           "fused_scored_topk", "launch_counts", "reset_launch_counts"]
+           "packed_topk_masked", "packed_collision_counts",
+           "packed_lut_rerank", "fused_scored_topk", "fused_scored_topk_masked",
+           "launch_counts", "reset_launch_counts"]
 
 # wrapper name -> (module, its launch counter)
 _WRAPPERS = {"coded_project": (_proj_code, "launches"),
              "encode_fused": (_encode_fused, "launches"),
              "pack_codes": (_pack_codes, "launches"),
              "packed_topk": (_packed_collision, "launches"),
+             "packed_topk_masked": (_packed_collision, "masked_launches"),
              "packed_collision_counts": (_packed_collision, "counts_launches"),
              "packed_lut_rerank": (_packed_lut, "launches"),
-             "fused_scored_topk": (_fused_scored, "launches")}
+             "fused_scored_topk": (_fused_scored, "launches"),
+             "fused_scored_topk_masked": (_fused_scored, "masked_launches")}
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -87,6 +90,20 @@ def packed_topk(words_q: torch.Tensor, words_db: torch.Tensor, bits: int,
     return _ref.packed_topk_ref(words_q, words_db, bits, k, top_k)
 
 
+def packed_topk_masked(words_q: torch.Tensor, words_db: torch.Tensor,
+                       valid_words: torch.Tensor, bits: int, k: int,
+                       top_k: int, impl: str = "auto"):
+    """Exact top-k over the live rows of ``valid_words`` int32
+    [ceil(N/32)] (bit r % 32 of word r // 32 = row r) -> (counts, ids)
+    int32 [Q, top_k]; slots past the live count are (-1, -1)."""
+    if _use_kernel(impl, words_q):
+        return _packed_collision.packed_topk_masked_cuda(
+            words_q.contiguous(), words_db.contiguous(),
+            valid_words.contiguous(), bits, k, top_k)
+    return _ref.packed_topk_masked_ref(words_q, words_db, valid_words, bits,
+                                       k, top_k)
+
+
 def packed_collision_counts(words_q: torch.Tensor, words_db: torch.Tensor,
                             bits: int, k: int,
                             impl: str = "auto") -> torch.Tensor:
@@ -125,6 +142,22 @@ def fused_scored_topk(q_words: torch.Tensor, q_tables: torch.Tensor,
             None if scales is None else scales.contiguous())
     return _ref.fused_scored_topk_ref(q_words, q_tables, words_db, bits, k,
                                       rerank_m, top_k, scales=scales)
+
+
+def fused_scored_topk_masked(q_words: torch.Tensor, q_tables: torch.Tensor,
+                             words_db: torch.Tensor, valid_words: torch.Tensor,
+                             bits: int, k: int, rerank_m: int, top_k: int,
+                             scales=None, impl: str = "auto"):
+    """``fused_scored_topk`` over the live rows of ``valid_words`` int32
+    [ceil(N/32)]: dead rows take count -1 before the survivor rule."""
+    if _use_kernel(impl, q_words):
+        return _fused_scored.fused_scored_topk_masked_cuda(
+            q_words.contiguous(), q_tables.contiguous(),
+            words_db.contiguous(), valid_words.contiguous(), bits, k,
+            rerank_m, top_k, None if scales is None else scales.contiguous())
+    return _ref.fused_scored_topk_masked_ref(q_words, q_tables, words_db,
+                                             valid_words, bits, k, rerank_m,
+                                             top_k, scales=scales)
 
 
 def launch_counts() -> dict:

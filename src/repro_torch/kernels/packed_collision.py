@@ -5,6 +5,9 @@ Counterparts of ``repro/kernels/packed_collision.py``:
 * ``packed_topk_cuda`` (``csrc/packed_topk.cu``, ``packed_topk_pallas``):
   int32 words [Q, W] x [N, W] -> (counts, ids) int32 [Q, top_k], a
   stable descending top-k by collision count, (-1, -1) in empty slots;
+* ``packed_topk_masked_cuda`` (``csrc/packed_topk.cu``,
+  ``packed_topk_masked_pallas``): the same over the rows whose bit is set
+  in a validity bitmask int32 [ceil(N/32)]; dead rows never surface;
 * ``packed_collision_counts_cuda`` (``csrc/packed_counts.cu``,
   ``packed_collision_counts_pallas``): the whole int32 count matrix
   [Q, N].
@@ -15,15 +18,17 @@ import ctypes
 
 import torch
 
-__all__ = ["packed_topk_cuda", "packed_collision_counts_cuda", "n_ranges",
-           "check_words", "MAX_TOP_K", "MAX_COUNT_QUERIES", "launches",
-           "counts_launches"]
+__all__ = ["packed_topk_cuda", "packed_topk_masked_cuda",
+           "packed_collision_counts_cuda", "n_ranges", "check_words",
+           "check_valid", "MAX_TOP_K", "MAX_COUNT_QUERIES", "launches",
+           "masked_launches", "counts_launches"]
 
 MAX_TOP_K = 2048   # the per-warp lists of a block fit in shared memory
 WARPS = 8          # queries per block (csrc/packed_topk.cu)
 MAX_COUNT_QUERIES = 65535 * 32   # grid rows of 32 queries (packed_counts.cu)
 # kernel launches since the last reset (ops.reset_launch_counts)
 launches = 0          # packed_topk
+masked_launches = 0   # packed_topk_masked
 counts_launches = 0   # packed_collision_counts
 
 _P = ctypes.c_void_p
@@ -55,13 +60,28 @@ def check_words(words_q: torch.Tensor, words_db: torch.Tensor, bits: int):
     return nq, words_db.shape[0], w
 
 
-def packed_topk_cuda(words_q: torch.Tensor, words_db: torch.Tensor,
-                     bits: int, k: int, top_k: int):
-    """Launches the partial top-k kernel over S corpus ranges and the
-    merge kernel -> (counts, ids) int32 [Q, top_k]."""
-    global launches
+def check_valid(valid_words: torch.Tensor, words_db: torch.Tensor) -> None:
+    """Raises unless ``valid_words`` is a contiguous int32 tensor of
+    ceil(N/32) words on the corpus's device. Bits past N are never read:
+    the kernels stop at row N."""
+    nw = (words_db.shape[0] + 31) // 32
+    if valid_words.dtype != torch.int32 or tuple(valid_words.shape) != (nw,) \
+            or not valid_words.is_contiguous() \
+            or valid_words.device != words_db.device:
+        raise ValueError(f"valid_words must be a contiguous int32 tensor "
+                         f"[{nw}] on {words_db.device}, got "
+                         f"{valid_words.dtype} {tuple(valid_words.shape)} on "
+                         f"{valid_words.device}")
+
+
+def _topk(words_q, words_db, valid_words, bits: int, k: int, top_k: int):
+    """Partial top-k over S corpus ranges, then the merge: the unmasked
+    entry point when ``valid_words`` is None, else the masked one."""
+    global launches, masked_launches
     from repro_torch.kernels import _build
     nq, n, w = check_words(words_q, words_db, bits)
+    if valid_words is not None:
+        check_valid(valid_words, words_db)
     if not 1 <= top_k <= MAX_TOP_K:
         raise ValueError(f"top_k must be in [1, {MAX_TOP_K}], got {top_k}")
     dev = words_q.device
@@ -73,16 +93,42 @@ def packed_topk_cuda(words_q: torch.Tensor, words_db: torch.Tensor,
     s = n_ranges(nq, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     part_v = torch.empty((s, nq, top_k), dtype=torch.int32, device=dev)
     part_i = torch.empty((s, nq, top_k), dtype=torch.int32, device=dev)
-    fn = _build.function("packed_topk", "packed_topk_launch",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _P])
-    err = fn(words_q.data_ptr(), words_db.data_ptr(), part_v.data_ptr(),
-             part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(), nq, n, w,
-             bits, k, top_k, s, torch.cuda.current_stream(dev).cuda_stream)
+    tail = [part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), nq, n, w, bits, k, top_k, s,
+            torch.cuda.current_stream(dev).cuda_stream]
+    types = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    if valid_words is None:
+        fn = _build.function("packed_topk", "packed_topk_launch",
+                             [_P, _P] + types)
+        err = fn(words_q.data_ptr(), words_db.data_ptr(), *tail)
+    else:
+        fn = _build.function("packed_topk", "packed_topk_masked_launch",
+                             [_P, _P, _P] + types)
+        err = fn(words_q.data_ptr(), words_db.data_ptr(),
+                 valid_words.data_ptr(), *tail)
     if err:
         raise RuntimeError(f"packed_topk kernel launch failed: CUDA error {err}")
-    launches += 1
+    if valid_words is None:
+        launches += 1
+    else:
+        masked_launches += 1
     return vals, ids
+
+
+def packed_topk_cuda(words_q: torch.Tensor, words_db: torch.Tensor,
+                     bits: int, k: int, top_k: int):
+    """Launches the partial top-k kernel over S corpus ranges and the
+    merge kernel -> (counts, ids) int32 [Q, top_k]."""
+    return _topk(words_q, words_db, None, bits, k, top_k)
+
+
+def packed_topk_masked_cuda(words_q: torch.Tensor, words_db: torch.Tensor,
+                            valid_words: torch.Tensor, bits: int, k: int,
+                            top_k: int):
+    """``packed_topk_cuda`` over the rows whose bit is set in
+    ``valid_words`` int32 [ceil(N/32)] -> (counts, ids) int32 [Q, top_k];
+    slots past the live count are (-1, -1)."""
+    return _topk(words_q, words_db, valid_words, bits, k, top_k)
 
 
 def packed_collision_counts_cuda(words_q: torch.Tensor,

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (counterpart of
-``repro/kernels/ref.py:30-257, 348-520``).
+``repro/kernels/ref.py:30-257, 333-547``).
 
 They define the semantics the CUDA kernels are held to on the card, and
 they are what ``ops`` runs for tensors on the CPU. Integer outputs are
@@ -18,10 +18,12 @@ from repro_torch.core.schemes import CodeSpec
 
 __all__ = ["coded_project_ref", "pack_codes_ref", "encode_fused_ref",
            "packed_collision_ref", "topk_stable_ref", "packed_topk_ref",
+           "packed_topk_masked_ref",
            "lut_scores_rowwise_ref", "lut_scores_rowwise_int8_ref",
            "topk_scored_ref", "packed_lut_rerank_ref",
            "coarse_survivor_mask_ref", "fused_scored_topk_ref",
-           "two_stage_scored_ref"]
+           "fused_scored_topk_masked_ref", "two_stage_scored_ref",
+           "two_stage_scored_masked_ref"]
 
 
 def coded_project_ref(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
@@ -85,6 +87,22 @@ def packed_topk_ref(words_q: torch.Tensor, words_db: torch.Tensor, bits: int,
     then the stable top-k."""
     return topk_stable_ref(packed_collision_ref(words_q, words_db, bits, k),
                            top_k)
+
+
+def _kill_dead(counts: torch.Tensor, valid_words: torch.Tensor) -> torch.Tensor:
+    """Counts [Q, N] with the rows whose validity bit is clear set to -1
+    (``valid_words``: int32 [ceil(N/32)], bit r % 32 of word r // 32)."""
+    live = _packing.unpack_bitmask(valid_words, counts.shape[1])
+    return torch.where(live[None, :], counts, torch.full_like(counts, -1))
+
+
+def packed_topk_masked_ref(words_q: torch.Tensor, words_db: torch.Tensor,
+                           valid_words: torch.Tensor, bits: int, k: int,
+                           top_k: int):
+    """``packed_topk_ref`` over live rows only: dead rows take count -1,
+    so they never surface, and slots past the live count are (-1, -1)."""
+    return topk_stable_ref(_kill_dead(packed_collision_ref(
+        words_q, words_db, bits, k), valid_words), top_k)
 
 
 # -- LUT-scored ranking -------------------------------------------------------
@@ -220,6 +238,15 @@ def _empty_scored(q: int, top_k: int, device):
             torch.full((q, top_k), -1, dtype=torch.int32, device=device))
 
 
+def _scored_survivors(counts, q_tables, words_db, bits: int, k: int,
+                      rerank_m: int, top_k: int, scales):
+    """LUT-score the stable top-``rerank_m`` rows by ``counts`` [Q, N]
+    (rows at -1 never survive) -> (scores, corpus ids) [Q, top_k]."""
+    cand = _compact_survivors(coarse_survivor_mask_ref(counts, k, rerank_m),
+                              rerank_m)
+    return _score_candidates(q_tables, words_db, cand, bits, top_k, scales)
+
+
 def fused_scored_topk_ref(q_words: torch.Tensor, q_tables: torch.Tensor,
                           words_db: torch.Tensor, bits: int, k: int,
                           rerank_m: int, top_k: int, scales=None):
@@ -230,9 +257,36 @@ def fused_scored_topk_ref(q_words: torch.Tensor, q_tables: torch.Tensor,
     if words_db.shape[0] == 0:
         return _empty_scored(q_words.shape[0], top_k, q_words.device)
     counts = packed_collision_ref(q_words, words_db, bits, k)
-    cand = _compact_survivors(coarse_survivor_mask_ref(counts, k, rerank_m),
-                              rerank_m)
-    return _score_candidates(q_tables, words_db, cand, bits, top_k, scales)
+    return _scored_survivors(counts, q_tables, words_db, bits, k, rerank_m,
+                             top_k, scales)
+
+
+def fused_scored_topk_masked_ref(q_words: torch.Tensor,
+                                 q_tables: torch.Tensor,
+                                 words_db: torch.Tensor,
+                                 valid_words: torch.Tensor, bits: int, k: int,
+                                 rerank_m: int, top_k: int, scales=None):
+    """``fused_scored_topk_ref`` over live rows only: dead rows take
+    count -1 before the survivor rule, so they neither survive nor
+    displace a live tie; an all-dead corpus gives only (-inf, -1)."""
+    if words_db.shape[0] == 0:
+        return _empty_scored(q_words.shape[0], top_k, q_words.device)
+    counts = _kill_dead(packed_collision_ref(q_words, words_db, bits, k),
+                        valid_words)
+    return _scored_survivors(counts, q_tables, words_db, bits, k, rerank_m,
+                             top_k, scales)
+
+
+def _rerank_coarse(ci: torch.Tensor, q_tables, words_db, bits: int,
+                   top_k: int):
+    """Coarse ids [Q, m] (-1 = empty) -> LUT re-rank of their rows ->
+    (scores, corpus ids) [Q, top_k]."""
+    n, m = words_db.shape[0], ci.shape[1]
+    vals, pos = packed_lut_rerank_ref(
+        q_tables, words_db[ci.clamp(0, n - 1).to(torch.int64)], ci >= 0,
+        bits, top_k)
+    ids = torch.gather(ci, 1, pos.clamp(0, m - 1).to(torch.int64))
+    return vals, torch.where(pos < 0, torch.full_like(ids, -1), ids)
 
 
 def two_stage_scored_ref(q_words: torch.Tensor, q_tables: torch.Tensor,
@@ -241,12 +295,21 @@ def two_stage_scored_ref(q_words: torch.Tensor, q_tables: torch.Tensor,
     """Coarse ``packed_topk_ref`` to rerank_m, gather, then
     ``packed_lut_rerank_ref``: equal to ``fused_scored_topk_ref``
     wherever LUT scores do not tie across different collision counts."""
-    n = words_db.shape[0]
-    if n == 0:
+    if words_db.shape[0] == 0:
         return _empty_scored(q_words.shape[0], top_k, q_words.device)
     _, ci = packed_topk_ref(q_words, words_db, bits, k, rerank_m)
-    vals, pos = packed_lut_rerank_ref(
-        q_tables, words_db[ci.clamp(0, n - 1).to(torch.int64)], ci >= 0,
-        bits, top_k)
-    ids = torch.gather(ci, 1, pos.clamp(0, rerank_m - 1).to(torch.int64))
-    return vals, torch.where(pos < 0, torch.full_like(ids, -1), ids)
+    return _rerank_coarse(ci, q_tables, words_db, bits, top_k)
+
+
+def two_stage_scored_masked_ref(q_words: torch.Tensor,
+                                q_tables: torch.Tensor,
+                                words_db: torch.Tensor,
+                                valid_words: torch.Tensor, bits: int, k: int,
+                                rerank_m: int, top_k: int):
+    """The masked two-stage composition: ``packed_topk_masked_ref`` to
+    rerank_m, then the LUT re-rank of the live candidates."""
+    if words_db.shape[0] == 0:
+        return _empty_scored(q_words.shape[0], top_k, q_words.device)
+    _, ci = packed_topk_masked_ref(q_words, words_db, valid_words, bits, k,
+                                   rerank_m)
+    return _rerank_coarse(ci, q_tables, words_db, bits, top_k)

@@ -12,7 +12,9 @@ import torch
 from repro_torch import convert
 from repro_torch.ann import AnnEngine, CodeStore
 from repro_torch.core.schemes import CodeSpec
+from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+from repro_torch.index import MutableAnnEngine, SegmentLogStore, restore_index
 from repro_torch.kernels import ops
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,8 +57,11 @@ def no_cuda(monkeypatch):
     lambda: convert.store_from_numpy(np.zeros((2, 2), np.uint32), 32, 2),
     lambda: convert.sketch_from_numpy(SketchConfig(k=32), 8,
                                       np.zeros((8, 32), np.float32)),
+    lambda: SegmentLogStore(32, 2),
+    lambda: restore_index("no-such-snapshot"),
+    lambda: restore_checkpoint("no-such-checkpoint", 0, {}),
 ], ids=["sketch-default", "sketch-cuda", "store", "store-numpy",
-        "sketch-numpy"])
+        "sketch-numpy", "segment-log", "restore-index", "restore-checkpoint"])
 def test_entry_points_need_the_card_unless_asked(no_cuda, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
@@ -66,6 +71,17 @@ def test_cpu_on_request(no_cuda):
     crp = CodedRandomProjection(SketchConfig(k=64), 8, device="cpu")
     eng = AnnEngine.build(crp, np.ones((4, 8), np.float32))
     assert eng.store.words.device.type == "cpu"
+
+
+def test_mutable_index_on_cpu_on_request(no_cuda, tmp_path):
+    crp = CodedRandomProjection(SketchConfig(k=64), 8, device="cpu")
+    eng = MutableAnnEngine(crp, tail_rows=32)
+    eng.ingest(np.ones((40, 8), np.float32))
+    assert eng.store.tail.words.device.type == "cpu" and eng.n == 40
+    eng.save(str(tmp_path), 1)
+    assert MutableAnnEngine.restore(crp, str(tmp_path)).n == 40
+    with pytest.raises(NotImplementedError, match="item 10"):
+        eng.attach_quality(None)
 
 
 @pytest.mark.parametrize("call", [
@@ -82,8 +98,14 @@ def test_cpu_on_request(no_cuda):
         2, 3, impl="kernel"),
     lambda x, r, c, w: ops.fused_scored_topk(w, torch.zeros(4, 128), w, 2, 32,
                                              4, 3, impl="kernel"),
+    lambda x, r, c, w: ops.packed_topk_masked(
+        w, w, torch.ones(1, dtype=torch.int32), 2, 32, 3, impl="kernel"),
+    lambda x, r, c, w: ops.fused_scored_topk_masked(
+        w, torch.zeros(4, 128), w, torch.ones(1, dtype=torch.int32), 2, 32, 4,
+        3, impl="kernel"),
 ], ids=["coded_project", "encode_fused", "pack_codes", "packed_topk",
-        "packed_collision_counts", "packed_lut_rerank", "fused_scored_topk"])
+        "packed_collision_counts", "packed_lut_rerank", "fused_scored_topk",
+        "packed_topk_masked", "fused_scored_topk_masked"])
 def test_kernel_impl_on_cpu_raises(call):
     x, r = torch.zeros(4, 8), torch.zeros(8, 32)
     codes, words = torch.zeros(4, 32, dtype=torch.int32), torch.zeros(

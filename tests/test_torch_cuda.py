@@ -158,3 +158,70 @@ def test_scored_kernels_with_tables_in_device_memory(gen, bits, k):
             assert _same(ops.packed_lut_rerank(tab, cand, valid, bits, 7,
                                                impl="kernel"),
                          ref.packed_lut_rerank_ref(tab, cand, valid, bits, 7))
+
+
+def _mask(gen, n, live_frac):
+    return packing.pack_bitmask(
+        torch.rand((n,), generator=gen, device="cuda") < live_frac)
+
+
+@pytest.mark.parametrize("live_frac", [0.0, 0.1, 0.9, 1.0])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8, 16])
+def test_masked_topk_kernel_bit_exact(gen, bits, live_frac):
+    # ragged N (mask words past a range boundary), top_k above the live rows
+    for nq, n, k, top_k in ((9, 3000, 100, 10), (5, 33, 64, 50),
+                            (3, 31, 17, 7), (2, 1, 17, 3), (2, 0, 17, 3)):
+        wq, wdb = _words(gen, nq, k, bits), _words(gen, n, k, bits)
+        if n:
+            wdb[n // 2] = wq[0]
+        valid = _mask(gen, n, live_frac)
+        assert _same(ops.packed_topk_masked(wq, wdb, valid, bits, k, top_k,
+                                            impl="kernel"),
+                     ref.packed_topk_masked_ref(wq, wdb, valid, bits, k,
+                                                top_k))
+
+
+@pytest.mark.parametrize("live_frac", [0.0, 0.1, 0.9, 1.0])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_masked_fused_scored_kernel_bit_exact(gen, bits, dtype, live_frac):
+    for nq, n, k, m, top_k in ((3, 37, 17, 9, 7), (9, 3000, 64, 64, 10),
+                               (4, 33, 33, 40, 10), (2, 0, 17, 5, 3)):
+        wq, wdb = _words(gen, nq, k, bits), _words(gen, n, k, bits)
+        if n:
+            wdb[n // 2] = wq[0]
+        valid = _mask(gen, n, live_frac)
+        tab, scl = _tables(gen, nq, wq.shape[1], bits, dtype)
+        assert _same(ops.fused_scored_topk_masked(wq, tab, wdb, valid, bits, k,
+                                                  m, top_k, scales=scl,
+                                                  impl="kernel"),
+                     ref.fused_scored_topk_masked_ref(wq, tab, wdb, valid,
+                                                      bits, k, m, top_k,
+                                                      scales=scl))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(), dict(scored=True), dict(scored=True, table_dtype="int8"),
+    dict(scored=True, fused=False), dict(mode="lsh"),
+    dict(mode="lsh", scored=True, n_probes=1)])
+def test_mutable_engine_modes_match_plain_versions(gen, kwargs):
+    from repro_torch.ann.bands import BandSpec
+    from repro_torch.ann.engine import SearchConfig
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.index import CompactionPolicy, MutableAnnEngine
+    crp = CodedRandomProjection(SketchConfig(k=100), 96)
+    x = torch.randn((3000, 96), generator=gen, device="cuda")
+    x = x / x.norm(dim=1, keepdim=True)
+    eng = MutableAnnEngine(crp, band_spec=BandSpec(8, 4), tail_rows=512)
+    ids = eng.ingest(x, chunk_rows=700)
+    eng.delete(ids[1::3])
+    eng.upsert(ids[:40], x[:40])            # live rows move to the tail
+    codes = eng.encode_queries(x[:40] + 0.001 * torch.randn(
+        (40, 96), generator=gen, device="cuda"))
+    for _ in range(2):                      # before and after compaction
+        got = eng.search_codes(codes, SearchConfig(chunk_q=16, **kwargs))
+        want = eng.search_codes(codes, SearchConfig(chunk_q=16, impl="ref",
+                                                    **kwargs))
+        assert _same(got, want)
+        assert got[0][:, 0].tolist() == list(range(40))
+        eng.compact(CompactionPolicy(target_rows=1024))
