@@ -65,7 +65,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    index bit-exact in every mode. Printed: rows/s of ingest, ms and
    rows/s of delete, upsert and add, queries/s per mode at each stage,
    ms of the compaction, MB/s of the snapshot's save and restore.
-6. A ``kernels`` JSON line, the card line, and as the last line
+6. Encode kernels at the URL path's shapes, on chunk 0 of the URL
+   corpus: ``code_pack`` (B8) on its [262,144 x 256] projections, the R
+   draw of one [4,096 x 256] unit, the CSR step on one unit's bucket
+   (with ``torch.addmm`` of the bucket as a sparse CSR tensor as the
+   library yardstick); each bit-exact against its plain version, timed
+   beside its bound. The small checks (phase 2) hold B8 to its plain
+   version over every scheme at ragged shapes, the draw to the CPU's
+   ``prng`` on all 2^23 mantissas, on whole units and on URL units 0, 1
+   and 789, and the CSR step to its plain version on empty rows, no
+   entries, repeated columns and rows in the ragged last unit only.
+7. URL path, at the URL corpus's published width: D = 3,231,961 (790
+   units of R, the last 217 rows; R, 3.3 GB, is never built), k = 256,
+   2-bit codes, 2,396,130 CSR rows of 115 distinct columns made on the
+   host chunk by chunk, through ``IngestPipeline`` (262,144-row chunks)
+   into a ``CodeStore``; ``AnnEngine`` searches 1,024 CSR queries (512
+   planted at cosine about 0.9) count-ranked and scored; then
+   ``MutableAnnEngine.ingest`` takes the first 524,288 rows. Launches
+   counted over the path. Gates: R never built; each chunk's peak device
+   memory beyond the store within its CSR arrays, accumulator and words
+   plus 64 MB; 512/512 planted at rank 0 in both modes; 16 rows
+   bit-exact against ``impl="ref"`` and against a float64 oracle but at
+   counted bin-edge fields; the mutable engine's words equal the store's.
+8. Dense cross-check above the cap: 8,192 unit rows at D = 131,072
+   (about 1 % nonzero) encoded fused with R resident (cap raised),
+   streamed at the default cap and as CSR agree but at bin edges.
+9. A ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -89,6 +114,7 @@ HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 INT32_OP_S = 132 * 64 * 1.98e9
 POPC_OP_S = 132 * 16 * 1.98e9
+SPIN_CYCLES = int(2e-3 * 1.98e9)   # 2 ms at the boost clock
 
 # SHA-256 of the JAX reference's R for SketchConfig() at D = 1024
 # (repro.core.sketch.CodedRandomProjection(SketchConfig(), 1024)
@@ -96,6 +122,10 @@ POPC_OP_S = 132 * 16 * 1.98e9
 R_SHA256 = "a7a08cc49a0e89c4387cc9ac787b6f72a52d45fdb94e468ea171f3a24bd96818"
 
 N_ROWS, D, K, CHUNK = 4_194_304, 1024, 256, 65_536
+# the URL corpus's published width, rows and nonzeros a row
+# (src/repro/encode/sparse.py:3-9; src/repro/encode/encoder.py:48-52)
+URL_D, URL_ROWS, URL_NNZ, URL_CHUNK = 3_231_961, 2_396_130, 115, 262_144
+URL_SEED, URL_MOVED = 2015, 12    # planted: 12 of 115 nonzeros moved (10 %)
 N_QUERIES, N_PLANTED, CHUNK_Q, TOP_K = 1024, 512, 256, 10
 RERANK_M = 64                 # SearchConfig().resolve_m(N) at top_k = 10
 N_LSH, N_LSH_PLANTED = 256, 128
@@ -130,6 +160,13 @@ KERNELS = {
     "fused_scored_topk_masked": ("mutable",
                                  "src/repro_torch/kernels/csrc/fused_scored.cu",
                                  "src/repro/kernels/fused_scored.py:289"),
+    "code_pack": ("url", "src/repro_torch/kernels/csrc/code_pack.cu",
+                  "src/repro/kernels/encode_fused.py:128"),
+    # no Pallas counterpart: the JAX code they stand in for
+    "normal_unit": ("url", "src/repro_torch/kernels/csrc/normal_unit.cu",
+                    "src/repro/core/sketch.py:104"),
+    "csr_unit_step": ("url", "src/repro_torch/kernels/csrc/csr_step.cu",
+                      "src/repro/encode/encoder.py:100"),
 }
 # path -> every kernel it must launch
 PATH_KERNELS = {
@@ -140,6 +177,8 @@ PATH_KERNELS = {
     "mutable": ("encode_fused", "coded_project", "pack_codes",
                 "packed_topk_masked", "fused_scored_topk_masked",
                 "packed_collision_counts", "packed_lut_rerank"),
+    "url": ("code_pack", "normal_unit", "csr_unit_step", "pack_codes",
+            "packed_topk", "fused_scored_topk"),
 }
 
 
@@ -156,7 +195,12 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events).
+
+    Each run is queued behind a 2 ms spin kernel, so that the host has
+    enqueued the call's launches before the card reaches the first event:
+    the events then bracket device work, not the host's launch latency,
+    which is longer than a small kernel (tens of microseconds)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -165,6 +209,7 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -499,6 +544,105 @@ def masked_checks(device) -> None:
     log("check fused_scored_topk_masked bits 1/2/4/8/16, f32/bf16/int8, N "
         "0/1/31/33/3000, dead all/none/10 %/90 %, rerank_m below and above "
         "the live rows, all tied: bit-exact")
+    torch.cuda.synchronize()
+
+
+def encode_checks(device) -> None:
+    """Ragged shapes for the encode kernels: code_pack against its plain
+    version over every scheme; the R draw against the CPU's plain
+    ``prng`` on all 2^23 mantissas, on whole units and on units 0, 1 and
+    789 of the URL sketch; the CSR step against its plain version on
+    empty rows, no entries, repeated columns, a row wholly in the ragged
+    last unit and rows across many units. All bit-exact."""
+    import torch
+    from repro_torch.core import packing, prng
+    from repro_torch.core.schemes import CodeSpec
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(14)
+    for scheme, w in (("sign", 1.0), ("2bit", 0.75), ("uniform", 0.75),
+                      ("offset", 1.0)):
+        spec = CodeSpec(scheme, w)
+        for k in (1, 7, 31, 256):
+            q = (torch.rand((k,), generator=gen, device=device) * w
+                 if scheme == "offset" else None)
+            for m in (0, 1, 33, 3000):
+                z = 3.0 * torch.randn((m, k), generator=gen, device=device)
+                z[:, ::3] = torch.round(z[:, ::3] / w) * w   # on bin edges
+                got = ops.code_pack(z, spec, q, impl="kernel")
+                if got.shape != (m, packing.packed_width(k, spec.bits)) or \
+                        not torch.equal(got, ref.code_pack_ref(z, spec, q)):
+                    raise AssertionError(f"code_pack {scheme} m={m} k={k}")
+    log("check code_pack sign/2bit/uniform/offset, M 0/1/33/3000, K "
+        "1/7/31/256, a third of the values on bin edges: bit-exact")
+
+    t0 = time.perf_counter()
+    bits = torch.arange(1 << 23, dtype=torch.int64) << 9
+    want = prng.normal_from_bits(bits)                 # on the CPU
+    got = ops.normal_from_bits(packing.as_i32(bits).to(device),
+                               impl="kernel")
+    if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+        n_bad = int((got.cpu().view(torch.int32)
+                     != want.view(torch.int32)).sum())
+        raise AssertionError(f"normal draw: {n_bad} of 2^23 mantissas differ "
+                             f"from the CPU's plain version")
+    log(f"check normal draw on all 2^23 mantissas: bit-identical to the "
+        f"CPU's prng ({time.perf_counter() - t0:.1f} s)")
+    key = prng.fold_in(prng.PRNGKey(2 ** 31 + 5), 77)
+    for width in (1, 217, 4096):
+        for k in (1, 7, 256):
+            got = ops.normal_unit(key, width, k, device, impl="kernel")
+            if not torch.equal(got.cpu().view(torch.int32),
+                               prng.normal(key, (width, k)).view(torch.int32)):
+                raise AssertionError(f"normal_unit width={width} k={k}")
+    url = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,
+                                             seed=0), URL_D)
+    for u in (0, 1, url.n_units - 1):
+        width = url.unit_width(u)
+        got = url._block_r(u, width, impl="kernel")
+        want = prng.normal(prng.fold_in(url._key, u), (width, K))
+        if not torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)):
+            raise AssertionError(f"URL unit {u} ({width} rows) differs")
+    log(f"check normal_unit: widths 1/217/4096 x k 1/7/256 and URL units 0, "
+        f"1 and {url.n_units - 1} ({url.unit_width(url.n_units - 1)} rows): "
+        f"bit-identical to the CPU's prng")
+
+    d, ru = 10_000, 1024                  # 10 units, the last 784 columns
+    for k in (7, 256, 300):
+        for n, rows_nnz in ((200, 60), (5, 0), (3, 3000)):
+            lens = torch.randint(0, rows_nnz + 1, (n,), generator=gen,
+                                 device=device)
+            lens[::7] = 0
+            indptr = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                            device=device),
+                                torch.cumsum(lens, 0)])
+            nnz = int(indptr[-1])
+            cols = torch.randint(0, d, (nnz,), generator=gen, device=device,
+                                 dtype=torch.int32)
+            if n > 5 and int(lens[5]):      # row 5 wholly in the last unit
+                a = int(indptr[5])
+                cols[a:a + int(lens[5])] = d - 1 - torch.arange(
+                    int(lens[5]), device=device, dtype=torch.int32) % 9
+            if n > 3 and int(lens[3]) > 4:  # repeated columns in row 3
+                a = int(indptr[3])
+                cols[a + 1:a + 4] = cols[a]
+            data = torch.randn((nnz,), generator=gen, device=device)
+            acc_k = torch.randn((n, k), generator=gen, device=device)
+            acc_r = acc_k.clone()
+            for u in range((d + ru - 1) // ru):
+                r = torch.randn((min(ru, d - u * ru), k), generator=gen,
+                                device=device)
+                ops.csr_unit_step(acc_k, indptr, cols, data, r, u * ru,
+                                  impl="kernel")
+                ops.csr_unit_step(acc_r, indptr, cols, data, r, u * ru,
+                                  impl="ref")
+            if not torch.equal(acc_k.view(torch.int32),
+                               acc_r.view(torch.int32)):
+                raise AssertionError(f"csr_unit_step k={k} n={n} nnz={nnz}")
+    log("check csr_unit_step k 7/256/300 over 10 units (ragged last), empty "
+        "rows, no entries, repeated columns, a row in the last unit only, "
+        "3,000-entry rows: bit-exact")
     torch.cuda.synchronize()
 
 
@@ -1270,6 +1414,403 @@ def mutable_path(engine, state, device, profile: bool = False) -> tuple:
     return counts, rates
 
 
+def url_rows(rng, n: int):
+    """n CSR rows of the URL corpus's shape: URL_NNZ distinct columns
+    drawn uniformly from [0, URL_D) (sorted in the row) and standard
+    normal values scaled by 1/sqrt(URL_NNZ), so that a row has about unit
+    norm and its projections about unit variance, the scale the 2-bit
+    scheme's w = 0.75 is chosen for -> (cols int32 [n, URL_NNZ], vals
+    float32 [n, URL_NNZ])."""
+    import numpy as np
+    cols = rng.integers(0, URL_D, (n, URL_NNZ), dtype=np.int32)
+    cols.sort(axis=1)
+    dup = (np.diff(cols, axis=1) == 0).any(axis=1)
+    while dup.any():
+        fresh = rng.integers(0, URL_D, (int(dup.sum()), URL_NNZ),
+                             dtype=np.int32)
+        fresh.sort(axis=1)
+        cols[dup] = fresh
+        dup = (np.diff(cols, axis=1) == 0).any(axis=1)
+    return cols, rng.standard_normal((n, URL_NNZ), dtype=np.float32) * \
+        np.float32(1 / math.sqrt(URL_NNZ))
+
+
+def url_chunk(c: int):
+    """Chunk c of the URL corpus (rows c * URL_CHUNK onwards), made on the
+    host from its own seed, so that any chunk can be made alone."""
+    import numpy as np
+    n = min(URL_CHUNK, URL_ROWS - c * URL_CHUNK)
+    return url_rows(np.random.default_rng([URL_SEED, c]), n)
+
+
+def as_csr(cols, vals):
+    """Rows of URL_NNZ entries each -> ``CsrMatrix`` [n, URL_D]."""
+    import numpy as np
+    from repro_torch.encode import CsrMatrix
+    n = cols.shape[0]
+    return CsrMatrix(indptr=np.arange(n + 1, dtype=np.int64) * cols.shape[1],
+                     indices=cols.reshape(-1), data=vals.reshape(-1),
+                     shape=(n, URL_D))
+
+
+def url_queries(src_cols, src_vals, rng):
+    """Planted queries: each source row with URL_MOVED of its nonzeros
+    moved to fresh columns and every value perturbed (noise a tenth of
+    the values' scale), then as many random rows -> (CsrMatrix, mean
+    cosine of planted to source)."""
+    import numpy as np
+    cols, vals = src_cols.copy(), src_vals.copy()
+    for i in range(cols.shape[0]):
+        pos = rng.choice(URL_NNZ, URL_MOVED, replace=False)
+        fresh = rng.integers(0, URL_D, URL_MOVED)
+        while np.isin(fresh, cols[i]).any() or \
+                np.unique(fresh).size < URL_MOVED:
+            fresh = rng.integers(0, URL_D, URL_MOVED)
+        cols[i, pos] = fresh
+    vals = vals + np.float32(0.1 / math.sqrt(URL_NNZ)) * rng.standard_normal(
+        vals.shape, dtype=np.float32)
+    cos = []
+    for i in range(cols.shape[0]):
+        _, a, b = np.intersect1d(cols[i], src_cols[i], return_indices=True)
+        cos.append(float(vals[i, a].astype(np.float64)
+                         @ src_vals[i, b].astype(np.float64))
+                   / float(np.linalg.norm(vals[i]) * np.linalg.norm(src_vals[i])))
+    rcols, rvals = url_rows(rng, cols.shape[0])
+    return (as_csr(np.concatenate([cols, rcols]),
+                   np.concatenate([vals, rvals])), float(np.mean(cos)))
+
+
+def encode_kernel_phase(rows, crp, cols, vals, device) -> None:
+    """The encode kernels at the URL path's shapes, on chunk 0 of the URL
+    corpus: code_pack on its [262,144 x 256] projections, the draw of one
+    full unit [4,096 x 256], the CSR step on one unit's bucket of the
+    chunk (torch.addmm of that bucket as a sparse CSR tensor is the
+    library yardstick); each bit-exact against its plain version."""
+    import torch
+    from repro_torch.core import packing, prng
+    from repro_torch.kernels import ops, ref
+    spec, ru = crp.spec, crp.cfg.r_unit
+    csr = as_csr(cols, vals)
+    n = csr.n
+    w_words = packing.packed_width(K, spec.bits)
+    z = crp.stream_encoder().project(csr)
+    torch.cuda.synchronize()
+
+    def row(name, want_eq, ms, plain_ms, lib_ms, b, shape, extra=""):
+        b_ms, b_by, pipe = b
+        if not want_eq:
+            raise AssertionError(f"{name} differs from its plain version")
+        rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe,
+                          library_ms=lib_ms, shape=shape)
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"kernel {name}: {shape} bit-exact ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.5f} "
+            f"({b_by}, {pipe}){extra}")
+
+    # code_pack: one compare-and-add per code edge and a shift and an add
+    # per field, about 7 int32 operations a value
+    row("code_pack",
+        torch.equal(ops.code_pack(z, spec, impl="kernel"),
+                    ref.code_pack_ref(z, spec)),
+        time_ms(lambda: ops.code_pack(z, spec, impl="kernel")),
+        time_ms(lambda: ref.code_pack_ref(z, spec)), None,
+        bound([("int32", 7.0 * n * K, INT32_OP_S)],
+              4.0 * n * K + 4.0 * n * w_words),
+        [n, K])
+
+    # the draw: threefry's 20 rounds (add, rotate, xor) and 5 key
+    # injections (3 adds) with the counter split, the xor of the two
+    # words and the mantissa: 80 int32 operations an element; erfinv on
+    # the log1p branch about 60 float32 operations (an FMA counts two)
+    key = prng.fold_in(crp._key, 0)
+    elems = float(ru) * K
+    row("normal_unit",
+        torch.equal(ops.normal_unit(key, ru, K, device, impl="kernel")
+                    .view(torch.int32),
+                    ops.normal_unit(key, ru, K, device, impl="ref")
+                    .view(torch.int32)),
+        time_ms(lambda: ops.normal_unit(key, ru, K, device, impl="kernel")),
+        time_ms(lambda: ops.normal_unit(key, ru, K, device, impl="ref"),
+                reps=3, warmup=1), None,
+        bound([("int32", 80.0 * elems, INT32_OP_S),
+               ("f32", 60.0 * elems, F32_FLOP_S)], 4.0 * elems),
+        [ru, K])
+
+    # the CSR step on the bucket of a middle unit
+    u = crp.n_units // 2
+    r = crp._block_r(u, crp.unit_width(u))
+    indptr = torch.from_numpy(csr.indptr).to(device)
+    indices = torch.from_numpy(csr.indices).to(device)
+    data = torch.from_numpy(csr.data).to(device)
+    lcol = indices.to(torch.int64) - u * ru
+    sel = torch.nonzero((lcol >= 0) & (lcol < r.shape[0])).flatten()
+    b_rows = torch.searchsorted(indptr, sel, right=True) - 1
+    nnz_u, touched = sel.numel(), int(torch.unique(b_rows).numel())
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                      torch.cumsum(torch.bincount(b_rows, minlength=n), 0)])
+    bucket = torch.sparse_csr_tensor(crow, lcol[sel], data[sel],
+                                     (n, r.shape[0]), check_invariants=True)
+    acc0 = z.clone()
+    got = ops.csr_unit_step(acc0.clone(), indptr, indices, data, r, u * ru,
+                            impl="kernel")
+    want = ops.csr_unit_step(acc0.clone(), indptr, indices, data, r, u * ru,
+                             impl="ref")
+    lib = torch.addmm(acc0, bucket, r)
+    lib_err = float((lib - want).abs().max())
+    scratch = acc0.clone()
+    row("csr_unit_step",
+        torch.equal(got.view(torch.int32), want.view(torch.int32)),
+        time_ms(lambda: ops.csr_unit_step(scratch, indptr, indices, data, r,
+                                          u * ru, impl="kernel")),
+        time_ms(lambda: ops.csr_unit_step(scratch, indptr, indices, data, r,
+                                          u * ru, impl="ref"),
+                reps=3, warmup=1),
+        time_ms(lambda: torch.addmm(acc0, bucket, r)),
+        # the bucket's entries (row, column, value) and R_u read once, the
+        # touched rows of acc read and written; a multiply and an add a
+        # (entry, column)
+        bound([("f32", 2.0 * nnz_u * K, F32_FLOP_S)],
+              12.0 * nnz_u + 4.0 * r.numel() + 8.0 * touched * K),
+        [n, nnz_u, touched, int(r.shape[0]), K],
+        f"; unit {u}: {nnz_u} entries on {touched} rows; addmm max abs "
+        f"difference {lib_err:.3e}")
+    rows["csr_unit_step"]["library_max_abs_diff"] = lib_err
+    del z, acc0, scratch, got, want, lib, bucket
+    torch.cuda.empty_cache()
+
+
+def url_path(device, profile: bool = False) -> tuple:
+    """Sparse ingest and search at the URL corpus's published width:
+    CSR chunks -> IngestPipeline -> CodeStore -> AnnEngine -> count-ranked
+    and scored search with CSR queries -> MutableAnnEngine ingest of the
+    first two chunks, counted; then the gates."""
+    import numpy as np
+    import torch
+    from repro_torch.ann import AnnEngine, BandSpec, CodeStore
+    from repro_torch.core import packing, schemes
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.encode import IngestPipeline
+    from repro_torch.encode.encoder import R_CAP_ELEMS
+    from repro_torch.index import MutableAnnEngine
+    from repro_torch.kernels import ops
+    crp = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,
+                                             seed=0), URL_D)
+    enc, bits = crp.stream_encoder(), crp.spec.bits
+    w_words = packing.packed_width(K, bits)
+    n_chunks = -(-URL_ROWS // URL_CHUNK)
+    log(f"url: D={URL_D}, {crp.n_units} units (last {crp.unit_width(crp.n_units - 1)} "
+        f"rows), R would be {URL_D * K} elements; {URL_ROWS} rows of "
+        f"{URL_NNZ} nonzeros in {n_chunks} chunks of {URL_CHUNK}")
+    rng = np.random.default_rng(URL_SEED)
+    src_ids = np.sort(rng.choice(URL_ROWS, N_PLANTED, replace=False))
+    src_cols = np.zeros((N_PLANTED, URL_NNZ), np.int32)
+    src_vals = np.zeros((N_PLANTED, URL_NNZ), np.float32)
+    pipe = IngestPipeline(enc, CodeStore(
+        words=torch.zeros((0, w_words), dtype=torch.int32, device=device),
+        k=K, bits=bits), chunk_rows=URL_CHUNK)
+    rates, kept, chunk_s, t_gen, extra_max = {}, [], [], 0.0, 0
+    ops.reset_launch_counts()
+    for c in range(n_chunks):
+        t0 = time.perf_counter()
+        cols, vals = url_chunk(c)
+        lo = c * URL_CHUNK
+        at = (src_ids >= lo) & (src_ids < lo + cols.shape[0])
+        src_cols[at], src_vals[at] = cols[src_ids[at] - lo], \
+            vals[src_ids[at] - lo]
+        csr = as_csr(cols, vals)
+        if c < 2:
+            kept.append(csr)
+        t_gen += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pipe.ingest(csr)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        # beyond what was allocated before and the store it appends to:
+        # the chunk's CSR arrays, its accumulator and words, and 64 MB
+        n = csr.n
+        extra = torch.cuda.max_memory_allocated() - before - \
+            pipe.store.nbytes
+        budget = 8 * (n + 1) + 8 * csr.nnz + 4 * n * K + 4 * n * w_words \
+            + 4 * R_CAP_ELEMS
+        extra_max = max(extra_max, extra)
+        if extra > budget:
+            raise AssertionError(f"url chunk {c}: peak {extra} bytes beyond "
+                                 f"the store, over the budget {budget}")
+        if c == 0:
+            log(f"url chunk 0: peak device memory {extra} bytes beyond the "
+                f"store, budget {budget} (CSR {8 * (n + 1) + 8 * csr.nnz}, "
+                f"accumulator {4 * n * K}, words {4 * n * w_words}, "
+                f"64 MB)")
+        del csr, cols, vals
+    store = pipe.store
+    t_ingest = sum(chunk_s)
+    rates["ingest_rows_s"] = URL_ROWS / t_ingest
+    chunk_ms = sorted(1e3 * x for x in chunk_s)
+    log(f"url ingest: {URL_ROWS} rows in {t_ingest:.4f} s = "
+        f"{URL_ROWS / t_ingest:.1f} rows/s (row generation on the host, "
+        f"{t_gen:.1f} s, outside); ms a chunk: min {chunk_ms[0]:.3f} median "
+        f"{statistics.median(chunk_ms):.3f} max {chunk_ms[-1]:.3f}; peak "
+        f"memory beyond the store at most {extra_max} bytes; store "
+        f"{store.nbytes} bytes")
+    if enc._rmat is not None or store.n != URL_ROWS:
+        raise AssertionError("url: R was built, or the store is short")
+
+    queries, cos = url_queries(src_cols, src_vals, rng)
+    t0 = time.perf_counter()
+    engine = AnnEngine(crp, store, BandSpec(16, 4))
+    tables = engine.rank_tables
+    torch.cuda.synchronize()
+    log(f"url engine: band hashes and rank tables in "
+        f"{time.perf_counter() - t0:.3f} s; planted queries at mean cosine "
+        f"{cos:.4f} to their sources")
+    del tables
+    first = queries.row_slice(0, CHUNK_Q)
+    engine.encode_queries(first)                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.encode_queries(first)
+    torch.cuda.synchronize()
+    t_code = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for u in range(crp.n_units):
+        crp._block_r(u, crp.unit_width(u))
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    rates["query_coding_ms_256"] = 1e3 * t_code
+    rates["redraw_all_units_ms"] = 1e3 * t_draw
+    log(f"url query coding: {1e3 * t_code:.3f} ms for {CHUNK_Q} CSR queries "
+        f"({first.nnz} nonzeros); drawing all {crp.n_units} units alone "
+        f"{1e3 * t_draw:.3f} ms")
+    src_t = torch.from_numpy(src_ids.astype(np.int32)).to(device)
+    out = {}
+    for name, kw in (("count", {}), ("scored_f32", dict(scored=True))):
+        engine.search(first, top_k=TOP_K, chunk_q=CHUNK_Q, **kw)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = engine.search(queries, top_k=TOP_K, chunk_q=CHUNK_Q, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates[f"{name}_queries_s"] = N_QUERIES / dt
+        ids, rho = out[name]
+        hits = int((ids[:N_PLANTED, 0] == src_t).sum())
+        log(f"url search {name}: {N_QUERIES} CSR queries in {dt:.4f} s = "
+            f"{N_QUERIES / dt:.1f} queries/s; planted at rank 0: "
+            f"{hits}/{N_PLANTED}; planted rho_hat median "
+            f"{float(rho[:N_PLANTED, 0].median()):.4f}, random-query top "
+            f"rho_hat median {float(rho[N_PLANTED:, 0].median()):.4f}")
+        if ids.shape != (N_QUERIES, TOP_K) or \
+                not bool(torch.isfinite(rho).all()):
+            raise AssertionError(f"url {name}: wrong shape or non-finite rho")
+        if hits != N_PLANTED:
+            raise AssertionError(f"url {name}: planted at rank 0 "
+                                 f"{hits}/{N_PLANTED}")
+    mut = MutableAnnEngine(crp, band_spec=BandSpec(16, 4),
+                           tail_rows=URL_CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for csr in kept:
+        mut.ingest(csr, chunk_rows=URL_CHUNK)
+    torch.cuda.synchronize()
+    t_mut = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"launch counts on the url path: {json.dumps(counts)}")
+    require_launched(counts, "url")
+    rates["mutable_ingest_rows_s"] = 2 * URL_CHUNK / t_mut
+    if not torch.equal(mut.store.live_words(), store.words[:2 * URL_CHUNK]):
+        raise AssertionError("url: the mutable engine's words differ from "
+                             "the CodeStore's")
+    log(f"url mutable ingest: {2 * URL_CHUNK} rows in {t_mut:.3f} s = "
+        f"{2 * URL_CHUNK / t_mut:.1f} rows/s; live words equal the "
+        f"CodeStore's first {2 * URL_CHUNK} rows")
+    del mut, kept
+
+    # 16 corpus rows (planted sources) through the plain versions, and
+    # against a float64 oracle over their touched units
+    ids16 = src_ids[:16]
+    csr16 = as_csr(src_cols[:16], src_vals[:16])
+    stored = store.words[torch.from_numpy(ids16).to(device)]
+    t0 = time.perf_counter()
+    if not torch.equal(enc.encode_packed(csr16, impl="ref"), stored):
+        raise AssertionError("url: 16 rows differ from impl='ref'")
+    log(f"url recheck: 16 rows bit-exact against impl='ref' on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    ru = crp.cfg.r_unit
+    flat_c = src_cols[:16].reshape(-1).astype(np.int64)
+    gathered = np.zeros((flat_c.size, K), np.float64)
+    for u in np.unique(flat_c // ru).tolist():
+        r = crp._block_r(u, crp.unit_width(u)).cpu().numpy()
+        at = np.flatnonzero(flat_c // ru == u)
+        gathered[at] = r[flat_c[at] - u * ru]
+    z64 = (src_vals[:16].reshape(-1, 1).astype(np.float64) * gathered) \
+        .reshape(16, URL_NNZ, K).sum(axis=1)
+    z64_t = torch.from_numpy(z64)
+    want = schemes.encode(z64_t, crp.spec)
+    got = packing.unpack_codes(stored.cpu(), bits, K)
+    edge = check_codes(got, want, z64_t, crp.spec, None,
+                       "url float64 oracle")
+    rates["oracle_edge_fields"] = edge
+    log(f"url float64 oracle: 16 rows x {K} fields, {edge} differ, each "
+        f"within {EDGE_TOL} of a bin edge")
+    if profile:
+        chunk1 = as_csr(*url_chunk(1))
+        profile_window(f"url ingest of chunk 1 ({URL_CHUNK} rows)",
+                       lambda: enc.encode_packed(chunk1), top=6)
+        profile_window(f"url count-ranked search of {CHUNK_Q} CSR queries",
+                       lambda: engine.search(first, top_k=TOP_K,
+                                             chunk_q=CHUNK_Q), top=6)
+    return counts, rates
+
+
+def dense_cross_check(device) -> dict:
+    """Dense rows above the cap (D = 131,072, 32 units): fused with R
+    resident (cap raised), streamed at the default cap, and the same rows
+    as CSR, agreeing but at bin edges."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.encode import CsrMatrix, StreamingEncoder
+    d, n = 131_072, 8192
+    crp = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,
+                                             seed=0), d)
+    gen = torch.Generator(device=device).manual_seed(31)
+    x = torch.randn((n, d), generator=gen, device=device)
+    x *= torch.rand((n, d), generator=gen, device=device) < 0.01
+    x /= x.norm(dim=1, keepdim=True)           # unit rows, as the main path's
+    resident = StreamingEncoder(crp, r_cap_elems=1 << 25)
+    streamed = crp.stream_encoder()
+    t0 = time.perf_counter()
+    csr = CsrMatrix.from_dense(x.cpu().numpy())
+    t_csr = time.perf_counter() - t0
+    fused = resident.encode_packed(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words = streamed.encode_packed(x)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    sparse = streamed.encode_packed(csr)
+    z = streamed.project(x)
+    base = packing.unpack_codes(words, crp.spec.bits, K)
+    flips = {}
+    for name, other in (("fused", fused), ("csr", sparse)):
+        flips[name] = check_codes(packing.unpack_codes(other, crp.spec.bits,
+                                                       K),
+                                  base, z, crp.spec, None,
+                                  f"dense cross-check {name}")
+    if streamed._rmat is not None or resident._rmat is None:
+        raise AssertionError("dense cross-check: R residency is wrong")
+    log(f"dense cross-check: {n} rows, D={d} ({crp.n_units} units), "
+        f"{csr.nnz} nonzeros: streamed {t_stream:.4f} s = "
+        f"{n / t_stream:.1f} rows/s; fields differing from streamed: fused "
+        f"{flips['fused']}, csr {flips['csr']} of {n * K}, each within "
+        f"{EDGE_TOL} of a bin edge (CSR made in {t_csr:.1f} s)")
+    return dict(dense_stream_rows_s=n / t_stream, fused_edge=flips["fused"],
+                csr_edge=flips["csr"])
+
+
 def profile_main_path(engine, queries, device) -> None:
     """``--profile``: device time by kernel for 8 ``sketch`` calls, each
     on a 65,536-row chunk made beforehand and each followed by a
@@ -1363,6 +1904,7 @@ def main(argv) -> int:
     small_checks(device)
     scored_checks(device)
     masked_checks(device)
+    encode_checks(device)
     log(f"phase small checks: {time.perf_counter() - t0:.1f} s")
     if "--check" in argv:
         log("check mode: stopping after the small-shape kernel checks")
@@ -1370,11 +1912,16 @@ def main(argv) -> int:
 
     crp = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,
                                              seed=0), D)
-    digest = hashlib.sha256(crp.stream_encoder().r_matrix().cpu().numpy()
-                            .tobytes()).hexdigest()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = crp.stream_encoder().r_matrix()
+    torch.cuda.synchronize()
+    t_r = time.perf_counter() - t0
+    digest = hashlib.sha256(r.cpu().numpy().tobytes()).hexdigest()
     if digest != R_SHA256:
         raise AssertionError(f"R digest {digest} != the JAX reference's")
-    log("R: bit-identical to the JAX reference (SHA-256)")
+    log(f"R: drawn on the card in {1e3 * t_r:.3f} ms ({crp.n_units} units), "
+        f"bit-identical to the JAX reference (SHA-256)")
     t0 = time.perf_counter()
     rows = kernel_phase(crp, device)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
@@ -1395,8 +1942,23 @@ def main(argv) -> int:
         engine, state, device, profile="--profile" in argv)
     log(f"mutable path: {json.dumps(rates_mutable)}")
     log(f"phase mutable path: {time.perf_counter() - t0:.1f} s")
+    del engine, queries, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    url_crp = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,
+                                                 seed=0), URL_D)
+    encode_kernel_phase(rows, url_crp, *url_chunk(0), device)
+    log(f"phase encode kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_url, rates_url = url_path(device, profile="--profile" in argv)
+    log(f"url path: {json.dumps(rates_url)}")
+    log(f"phase url path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rates_dense = dense_cross_check(device)
+    log(f"dense cross-check: {json.dumps(rates_dense)}")
+    log(f"phase dense cross-check: {time.perf_counter() - t0:.1f} s")
     path_counts = {"main": counts, "scored": counts_scored,
-                   "mutable": counts_mutable}
+                   "mutable": counts_mutable, "url": counts_url}
     kernels = []
     for name, (path, src, rep) in KERNELS.items():
         row = dict(name=name, route="cuda", source=src, replaces=rep,

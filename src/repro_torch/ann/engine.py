@@ -81,15 +81,27 @@ def resolve_query_tables(tables: RankTables, q_codes: torch.Tensor,
 
 
 class QueryCoder:
-    """Query encoder over the sketcher's shared ``StreamingEncoder``."""
+    """Query encoder over the sketcher's shared ``StreamingEncoder``: the
+    fused project + code kernel over the cached R below the residency
+    cap, unit streaming above it, so a D = 3.2M index never builds
+    [D, k] for its queries either."""
 
     def __init__(self, sketcher: CodedRandomProjection):
         self.sketcher = sketcher
         self._encoder = sketcher.stream_encoder()
 
+    def r_matrix(self) -> torch.Tensor:
+        """R [D, k] (cached); raises above the encoder's residency cap."""
+        return self._encoder.r_matrix()
+
     def encode(self, x, impl: str = "auto") -> torch.Tensor:
-        """x [Q, D] -> int32 codes [Q, k] (fused project + code kernel)."""
+        """x [Q, D] (dense or ``encode.CsrMatrix``) -> int32 codes [Q, k]."""
         return self._encoder.encode_codes(x, impl=impl)
+
+    def encode_packed(self, x, impl: str = "auto") -> torch.Tensor:
+        """x [Q, D] (dense or ``encode.CsrMatrix``) -> packed int32 words
+        [Q, W] through the ingest path."""
+        return self._encoder.encode_packed(x, impl=impl)
 
 
 def merge_topk(vals_list, ids_list, top_k: int):
@@ -211,7 +223,8 @@ class AnnEngine:
     def build(cls, sketcher: CodedRandomProjection, corpus,
               band_spec: BandSpec = BandSpec(),
               impl: str = "auto") -> "AnnEngine":
-        """Index a corpus [n, D]: fused project + code, pack, band-hash."""
+        """Index a corpus [n, D] (dense or ``encode.CsrMatrix``): project
+        and code, pack, band-hash."""
         codes = sketcher.stream_encoder().encode_codes(corpus, impl=impl)
         return cls.from_codes(sketcher, codes, band_spec, impl=impl)
 
@@ -251,7 +264,7 @@ class AnnEngine:
 
     # -- queries -------------------------------------------------------------
     def encode_queries(self, x, impl: str = "auto") -> torch.Tensor:
-        """x [Q, D] -> int32 codes [Q, k] via the fused project + code kernel."""
+        """x [Q, D] (dense or ``encode.CsrMatrix``) -> int32 codes [Q, k]."""
         return self._coder.encode(x, impl=impl)
 
     def codes_for_ids(self, ids) -> torch.Tensor:
@@ -264,8 +277,9 @@ class AnnEngine:
                min_bands: int = 1, n_probes: int = 0, chunk_q: int = 256,
                impl: str = "auto", scored: bool = False, rerank_m: int = 0,
                fused: bool = True, table_dtype: str = "auto"):
-        """queries float [Q, D] -> (ids int32 [Q, top_k], rho_hat float32
-        [Q, top_k]); ids of -1 mark empty slots."""
+        """queries [Q, D] (dense or ``encode.CsrMatrix``) -> (ids int32
+        [Q, top_k], rho_hat float32 [Q, top_k]); ids of -1 mark empty
+        slots."""
         cfg = SearchConfig(top_k=top_k, mode=mode, min_bands=min_bands,
                            n_probes=n_probes, chunk_q=chunk_q, impl=impl,
                            scored=scored, rerank_m=rerank_m, fused=fused,

@@ -25,8 +25,11 @@ only on the 23 mantissa bits, so the agreement is checked on all 2^23
 of them. ``torch.special.erfinv``, ``torch.log1p`` and the CPU's
 vectorised float32 ``torch.sqrt`` each differ from XLA's on some inputs.
 
-Everything runs on the CPU: R is drawn once per sketcher and cached on
-the device.
+These are the plain versions: they run on the device of their inputs
+(``device=`` for ``random_bits`` and ``normal``), the CPU tests use them,
+and the sketch draws R with them on the CPU. On the card R's units come
+from the CUDA kernel ``kernels/csrc/normal_unit.cu``, held bit for bit
+to ``normal`` here.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "normal", "erfinv_xla", "log2_xla"]
+           "normal", "normal_from_bits", "erfinv_xla", "log2_xla"]
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -46,9 +49,10 @@ def _rotl(x, d: int):
     return ((x << d) | (x >> (32 - d))) & _M
 
 
-def threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
-    """Threefry-2x32 (20 rounds) of count words x1, x2 (int64 holding
-    uint32 values) under key (k1, k2) -> two int64 tensors of uint32."""
+def threefry2x32(k1: int, k2: int, x1, x2):
+    """Threefry-2x32 (20 rounds) of count words x1, x2 (int64 tensors
+    holding uint32 values, or Python ints) under key (k1, k2) -> two of
+    the same holding uint32 values."""
     ks = (k1 & _M, k2 & _M, (k1 ^ k2 ^ 0x1BD11BDA) & _M)
     x1 = (x1 + ks[0]) & _M
     x2 = (x2 + ks[1]) & _M
@@ -71,34 +75,37 @@ def fold_in(key: tuple, data: int) -> tuple:
     """New key from ``key`` and a uint32 ``data``, as ``jax.random.fold_in``."""
     if not 0 <= int(data) <= _M:
         raise ValueError(f"fold_in data {data} out of bounds for uint32")
-    b1, b2 = threefry2x32(key[0], key[1], torch.zeros(1, dtype=torch.int64),
-                          torch.full((1,), int(data), dtype=torch.int64))
-    return (int(b1[0]), int(b2[0]))
+    # Python ints: one hash, no tensor ops (a sketch folds once a unit)
+    return threefry2x32(key[0], key[1], 0, int(data))
 
 
-def random_bits(key: tuple, shape) -> torch.Tensor:
-    """uint32 bits (int64 tensor) of ``shape``, as ``jax.random.bits``."""
+def random_bits(key: tuple, shape, device=None) -> torch.Tensor:
+    """uint32 bits (int64 tensor on ``device``, the CPU by default) of
+    ``shape``, as ``jax.random.bits``."""
     n = math.prod(shape)
-    counts = torch.arange(n, dtype=torch.int64)
+    counts = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(key[0], key[1], counts >> 32, counts & _M)
     return (b1 ^ b2).reshape(shape)
 
 
-def _unit_floats(key: tuple, shape) -> torch.Tensor:
-    """Floats in [0, 1) from the top 23 bits (mantissa of [1, 2) - 1)."""
-    fb = (random_bits(key, shape) >> 9) | 0x3F800000
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """Floats in [0, 1) from the top 23 of uint32 ``bits`` (the mantissa
+    of [1, 2) - 1)."""
+    fb = (bits >> 9) | 0x3F800000
     return fb.to(torch.int32).view(torch.float32) - 1.0
 
 
-def _f32(v) -> torch.Tensor:
-    return torch.tensor(np.float32(v), dtype=torch.float32)
+def _f32(v, like: torch.Tensor = None) -> torch.Tensor:
+    """0-dim float32 constant, on ``like``'s device when given."""
+    return torch.tensor(np.float32(v), dtype=torch.float32,
+                        device=None if like is None else like.device)
 
 
 def uniform(key: tuple, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 in [minval, maxval), as ``jax.random.uniform``."""
     lo, hi = _f32(minval), _f32(maxval)
-    f = _unit_floats(key, shape)
+    f = _unit_floats(random_bits(key, shape))
     # XLA contracts f * (hi - lo) + lo into one fused multiply-add
     return torch.maximum(lo, _fma(f, (hi - lo).expand_as(f), lo.expand_as(f)))
 
@@ -120,26 +127,26 @@ def _log_xla(v: torch.Tensor) -> torch.Tensor:
     bits = v.view(torch.int32)
     e = ((bits >> 23) - 0x7E).float()
     m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
-    small = m < _f32(0.707106781186547524)
+    small = m < _f32(0.707106781186547524, v)
     e = torch.where(small, e - 1.0, e)
     x = torch.where(small, m + m - 1.0, m - 1.0)
     x2 = x * x
     x3 = x2 * x
-    c = [_f32(p).to(x.device).expand_as(x) for p in _LOG_P]
+    c = [_f32(p, x).expand_as(x) for p in _LOG_P]
     y = _fma(_fma(c[0], x, c[1]), x, c[2])
     y1 = _fma(_fma(c[3], x, c[4]), x, c[5])
     y2 = _fma(_fma(c[6], x, c[7]), x, c[8])
     y = _fma(_fma(y, x3, y1), x3, y2)
-    y = _fma(y, x3, e * _f32(-2.12194440e-4))
-    x = x - x2 * _f32(0.5)
+    y = _fma(y, x3, e * _f32(-2.12194440e-4, x))
+    x = x - x2 * _f32(0.5, x)
     x = x + y
-    return x + e * _f32(0.693359375)
+    return x + e * _f32(0.693359375, x)
 
 
 def log2_xla(v: torch.Tensor) -> torch.Tensor:
     """XLA's CPU float32 log2: its log times float32(1/ln 2), each
     rounded to float32 (not correctly rounded near powers of two)."""
-    return _log_xla(v) * _f32(1.0 / math.log(2.0)).to(v.device)
+    return _log_xla(v) * _f32(1.0 / math.log(2.0), v)
 
 
 _LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
@@ -157,15 +164,16 @@ def _log1p_xla(x: torch.Tensor) -> torch.Tensor:
     def poly(coeffs):
         p = torch.zeros_like(x)
         for c in coeffs:
-            p = _fma(p, x, _f32(c).expand_as(x))
+            p = _fma(p, x, _f32(c, x).expand_as(x))
         return p
 
     x2 = x * x
-    small = _fma(_f32(-0.5).expand_as(x), x2,
+    small = _fma(_f32(-0.5, x).expand_as(x), x2,
                  (x * x2) * (poly(_LOG1P_NUM) / poly(_LOG1P_DEN)))
     small = x + small
     large = _log_xla(x + 1.0)
-    return torch.where(x.abs() < _f32(0.41421356237309504880), small, large)
+    return torch.where(x.abs() < _f32(0.41421356237309504880, x), small,
+                       large)
 
 
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
@@ -183,14 +191,21 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     # float64 sqrt rounded once is the correctly rounded float32 sqrt, as
     # XLA's is; torch's vectorised float32 sqrt on the CPU is not
     ww = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
-    p = torch.where(lt, _f32(_ERFINV_LT5[0]), _f32(_ERFINV_GE5[0]))
+    p = torch.where(lt, _f32(_ERFINV_LT5[0], x), _f32(_ERFINV_GE5[0], x))
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = _fma(p, ww, torch.where(lt, _f32(a), _f32(b)))
+        p = _fma(p, ww, torch.where(lt, _f32(a, x), _f32(b, x)))
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(key: tuple, shape) -> torch.Tensor:
-    """Standard normal float32 draws, as ``jax.random.normal``."""
-    lo = _f32(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = torch.maximum(lo, _unit_floats(key, shape) * (_f32(1.0) - lo) + lo)
-    return _f32(np.sqrt(2.0)) * erfinv_xla(u)
+def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 ``bits`` (int64 tensor) -> the standard normal float32 that
+    ``jax.random.normal`` makes of them; a function of the top 23 bits."""
+    lo = _f32(np.nextafter(np.float32(-1.0), np.float32(0.0)), bits)
+    u = torch.maximum(lo, _unit_floats(bits) * (_f32(1.0, bits) - lo) + lo)
+    return _f32(np.sqrt(2.0), bits) * erfinv_xla(u)
+
+
+def normal(key: tuple, shape, device=None) -> torch.Tensor:
+    """Standard normal float32 draws on ``device`` (the CPU by default),
+    as ``jax.random.normal``."""
+    return normal_from_bits(random_bits(key, shape, device))

@@ -7,9 +7,11 @@ Counterpart of ``repro/core/sketch.py:46-207``:
              --(bit packing)-->              words [n, ceil(k*b/32)]
 
 R is canonical: unit u (rows u*r_unit .. u*r_unit + width) is
-``normal(fold_in(PRNGKey(seed), u), (width, k))`` from ``core.prng``,
-bit-identical to the JAX reference. Units are drawn on the CPU; the
-streaming encoder caches the whole R on the sketcher's device.
+``normal(fold_in(PRNGKey(seed), u), (width, k))``, bit-identical to the
+JAX reference. Units are drawn on the sketcher's device: by the CUDA
+kernel ``kernels/csrc/normal_unit.cu`` on the card, by ``core.prng``'s
+plain version on the CPU. Below the residency cap the streaming encoder
+caches the whole R; above it every unit is drawn again where it is used.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.core import schemes as _schemes
 from repro_torch.core.estimators import CollisionEstimator
 from repro_torch.core.schemes import CodeSpec
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as _ops
 
 __all__ = ["SketchConfig", "CodedRandomProjection", "OFFSET_KEY_TAG"]
 
@@ -88,37 +91,45 @@ class CodedRandomProjection:
         """Key of the offset vector q (a tag fold disjoint from units)."""
         return prng.fold_in(self._key, OFFSET_KEY_TAG)
 
-    def _block_r(self, u: int, width: int) -> torch.Tensor:
+    def _block_r(self, u: int, width: int, impl: str = "auto") -> torch.Tensor:
         """Gaussian unit R[u*r_unit : u*r_unit + width, :k], float32 on the
-        CPU: the only generator of projection entries."""
-        return prng.normal(prng.fold_in(self._key, u), (width, self.cfg.k))
+        sketcher's device: the only generator of projection entries."""
+        return _ops.normal_unit(prng.fold_in(self._key, u), width,
+                                self.cfg.k, self.device, impl=impl)
 
     def as_input(self, x) -> torch.Tensor:
-        """Dense rows (tensor or array) as float32 on the sketcher's device."""
-        if not isinstance(x, (torch.Tensor, np.ndarray)):
-            raise NotImplementedError(
-                f"{type(x).__name__} input: sparse (CSR) ingest is ROADMAP "
-                f"queue A item 3, not yet ported")
-        x = torch.as_tensor(x, device=self.device)
-        if x.dim() != 2 or x.shape[1] != self.d:
-            raise ValueError(f"x {tuple(x.shape)} != [n, {self.d}]")
-        return x.to(torch.float32)
+        """Dense rows (tensor or array) as float32 on the sketcher's device
+        (CSR input is routed by the streaming encoder)."""
+        self._check_dense(x)
+        return torch.as_tensor(x, device=self.device).to(torch.float32)
 
-    def project(self, x) -> torch.Tensor:
-        """x [n, D] -> [n, k] float32, accumulated unit by unit in order:
-        acc += x_u @ R_u for u = 0, 1, ..."""
-        x = self.as_input(x)
+    def _check_dense(self, x) -> None:
+        if not isinstance(x, (torch.Tensor, np.ndarray)):
+            raise TypeError(f"dense input is a tensor or an array, got "
+                            f"{type(x).__name__}")
+        if x.ndim != 2 or x.shape[1] != self.d:
+            raise ValueError(f"x {tuple(x.shape)} != [n, {self.d}]")
+
+    def project(self, x, impl: str = "auto") -> torch.Tensor:
+        """Dense x [n, D] -> [n, k] float32, streamed unit by unit in order
+        (acc += x_u @ R_u for u = 0, 1, ...; R is never built). A host
+        array (numpy, memmap) is sliced on the host and sent one unit
+        slab at a time, so device memory stays O(n * r_unit + n * k); a
+        tensor is sliced where it lies."""
+        self._check_dense(x)
         ru = self.cfg.r_unit
         acc = torch.zeros((x.shape[0], self.cfg.k), dtype=torch.float32,
                           device=self.device)
         for u in range(self.n_units):
-            r = self._block_r(u, self.unit_width(u)).to(self.device)
-            acc = acc + x[:, u * ru:u * ru + r.shape[0]] @ r
+            r = self._block_r(u, self.unit_width(u), impl=impl)
+            xu = torch.as_tensor(x[:, u * ru:u * ru + r.shape[0]],
+                                 device=self.device)
+            acc += xu.to(torch.float32) @ r
         return acc
 
     # -- coding -------------------------------------------------------------
     def encode(self, x) -> torch.Tensor:
-        """x [n, D] -> int32 codes [n, k] (oracle path)."""
+        """Dense x [n, D] -> int32 codes [n, k] (oracle path)."""
         return _schemes.encode(self.project(x), self.spec, self._offsets)
 
     def encode_projected(self, z: torch.Tensor) -> torch.Tensor:
@@ -138,8 +149,10 @@ class CodedRandomProjection:
         return self._stream_encoder
 
     def sketch(self, x, impl: str = "auto") -> torch.Tensor:
-        """x [n, D] -> packed words [n, W] through the fused ingest kernel;
-        agrees with ``sketch_oracle`` except at bin-edge sum-order flips."""
+        """x [n, D] (dense or ``encode.CsrMatrix``) -> packed words [n, W]
+        through the streaming encoder: the fused ingest kernel below the
+        residency cap, unit streaming above it; agrees with
+        ``sketch_oracle`` except at bin-edge sum-order flips."""
         return self.stream_encoder().encode_packed(x, impl=impl)
 
     def sketch_oracle(self, x) -> torch.Tensor:

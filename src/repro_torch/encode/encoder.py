@@ -1,65 +1,138 @@
-"""Streaming encoder: raw vectors -> packed words (R-resident regime).
+"""Streaming encoder: raw vectors -> packed words, O(unit) memory.
 
-Counterpart of ``repro/encode/encoder.py:52-174``. While ``d * k`` is at
-most ``R_CAP_ELEMS`` the whole R is drawn once from its canonical units,
-cached on the sketcher's device, and every batch runs one kernel: the
-fused project -> code -> pack for the corpus, the fused project -> code
-for queries. Unit streaming above the cap and CSR input are ROADMAP
-queue A item 3 and raise here.
+Counterpart of ``repro/encode/encoder.py:52-174``, in three regimes:
+
+* R-resident (``d * k`` at most ``r_cap_elems``): R is drawn once from
+  its canonical units, cached on the sketcher's device, and every dense
+  batch runs one kernel: the fused project -> code -> pack for the
+  corpus, the fused project -> code for queries.
+* Matrix-free (above the cap; the paper's URL width, where R would be
+  3.3 GB): dense batches stream over D unit by unit, each unit drawn on
+  the device where it is used (``CodedRandomProjection.project``), into
+  one [n, k] float32 accumulator.
+* CSR (``encode.CsrMatrix``, at any D): the chunk's arrays go to the
+  device once; for each occupied unit, in ascending order, the unit is
+  drawn and the CSR step kernel adds each row's products in CSR order.
+  Units no entry touches are skipped.
+
+The streamed and CSR regimes finalize with the code-and-pack kernel
+(``ops.code_pack``). They sum in the unit order of the ``core.sketch``
+oracle; the fused kernel sums its GEMM in its own order, so the regimes
+agree except where a projection lies within float32 rounding of a bin
+edge. The data-parallel ``encode_sharded`` is ROADMAP queue A item 4 and
+is not ported.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.packing import packed_width
+from repro_torch.encode.sparse import CsrMatrix
 from repro_torch.kernels import ops as _ops
 
 __all__ = ["StreamingEncoder", "R_CAP_ELEMS"]
 
 R_CAP_ELEMS = 1 << 24   # d * k float32 elements (64 MB)
 
+# column ids counted per slice, so the unit ids never take nnz * 4 bytes
+_COUNT_SLICE = 1 << 22
+
+
+def _occupied_units(indices: torch.Tensor, r_unit: int, n_units: int) -> list:
+    """Ascending ids of the units that the column ids ``indices`` touch."""
+    hist = torch.zeros(n_units, dtype=torch.int64, device=indices.device)
+    for a in range(0, indices.numel(), _COUNT_SLICE):
+        hist += torch.bincount(indices[a:a + _COUNT_SLICE] // r_unit,
+                               minlength=n_units)
+    return torch.nonzero(hist).flatten().tolist()
+
 
 class StreamingEncoder:
-    """Dense [n, D] input -> packed words [n, W] or codes [n, k]."""
+    """Dense [n, D] or ``CsrMatrix`` input -> packed words [n, W] or
+    codes [n, k]."""
 
     def __init__(self, sketcher, *, r_cap_elems: int = R_CAP_ELEMS):
         self.sketcher = sketcher
         self.r_cap_elems = int(r_cap_elems)
         self._rmat = None
 
+    # -- R residency ---------------------------------------------------------
     @property
     def r_resident(self) -> bool:
         """Whether R may be materialized (``d * k`` under the cap)."""
         s = self.sketcher
         return s.d * s.cfg.k <= self.r_cap_elems
 
+    @property
+    def r_slab_elems(self) -> int:
+        """Peak R elements held by the matrix-free path: one unit."""
+        s = self.sketcher
+        return s.cfg.r_unit * s.cfg.k
+
     def r_matrix(self) -> torch.Tensor:
         """R [D, k] float32 on the sketcher's device, cached; raises above
-        the residency cap."""
+        the residency cap, where the point is never to build it."""
         s = self.sketcher
         if not self.r_resident:
-            raise NotImplementedError(
-                f"R is {s.d} x {s.cfg.k} = {s.d * s.cfg.k} elements, over the "
-                f"residency cap {self.r_cap_elems}: matrix-free unit "
-                f"streaming is ROADMAP queue A item 3, not yet ported")
+            raise ValueError(
+                f"R is {s.d} x {s.cfg.k} = {s.d * s.cfg.k} elements, over "
+                f"the residency cap {self.r_cap_elems}; use the streaming "
+                f"encode path instead of materializing")
         if self._rmat is None:
             self._rmat = torch.cat([s._block_r(u, s.unit_width(u))
-                                    for u in range(s.n_units)]).to(s.device)
+                                    for u in range(s.n_units)])
         return self._rmat
 
-    def encode_packed(self, x, impl: str = "auto") -> torch.Tensor:
-        """x [n, D] -> packed int32 words [n, W] (fused kernel). Agrees
-        with the unit-ordered oracle except where a projection lies
-        within float32 rounding of a bin edge."""
+    # -- streaming -----------------------------------------------------------
+    def project(self, x, impl: str = "auto") -> torch.Tensor:
+        """Streaming projection x -> z [n, k] float32 without building R:
+        dense rows unit by unit, CSR rows over their nonzeros only.
+        ``impl`` selects the kernels or the plain versions of the draw
+        and of the CSR step."""
         s = self.sketcher
-        return _ops.encode_fused(s.as_input(x), self.r_matrix(), s.spec,
-                                 s._offsets, impl=impl)
+        if not isinstance(x, CsrMatrix):
+            return s.project(x, impl=impl)
+        if x.d != s.d:
+            raise ValueError(f"csr d={x.d} != sketcher d={s.d}")
+        acc = torch.zeros((x.n, s.cfg.k), dtype=torch.float32,
+                          device=s.device)
+        if x.nnz == 0:
+            return acc
+        ru = s.cfg.r_unit
+        indptr = torch.as_tensor(np.asarray(x.indptr, np.int64),
+                                 device=s.device)
+        indices = torch.as_tensor(np.asarray(x.indices, np.int32),
+                                  device=s.device)
+        data = torch.as_tensor(np.asarray(x.data, np.float32),
+                               device=s.device)
+        for u in _occupied_units(indices, ru, s.n_units):
+            _ops.csr_unit_step(acc, indptr, indices, data,
+                               s._block_r(u, s.unit_width(u), impl=impl),
+                               u * ru, impl=impl)
+        return acc
+
+    # -- encoding ------------------------------------------------------------
+    def encode_packed(self, x, impl: str = "auto") -> torch.Tensor:
+        """x dense [n, D] or ``CsrMatrix`` -> packed int32 words [n, W]:
+        the fused kernel for dense input while R is resident, else the
+        streamed projection and the code-and-pack kernel."""
+        s = self.sketcher
+        if not isinstance(x, CsrMatrix) and self.r_resident:
+            return _ops.encode_fused(s.as_input(x), self.r_matrix(), s.spec,
+                                     s._offsets, impl=impl)
+        return _ops.code_pack(self.project(x, impl=impl), s.spec, s._offsets,
+                              impl=impl)
 
     def encode_codes(self, x, impl: str = "auto") -> torch.Tensor:
-        """x [n, D] -> int32 codes [n, k] (fused project + code kernel)."""
+        """x dense [n, D] or ``CsrMatrix`` -> int32 codes [n, k] (the
+        query side): the fused project + code kernel while R is resident,
+        else the streamed projection and the scheme's encode."""
         s = self.sketcher
-        return _ops.coded_project(s.as_input(x), self.r_matrix(), s.spec,
-                                  s._offsets, impl=impl)
+        if not isinstance(x, CsrMatrix) and self.r_resident:
+            return _ops.coded_project(s.as_input(x), self.r_matrix(), s.spec,
+                                      s._offsets, impl=impl)
+        return s.encode_projected(self.project(x, impl=impl))
 
     @property
     def n_words(self) -> int:

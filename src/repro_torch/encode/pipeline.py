@@ -1,15 +1,17 @@
 """Chunked ingest: raw corpus -> packed words -> store, streamed.
 
 Counterpart of ``repro/encode/pipeline.py``'s ``IngestPipeline``: it
-walks a dense corpus [n, D] (a tensor, or a host array whose chunks go
-to the device one by one) in chunks of ``chunk_rows`` rows, encodes each
-straight to packed words with the fused kernel (no [n, k] intermediates)
-and appends them to a store: a ``SegmentLogStore`` (in-place tail
-writes, through ``add_words``) or a ``CodeStore`` (rebound on
-``self.store`` a chunk; read it back after ``ingest``). The reference
-pads each chunk to a power of two to bound its jit compiles; the port
-compiles nothing and does not pad. CSR input is ROADMAP queue A item 3
-and the data-parallel ``encode_sharded`` item 4; neither is ported.
+walks a corpus in chunks of ``chunk_rows`` rows: a dense [n, D] tensor,
+a dense host array (each chunk stays on the host; the encoder sends it
+to the device as a whole below the residency cap, one unit slab at a
+time above it) or an ``encode.CsrMatrix`` (``row_slice`` chunks). It
+encodes each chunk straight to packed words (no [n, k] codes) and
+appends them to a store: a ``SegmentLogStore`` (in-place tail writes,
+through ``add_words``) or a ``CodeStore`` (rebound on ``self.store`` a
+chunk; read it back after ``ingest``). The reference pads each chunk to
+a power of two to bound its jit compiles; the port compiles nothing and
+does not pad. The data-parallel ``encode_sharded`` is ROADMAP queue A
+item 4 and is not ported.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.encode.encoder import StreamingEncoder
+from repro_torch.encode.sparse import CsrMatrix
 
 __all__ = ["IngestPipeline"]
 
@@ -43,15 +46,16 @@ class IngestPipeline:
         return MappingProxyType(dict(self._stats))
 
     def ingest(self, x, ids=None) -> np.ndarray:
-        """Encode and append every row of ``x`` (dense [n, D]); returns
-        the external ids int64 [n] (for a ``CodeStore``, the appended row
-        positions). Explicit ids are validated for the whole batch before
-        the first chunk is appended."""
-        if not isinstance(x, (torch.Tensor, np.ndarray)):
-            raise NotImplementedError(
-                f"{type(x).__name__} input: sparse (CSR) ingest is ROADMAP "
-                f"queue A item 3, not yet ported")
-        n = int(x.shape[0])
+        """Encode and append every row of ``x`` (dense [n, D] or
+        ``CsrMatrix``); returns the external ids int64 [n] (for a
+        ``CodeStore``, the appended row positions). Explicit ids are
+        validated for the whole batch before the first chunk is
+        appended."""
+        csr = isinstance(x, CsrMatrix)
+        if not (csr or isinstance(x, (torch.Tensor, np.ndarray))):
+            raise TypeError(f"a corpus is a tensor, an array or a CsrMatrix, "
+                            f"got {type(x).__name__}")
+        n = x.n if csr else int(x.shape[0])
         mutable = hasattr(self.store, "add_codes")
         if ids is not None:
             if not mutable:
@@ -71,7 +75,8 @@ class IngestPipeline:
         out_ids = []
         for lo in range(0, n, self.chunk_rows):
             hi = min(lo + self.chunk_rows, n)
-            words = self.encoder.encode_packed(x[lo:hi], impl=self.impl)
+            chunk = x.row_slice(lo, hi) if csr else x[lo:hi]
+            words = self.encoder.encode_packed(chunk, impl=self.impl)
             if mutable:
                 out_ids.append(self.store.add_words(
                     words, ids=None if ids is None else ids[lo:hi]))

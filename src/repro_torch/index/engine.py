@@ -95,8 +95,9 @@ class MutableAnnEngine:
         return self._coder._encoder
 
     def add(self, x, ids=None) -> np.ndarray:
-        """Encode vectors x float [m, D] and append them (O(batch) tail
-        write); returns the external ids int64 [m]."""
+        """Encode vectors x [m, D] (dense or ``encode.CsrMatrix``) and
+        append them (O(batch) tail write); returns the external ids int64
+        [m]."""
         return self.store.add_codes(self.encoder.encode_codes(x), ids=ids)
 
     def add_codes(self, codes, ids=None) -> np.ndarray:
@@ -109,9 +110,10 @@ class MutableAnnEngine:
 
     def ingest(self, x, ids=None, *, chunk_rows: int = 2048,
                impl: str = "auto") -> np.ndarray:
-        """Bulk-load dense vectors [m, D] through the fused encode kernel
-        straight into the log (``encode.IngestPipeline``): no [m, k]
-        intermediates; returns the external ids int64 [m]."""
+        """Bulk-load vectors [m, D] (dense or ``encode.CsrMatrix``)
+        through the encode kernels straight into the log
+        (``encode.IngestPipeline``): no [m, k] codes; returns the external
+        ids int64 [m]."""
         from repro_torch.encode.pipeline import IngestPipeline
         return IngestPipeline(self.encoder, self.store,
                               chunk_rows=chunk_rows, impl=impl).ingest(
@@ -123,8 +125,9 @@ class MutableAnnEngine:
         return self.store.delete(ids, strict=strict)
 
     def upsert(self, ids, x) -> np.ndarray:
-        """Replace or insert vectors x float [m, D] under stable external
-        ids int [m]; returns the ids."""
+        """Replace or insert vectors x [m, D] (dense or
+        ``encode.CsrMatrix``) under stable external ids int [m]; returns
+        the ids."""
         return self.store.upsert_codes(ids, self.encoder.encode_codes(x))
 
     def upsert_codes(self, ids, codes) -> np.ndarray:
@@ -161,7 +164,7 @@ class MutableAnnEngine:
         return self._rank_tables
 
     def encode_queries(self, x, impl: str = "auto") -> torch.Tensor:
-        """x float [Q, D] -> int32 codes [Q, k] (fused project + code)."""
+        """x [Q, D] (dense or ``encode.CsrMatrix``) -> int32 codes [Q, k]."""
         return self._coder.encode(x, impl=impl)
 
     def attach_quality(self, monitors):

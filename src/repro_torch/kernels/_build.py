@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "function"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("coded_gemm", "pack_codes", "packed_topk", "packed_counts",
-           "packed_lut", "fused_scored")
+           "packed_lut", "fused_scored", "code_pack", "normal_unit",
+           "csr_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -20,30 +20,18 @@
 // neither the float32 projections nor (for encode_fused) the int32 codes
 // are ever written; the only write-back is codes or packed words.
 //
-// Uniform and offset codes take floor(z / w) with a true IEEE division,
-// as the reference oracle does (build without --use_fast_math). Fields
-// past K are code 0. The 64-column tile holds whole words for every
+// The coding (code_common.cuh) is shared with code_pack.cu. Fields past
+// K are code 0. The 64-column tile holds whole words for every
 // bits in {1, 2, 4, 8, 16}, so each word is assembled in one block.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "code_common.cuh"
 
 namespace {
 
 constexpr int BM = 128, BN = 64, BK = 16, THREADS = 128;
 constexpr int AS_LD = BM + 4;  // padded transposed x slab: fewer bank conflicts
-
-enum Scheme { SIGN = 0, TWO_BIT = 1, UNIFORM = 2, OFFSET = 3 };
-
-__device__ __forceinline__ int code_of(float z, float qv, int scheme, float w,
-                                       int n_side) {
-  if (scheme == SIGN) return z >= 0.f ? 1 : 0;
-  if (scheme == TWO_BIT)
-    return (z >= -w ? 1 : 0) + (z >= 0.f ? 1 : 0) + (z >= w ? 1 : 0);
-  float v = scheme == OFFSET ? z + qv : z;
-  float c = floorf(__fdiv_rn(v, w));
-  c = fminf(fmaxf(c, (float)-n_side), (float)(n_side - 1));
-  return (int)c + n_side;
-}
 
 // Accumulates the block's 128x64 tile of x @ r into acc (8x8 per thread).
 // Thread (tx, ty) = (t % 8, t / 8) owns rows {ty*4 + i, 64 + ty*4 + i} and

@@ -1,10 +1,13 @@
-"""Wrapper of the fused project -> code -> pack CUDA kernel
-(``csrc/coded_gemm.cu``, the packing epilogue).
+"""Wrappers of the fused project -> code -> pack CUDA kernel
+(``csrc/coded_gemm.cu``, the packing epilogue) and of the epilogue alone
+(``csrc/code_pack.cu``).
 
-Counterpart of ``repro/kernels/encode_fused.py::encode_fused_pallas``:
-x float32 [M, D] @ r float32 [D, K] -> packed words [M, ceil(K*b/32)]
-(int32 bit-views of uint32); neither projections nor codes reach device
-memory.
+Counterparts of ``repro/kernels/encode_fused.py``:
+``encode_fused_pallas``, x float32 [M, D] @ r float32 [D, K] -> packed
+words [M, ceil(K*b/32)] (int32 bit-views of uint32), neither projections
+nor codes reaching device memory; and ``code_pack_pallas``, projected z
+float32 [M, K] -> the same words, the finalize of every streamed and CSR
+chunk.
 """
 from __future__ import annotations
 
@@ -14,11 +17,15 @@ import torch
 
 from repro_torch.core.packing import packed_width
 from repro_torch.core.schemes import CodeSpec
-from repro_torch.kernels.proj_code import SCHEME_IDS, check_gemm_args
+from repro_torch.kernels.proj_code import (SCHEME_IDS, check_gemm_args,
+                                           check_offsets)
 
-__all__ = ["encode_fused_cuda", "launches"]
+__all__ = ["encode_fused_cuda", "code_pack_cuda", "launches",
+           "code_pack_launches"]
 
-launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+# kernel launches since the last reset (ops.reset_launch_counts)
+launches = 0
+code_pack_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,4 +52,30 @@ def encode_fused_cuda(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
     if err:
         raise RuntimeError(f"encode_fused kernel launch failed: CUDA error {err}")
     launches += 1
+    return out
+
+
+def code_pack_cuda(z: torch.Tensor, spec: CodeSpec, q=None) -> torch.Tensor:
+    """Launches the code-and-pack kernel -> int32 words [M, W]."""
+    global code_pack_launches
+    from repro_torch.kernels import _build
+    if not z.is_cuda or z.dtype != torch.float32 or z.dim() != 2 \
+            or not z.is_contiguous():
+        raise ValueError(f"z must be a contiguous 2-D float32 CUDA tensor, "
+                         f"got {z.dtype} {tuple(z.shape)} on {z.device}")
+    m, k = z.shape
+    q_ptr = check_offsets(z, k, spec, q)
+    out = torch.empty((m, packed_width(k, spec.bits)), dtype=torch.int32,
+                      device=z.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.function("code_pack", "code_pack_launch",
+                         [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I,
+                          _P])
+    err = fn(z.data_ptr(), q_ptr, out.data_ptr(), m, k,
+             SCHEME_IDS[spec.scheme], float(spec.w), spec.n_bins_side,
+             spec.bits, torch.cuda.current_stream(z.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"code_pack kernel launch failed: CUDA error {err}")
+    code_pack_launches += 1
     return out

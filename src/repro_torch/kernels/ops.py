@@ -15,16 +15,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng as _prng
 from repro_torch.core.schemes import CodeSpec
+from repro_torch.kernels import csr_step as _csr_step
 from repro_torch.kernels import encode_fused as _encode_fused
 from repro_torch.kernels import fused_scored as _fused_scored
+from repro_torch.kernels import normal_unit as _normal_unit
 from repro_torch.kernels import pack_codes as _pack_codes
 from repro_torch.kernels import packed_collision as _packed_collision
 from repro_torch.kernels import packed_lut as _packed_lut
 from repro_torch.kernels import proj_code as _proj_code
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["coded_project", "encode_fused", "pack_codes", "packed_topk",
+__all__ = ["coded_project", "encode_fused", "code_pack", "normal_unit",
+           "normal_from_bits", "csr_unit_step", "pack_codes", "packed_topk",
            "packed_topk_masked", "packed_collision_counts",
            "packed_lut_rerank", "fused_scored_topk", "fused_scored_topk_masked",
            "launch_counts", "reset_launch_counts"]
@@ -32,6 +36,10 @@ __all__ = ["coded_project", "encode_fused", "pack_codes", "packed_topk",
 # wrapper name -> (module, its launch counter)
 _WRAPPERS = {"coded_project": (_proj_code, "launches"),
              "encode_fused": (_encode_fused, "launches"),
+             "code_pack": (_encode_fused, "code_pack_launches"),
+             "normal_unit": (_normal_unit, "launches"),
+             "normal_from_bits": (_normal_unit, "bits_launches"),
+             "csr_unit_step": (_csr_step, "launches"),
              "pack_codes": (_pack_codes, "launches"),
              "packed_topk": (_packed_collision, "launches"),
              "packed_topk_masked": (_packed_collision, "masked_launches"),
@@ -42,14 +50,18 @@ _WRAPPERS = {"coded_project": (_proj_code, "launches"),
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
+    return _kernel_on(impl, t.device)
+
+
+def _kernel_on(impl: str, device: torch.device) -> bool:
     if impl == "ref":
         return False
     if impl == "auto":
-        return t.is_cuda
+        return device.type == "cuda"
     if impl == "kernel":
-        if not t.is_cuda:
+        if device.type != "cuda":
             raise ValueError("impl='kernel' runs the CUDA kernel and needs "
-                             f"CUDA tensors, got a tensor on {t.device}")
+                             f"CUDA tensors, got a tensor on {device}")
         return True
     raise ValueError(f"unknown impl {impl!r}; one of auto, ref, kernel")
 
@@ -71,6 +83,46 @@ def encode_fused(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec, q=None,
         return _encode_fused.encode_fused_cuda(x.contiguous(),
                                                r.contiguous(), spec, q)
     return _ref.encode_fused_ref(x, r, spec, q)
+
+
+def code_pack(z: torch.Tensor, spec: CodeSpec, q=None,
+              impl: str = "auto") -> torch.Tensor:
+    """pack(encode(z)) of projected float32 z [M, K] -> int32 words
+    [M, ceil(K*b/32)] (the finalize of the streamed and CSR regimes)."""
+    if _use_kernel(impl, z):
+        return _encode_fused.code_pack_cuda(z.contiguous(), spec, q)
+    return _ref.code_pack_ref(z, spec, q)
+
+
+def normal_unit(key: tuple, width: int, k: int, device,
+                impl: str = "auto") -> torch.Tensor:
+    """Unit of R under its key (``prng.fold_in(PRNGKey(seed), u)``):
+    float32 [width, k] standard normals on ``device``, bit-identical to
+    ``jax.random.normal``."""
+    device = torch.device(device)
+    if _kernel_on(impl, device):
+        return _normal_unit.normal_unit_cuda(key, width, k, device)
+    return _prng.normal(key, (width, k), device)
+
+
+def normal_from_bits(bits: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """int32 bit-views of uint32 bits -> the float32 normals that
+    ``jax.random.normal`` makes of them (the draw's last stage)."""
+    if _use_kernel(impl, bits):
+        return _normal_unit.normal_from_bits_cuda(bits.contiguous())
+    return _prng.normal_from_bits(bits.to(torch.int64) & 0xFFFFFFFF)
+
+
+def csr_unit_step(acc: torch.Tensor, indptr: torch.Tensor,
+                  indices: torch.Tensor, data: torch.Tensor, r: torch.Tensor,
+                  lo: int, impl: str = "auto") -> torch.Tensor:
+    """One unit's CSR step, in place: acc[row] += val * r[col - lo] for
+    each entry with its column in [lo, lo + r.shape[0]), a row's entries
+    in CSR order (rows without such an entry untouched) -> acc."""
+    if _use_kernel(impl, acc):
+        return _csr_step.csr_unit_step_cuda(acc, indptr, indices, data,
+                                            r.contiguous(), lo)
+    return _ref.csr_unit_step_ref(acc, indptr, indices, data, r, lo)
 
 
 def pack_codes(codes: torch.Tensor, bits: int,

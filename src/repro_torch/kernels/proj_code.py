@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.core.schemes import CodeSpec
 
-__all__ = ["coded_project_cuda", "SCHEME_IDS", "launches"]
+__all__ = ["coded_project_cuda", "SCHEME_IDS", "check_gemm_args",
+           "check_offsets", "launches"]
 
 SCHEME_IDS = {"sign": 0, "2bit": 1, "uniform": 2, "offset": 3}
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
@@ -32,12 +33,18 @@ def check_gemm_args(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec, q):
     if x.shape[1] != r.shape[0] or x.device != r.device:
         raise ValueError(f"x {tuple(x.shape)} and r {tuple(r.shape)} do not "
                          f"chain on one device")
+    return check_offsets(x, r.shape[1], spec, q)
+
+
+def check_offsets(x: torch.Tensor, k: int, spec: CodeSpec, q):
+    """Validates the scheme and, for ``offset``, q float32 [k] on x's
+    device -> its pointer (or None)."""
     if spec.scheme not in SCHEME_IDS:
         raise ValueError(f"unknown scheme {spec.scheme!r}")
     if spec.scheme != "offset":
         return None
     if q is None or q.device != x.device or q.dtype != torch.float32 \
-            or q.shape != (r.shape[1],) or not q.is_contiguous():
+            or q.shape != (k,) or not q.is_contiguous():
         raise ValueError("offset scheme needs q: contiguous float32 [K] on "
                          "x's device")
     return q.data_ptr()

@@ -17,6 +17,7 @@ from repro_torch.core import schemes as _schemes
 from repro_torch.core.schemes import CodeSpec
 
 __all__ = ["coded_project_ref", "pack_codes_ref", "encode_fused_ref",
+           "code_pack_ref", "csr_unit_step_ref",
            "packed_collision_ref", "topk_stable_ref", "packed_topk_ref",
            "packed_topk_masked_ref",
            "lut_scores_rowwise_ref", "lut_scores_rowwise_int8_ref",
@@ -41,6 +42,43 @@ def encode_fused_ref(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
                      q=None) -> torch.Tensor:
     """x [M, D] @ r [D, K] -> packed int32 words [M, ceil(K*b/32)]."""
     return _packing.pack_codes(coded_project_ref(x, r, spec, q), spec.bits)
+
+
+def code_pack_ref(z: torch.Tensor, spec: CodeSpec, q=None) -> torch.Tensor:
+    """Projected z [M, K] -> packed int32 words [M, ceil(K*b/32)]: the
+    coding scheme, then the b-bit pack (fields past K zero)."""
+    return _packing.pack_codes(
+        _schemes.encode(z.to(torch.float32), spec, q), spec.bits)
+
+
+def csr_unit_step_ref(acc: torch.Tensor, indptr: torch.Tensor,
+                      indices: torch.Tensor, data: torch.Tensor,
+                      r: torch.Tensor, lo: int) -> torch.Tensor:
+    """One unit's CSR step, in place on acc float32 [n, k]: each entry
+    whose column lies in [lo, lo + r.shape[0]) adds its rounded product
+    val * r[col - lo] to acc[row], a row's entries in CSR order (the
+    order of XLA's scatter-add in the reference). Rows without such an
+    entry are left as they are.
+
+    Selecting the unit's entries keeps CSR order, so each row's entries
+    form one run; the loop over the position j within a run adds one
+    product to every run's row at once, so the sum order is fixed on any
+    device."""
+    lcol = indices - lo
+    sel = torch.nonzero((lcol >= 0) & (lcol < r.shape[0])).flatten()
+    if sel.numel() == 0:
+        return acc
+    rows = torch.searchsorted(indptr, sel, right=True) - 1
+    prods = data[sel, None] * r[lcol[sel].long()]
+    first = torch.ones_like(rows, dtype=torch.bool)
+    first[1:] = rows[1:] != rows[:-1]
+    starts = torch.nonzero(first).flatten()
+    pos = torch.arange(sel.numel(), device=sel.device) - \
+        starts[torch.cumsum(first, 0) - 1]
+    for j in range(int(pos.max()) + 1):
+        at = pos == j
+        acc[rows[at]] = acc[rows[at]] + prods[at]
+    return acc
 
 
 def packed_collision_ref(words_q: torch.Tensor, words_db: torch.Tensor,

@@ -103,9 +103,18 @@ def test_mutable_index_on_cpu_on_request(no_cuda, tmp_path):
     lambda x, r, c, w: ops.fused_scored_topk_masked(
         w, torch.zeros(4, 128), w, torch.ones(1, dtype=torch.int32), 2, 32, 4,
         3, impl="kernel"),
+    lambda x, r, c, w: ops.code_pack(x, CodeSpec("2bit", 0.75),
+                                     impl="kernel"),
+    lambda x, r, c, w: ops.normal_unit((0, 1), 8, 32, "cpu", impl="kernel"),
+    lambda x, r, c, w: ops.normal_from_bits(c, impl="kernel"),
+    lambda x, r, c, w: ops.csr_unit_step(
+        torch.zeros(4, 32), torch.zeros(5, dtype=torch.int64),
+        torch.zeros(0, dtype=torch.int32), torch.zeros(0), r, 0,
+        impl="kernel"),
 ], ids=["coded_project", "encode_fused", "pack_codes", "packed_topk",
         "packed_collision_counts", "packed_lut_rerank", "fused_scored_topk",
-        "packed_topk_masked", "fused_scored_topk_masked"])
+        "packed_topk_masked", "fused_scored_topk_masked", "code_pack",
+        "normal_unit", "normal_from_bits", "csr_unit_step"])
 def test_kernel_impl_on_cpu_raises(call):
     x, r = torch.zeros(4, 8), torch.zeros(8, 32)
     codes, words = torch.zeros(4, 32, dtype=torch.int32), torch.zeros(

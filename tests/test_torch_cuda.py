@@ -225,3 +225,90 @@ def test_mutable_engine_modes_match_plain_versions(gen, kwargs):
         assert _same(got, want)
         assert got[0][:, 0].tolist() == list(range(40))
         eng.compact(CompactionPolicy(target_rows=1024))
+
+
+# -- the encode kernels: code_pack, the R draw, the CSR step --------------------
+
+@pytest.mark.parametrize("k", [1, 7, 31, 256])
+@pytest.mark.parametrize("scheme,w", [("sign", 1.0), ("2bit", 0.75),
+                                      ("uniform", 0.75), ("offset", 1.0)])
+def test_code_pack_kernel_bit_exact(gen, scheme, w, k):
+    spec = CodeSpec(scheme, w)
+    q = torch.rand((k,), generator=gen, device="cuda") * w \
+        if scheme == "offset" else None
+    for m in (0, 1, 33, 3000):
+        z = 3.0 * torch.randn((m, k), generator=gen, device="cuda")
+        z[:, ::3] = torch.round(z[:, ::3] / w) * w     # values on bin edges
+        got = ops.code_pack(z, spec, q, impl="kernel")
+        assert got.shape == (m, packing.packed_width(k, spec.bits))
+        assert torch.equal(got, ref.code_pack_ref(z, spec, q))
+
+
+@pytest.mark.parametrize("k", [1, 7, 256])
+@pytest.mark.parametrize("width", [1, 217, 4096])
+def test_normal_unit_kernel_bit_exact(gen, width, k):
+    from repro_torch.core import prng
+    key = prng.fold_in(prng.PRNGKey(2 ** 31 + 5), 789)
+    got = ops.normal_unit(key, width, k, "cuda", impl="kernel")
+    want = prng.normal(key, (width, k))                 # on the CPU
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_normal_from_bits_kernel_on_every_mantissa(gen):
+    bits = (torch.arange(1 << 23, device="cuda", dtype=torch.int64) << 9)
+    got = ops.normal_from_bits(packing.as_i32(bits), impl="kernel")
+    want = ops.normal_from_bits(packing.as_i32(bits), impl="ref")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _csr_cases(gen, n, d):
+    """indptr, indices, data on the card: empty rows, repeated columns, a
+    row wholly in the ragged last unit and rows across many units."""
+    lens = torch.randint(0, 60, (n,), generator=gen, device="cuda")
+    lens[::7] = 0
+    lens[3] = 300
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                        torch.cumsum(lens, 0)])
+    nnz = int(indptr[-1])
+    cols = torch.randint(0, d, (nnz,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    a = int(indptr[5])
+    cols[a:a + int(lens[5])] = d - 1 - torch.arange(
+        int(lens[5]), device="cuda", dtype=torch.int32) % 10
+    b = int(indptr[3])
+    cols[b + 1:b + 9] = cols[b]
+    return indptr, cols, torch.randn((nnz,), generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("k", [7, 256, 300])
+def test_csr_unit_step_kernel_bit_exact(gen, k):
+    d, ru = 10_000, 1024                    # 10 units, the last 784 columns
+    indptr, cols, data = _csr_cases(gen, 200, d)
+    empty = (indptr[:1].expand(201).contiguous(),
+             cols[:0], data[:0])
+    for ip, ix, dv in ((indptr, cols, data), empty):
+        acc_k = torch.randn((200, k), generator=gen, device="cuda")
+        acc_r = acc_k.clone()
+        for u in range((d + ru - 1) // ru):
+            r = torch.randn((min(ru, d - u * ru), k), generator=gen,
+                            device="cuda")
+            ops.csr_unit_step(acc_k, ip, ix, dv, r, u * ru, impl="kernel")
+            ops.csr_unit_step(acc_r, ip, ix, dv, r, u * ru, impl="ref")
+        assert torch.equal(acc_k.view(torch.int32), acc_r.view(torch.int32))
+
+
+def test_sparse_and_streamed_encode_match_plain_versions(gen):
+    """The whole streamed and CSR regimes on the card (draw, step,
+    code_pack) against the same calls through the plain versions."""
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.encode import CsrMatrix, StreamingEncoder
+    crp = CodedRandomProjection(SketchConfig(k=100, r_unit=1024), 10_000)
+    indptr, cols, data = _csr_cases(gen, 200, 10_000)
+    csr = CsrMatrix(indptr.cpu().numpy(), cols.cpu().numpy(),
+                    data.cpu().numpy(), (200, 10_000))
+    enc = StreamingEncoder(crp, r_cap_elems=1)
+    assert torch.equal(enc.encode_packed(csr), enc.encode_packed(csr,
+                                                                 impl="ref"))
+    x = torch.from_numpy(csr.densify()).cuda()
+    assert torch.equal(enc.project(x), enc.project(x, impl="ref"))
+    assert enc._rmat is None

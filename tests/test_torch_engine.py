@@ -152,10 +152,18 @@ def test_later_slices_raise(kwargs):
 
 
 def test_streaming_regime_raises_above_cap():
+    """Above the cap, as in the reference: ``r_matrix`` raises ValueError
+    and ``encode_packed`` streams the units instead."""
+    jc = JaxCRP(JaxCfg(k=32), 8)
     tc = CodedRandomProjection(SketchConfig(k=32), 8, device="cpu")
     enc = StreamingEncoder(tc, r_cap_elems=100)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        enc.encode_packed(np.ones((2, 8), np.float32))
+    with pytest.raises(ValueError, match="residency cap 100"):
+        enc.r_matrix()
+    x = np.random.default_rng(3).standard_normal((2, 8)).astype(np.float32)
+    np.testing.assert_array_equal(
+        enc.encode_packed(x).numpy().view(np.uint32),
+        np.asarray(jc.sketch_oracle(jnp.asarray(x))))
+    assert enc._rmat is None
 
 
 def test_merge_topk_stable_and_sentinels():

@@ -30,6 +30,7 @@ from repro.checkpoint import save_checkpoint as jax_save_checkpoint
 from repro.core import packing as jax_packing
 from repro.core.sketch import CodedRandomProjection as JaxCRP
 from repro.core.sketch import SketchConfig as JaxCfg
+from repro.encode import CsrMatrix as JaxCsr
 from repro.encode import IngestPipeline as JaxPipeline
 from repro.index import CompactionPolicy as JaxPolicy
 from repro.index import MutableAnnEngine as JaxMutable
@@ -45,7 +46,7 @@ from repro_torch.checkpoint import (ShapeDtype, read_manifest,
                                     restore_checkpoint, save_checkpoint)
 from repro_torch.core import packing
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
-from repro_torch.encode import IngestPipeline
+from repro_torch.encode import CsrMatrix, IngestPipeline
 from repro_torch.index import (CompactionPolicy, MutableAnnEngine,
                                SegmentLogStore, compact, plan_compaction,
                                restore_index)
@@ -353,8 +354,14 @@ def test_ingest_pipeline_matches_jax(kind):
     else:
         np.testing.assert_array_equal(tp.store.words.numpy().view(np.uint32),
                                       np.asarray(jp.store.words))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tp.ingest([[0.0] * D])
+    # CSR rows, as the reference takes them: the same words again
+    np.testing.assert_array_equal(
+        tp.ingest(CsrMatrix.from_dense(x[:40])),
+        jp.ingest(JaxCsr.from_dense(x[:40])))
+    words = (lambda st: st.live_words()) if kind == "segment_log" else \
+        (lambda st: st.words)
+    np.testing.assert_array_equal(words(tp.store).numpy().view(np.uint32),
+                                  np.asarray(words(jp.store)))
 
 
 # -- snapshots and checkpoints across the two packages ------------------------
