@@ -14,7 +14,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Kernel checks. Small ragged shapes over every scheme, bit width and
    table type (rerank_m above N, top_k above the survivors, all rows
    tied, N = 0; for the masked kernels N = 0, 1, 31, 33 and 3,000 with
-   all, none, 10 % and 90 % of the rows dead), then the main path's
+   all, none, 10 % and 90 % of the rows dead; for the packed-linear
+   kernels bits 1/2/4/8 at k = 33, 100 and 256, C = 1, 3, 8, 9 and one C
+   above the forward's shared-memory class tile, N = 0, 1, 31, 33 and
+   3,000, block_n = 32 and 512, the same masks, 16-bit fields at k = 33,
+   and the backward's partials folded in groups), then the main path's
    shapes (the masked kernels on one 262,144-row segment and on the
    4,194,304 rows with 10 % dead): each kernel against its
    plain PyTorch version on the same inputs, on the card. Every kernel
@@ -90,8 +94,38 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. Dense cross-check above the cap: 8,192 unit rows at D = 131,072
    (about 1 % nonzero) encoded fused with R resident (cap raised),
    streamed at the default cap and as CSR agree but at bin edges.
-9. A ``kernels`` JSON line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+9. Learn path (``repro_torch.learn``), SVM training on packed codes at
+   the URL corpus's published shape: 2,396,130 CSR rows (D = 3,231,961,
+   115 nonzeros) made on the host outside every window, each one of 64
+   prototype rows with each nonzero moved to a fresh column with
+   probability 35/115 (mean cosine about 0.7 to its prototype); label +1
+   for prototypes 0-31, -1 for 32-63, class p % 8 for one-vs-rest; the
+   last 65,536 rows held out. ``IngestPipeline`` puts the 2,330,594
+   training rows into a ``CodeStore`` (k = 256, 2-bit, w = 0.75, seed 0);
+   ``fit_store`` trains full batch with ``LearnConfig()`` (squared hinge,
+   c = 1, 400 steps, lr 0.1); ``fit_words`` minibatch (65,536 rows, 100
+   steps) and one-vs-rest (C = 8, 100 steps); a ``MutableAnnEngine`` with
+   262,144-row segments takes the training rows, deletes 10 % of the ids
+   and upserts 65,536 with new rows and labels, and ``fit_log`` trains 60
+   steps with labels by external id. Launches counted over the path.
+   Gates: the four packed-linear kernels launched; 3 full-batch Adam
+   steps bit-exact between ``impl="auto"`` and ``impl="ref"``;
+   ``fit_log`` equal to ``fit_words`` over ``live_words()`` within rtol
+   1e-4, atol 1e-5, held-out predictions agreeing on at least 99.9 %;
+   held-out accuracy at least 0.9 for the binary fits; the full-batch
+   fit's peak device memory beyond the store under 1/16 of the one-hot.
+   Printed: row-steps/s of each fit, ms a full-batch step, the
+   minibatch's host time drawing its indices, inference rows/s, held-out
+   accuracies. Then the packed-linear kernels at these shapes (C = 1 and
+   8; the masked ones with 10 % dead), each bit-exact against its plain
+   version, timed beside it, its bound and its library yardstick
+   (``F.embedding_bag``; ``torch.bincount`` at C = 1 and a matmul of g
+   with the 9.5 GB one-hot at C = 8, built outside the window for that
+   yardstick alone), and a float64 one-hot
+   oracle over 4,096 rows (within 1e-5 of the terms' magnitudes).
+   ``--profile`` adds one full-batch step and one ``fit_log`` gradient.
+10. A ``kernels`` JSON line, the card line, and as the last line
+    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -133,6 +167,12 @@ EDGE_TOL = 1e-5
 CORPUS_SEED = 2014
 # mutable path: 16 sealed segments of 262,144 rows after the ingest
 TAIL_ROWS, N_DELETE, N_UPSERT, N_REPLANT = 262_144, 419_430, 65_536, 64
+# learn path: rows of the URL corpus's shape planted around 64 prototypes
+# (35 of 115 nonzeros moved on average), the last 65,536 held out
+LEARN_SEED, LEARN_PROTOS, LEARN_MOVED, LEARN_HELD = 2016, 64, 35, 65_536
+LEARN_BATCH, LEARN_MB_STEPS, LEARN_OVR, LEARN_OVR_STEPS = 65_536, 100, 8, 100
+LEARN_LOG_STEPS, LEARN_TAIL, LEARN_UPSERT = 60, 262_144, 65_536
+LEARN_ORACLE_ROWS = 4096
 
 # kernel -> (the path whose launch count it reports, its source, the TPU
 # kernel it replaces)
@@ -167,6 +207,18 @@ KERNELS = {
                     "src/repro/core/sketch.py:104"),
     "csr_unit_step": ("url", "src/repro_torch/kernels/csrc/csr_step.cu",
                       "src/repro/encode/encoder.py:100"),
+    "packed_linear_fwd": ("learn",
+                          "src/repro_torch/kernels/csrc/packed_linear.cu",
+                          "src/repro/kernels/packed_linear.py:110"),
+    "packed_linear_fwd_masked": ("learn",
+                                 "src/repro_torch/kernels/csrc/packed_linear.cu",
+                                 "src/repro/kernels/packed_linear.py:154"),
+    "packed_linear_bwd": ("learn",
+                          "src/repro_torch/kernels/csrc/packed_linear.cu",
+                          "src/repro/kernels/packed_linear.py:216"),
+    "packed_linear_bwd_masked": ("learn",
+                                 "src/repro_torch/kernels/csrc/packed_linear.cu",
+                                 "src/repro/kernels/packed_linear.py:273"),
 }
 # path -> every kernel it must launch
 PATH_KERNELS = {
@@ -179,6 +231,9 @@ PATH_KERNELS = {
                 "packed_collision_counts", "packed_lut_rerank"),
     "url": ("code_pack", "normal_unit", "csr_unit_step", "pack_codes",
             "packed_topk", "fused_scored_topk"),
+    "learn": ("code_pack", "normal_unit", "csr_unit_step", "pack_codes",
+              "packed_linear_fwd", "packed_linear_fwd_masked",
+              "packed_linear_bwd", "packed_linear_bwd_masked"),
 }
 
 
@@ -643,6 +698,106 @@ def encode_checks(device) -> None:
     log("check csr_unit_step k 7/256/300 over 10 units (ragged last), empty "
         "rows, no entries, repeated columns, a row in the last unit only, "
         "3,000-entry rows: bit-exact")
+    torch.cuda.synchronize()
+
+
+def same_bits(got, want) -> bool:
+    """Float tensors of one shape, bit for bit (-0.0 apart from 0.0)."""
+    import torch
+    return got.shape == want.shape and bool(torch.equal(
+        got.view(torch.int32), want.view(torch.int32)))
+
+
+def linear_checks(device) -> None:
+    """Ragged shapes for the packed-linear kernels (forward, backward,
+    both masked): kernel == plain, bit for bit, over bits 1/2/4/8 x k
+    33/100/256 (phantom field slots) x C 1/3/8/9 and one C above the
+    forward's shared-memory class tile x N 0/1/31/33/3,000 x block_n
+    32/512 x all, none, 10 % and 90 % of the rows dead; 16-bit fields at
+    k = 33 and N up to 300."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.packed_linear import fwd_class_tile
+    gen = torch.Generator(device=device).manual_seed(15)
+    deads = (1.0, 0.0, 0.1, 0.9)
+
+    def check(name, got, want, *what):
+        if not same_bits(got, want):
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{what}")
+
+    def grid(bits, k, classes, sizes):
+        codes = torch.randint(0, 1 << bits, (max(sizes), k), generator=gen,
+                              device=device)
+        words_all = packing.pack_codes(codes, bits)
+        fp = (words_all.shape[1] * (32 // bits)) << bits
+        for c in classes:
+            tab = torch.randn((c, fp), generator=gen, device=device)
+            g_all = torch.randn((c, max(sizes)), generator=gen, device=device)
+            for n in sizes:
+                words, g = words_all[:n], g_all[:, :n].contiguous()
+                masks = [packing.pack_bitmask(torch.rand(
+                    (n,), generator=gen, device=device) >= d) for d in deads]
+                what = (bits, k, c, n)
+                check("packed_linear_fwd",
+                      ops.packed_linear_fwd(tab, words, bits, impl="kernel"),
+                      ref.packed_linear_fwd_ref(tab, words, bits), *what)
+                for d, vw in zip(deads, masks):
+                    check("packed_linear_fwd_masked",
+                          ops.packed_linear_fwd_masked(tab, words, vw, bits,
+                                                       impl="kernel"),
+                          ref.packed_linear_fwd_masked_ref(tab, words, vw,
+                                                           bits), *what, d)
+                for bn in (32, 512):
+                    check("packed_linear_bwd",
+                          ops.packed_linear_bwd(g, words, bits, impl="kernel",
+                                                block_n=bn),
+                          ref.packed_linear_bwd_ref(g, words, bits,
+                                                    block_n=bn), *what, bn)
+                    for d, vw in zip(deads, masks):
+                        check("packed_linear_bwd_masked",
+                              ops.packed_linear_bwd_masked(
+                                  g, words, vw, bits, impl="kernel",
+                                  block_n=bn),
+                              ref.packed_linear_bwd_masked_ref(
+                                  g, words, vw, bits, block_n=bn),
+                              *what, bn, d)
+
+    above = []
+    for bits in (1, 2, 4, 8):
+        for k in (33, 100, 256):
+            fp = (packing.packed_width(k, bits) * (32 // bits)) << bits
+            tile = fwd_class_tile(fp)
+            classes = (1, 3, 8, 9) + ((tile + 1,) if 0 < tile < 64 else ())
+            if 0 < tile < 64:
+                above.append(f"{bits}-bit k={k}: C={tile + 1}")
+            grid(bits, k, classes, (0, 1, 31, 33, 3000))
+    grid(16, 33, (1, 3), (0, 1, 31, 33, 300))
+    # partials folded in groups of 3 chunks: the order must not change
+    from repro_torch.kernels import packed_linear
+    words = packing.pack_codes(torch.randint(0, 4, (3000, 256), generator=gen,
+                                             device=device), 2)
+    g = torch.randn((3, 3000), generator=gen, device=device)
+    vw = packing.pack_bitmask(torch.rand((3000,), generator=gen,
+                                         device=device) >= 0.1)
+    keep = packed_linear.PART_BYTES_MAX
+    packed_linear.PART_BYTES_MAX = 3 * 4 * 3 * 1024
+    try:
+        check("packed_linear_bwd", ops.packed_linear_bwd(
+            g, words, 2, impl="kernel", block_n=32),
+            ref.packed_linear_bwd_ref(g, words, 2, block_n=32), "groups of 3")
+        check("packed_linear_bwd_masked", ops.packed_linear_bwd_masked(
+            g, words, vw, 2, impl="kernel", block_n=32),
+            ref.packed_linear_bwd_masked_ref(g, words, vw, 2, block_n=32),
+            "groups of 3")
+    finally:
+        packed_linear.PART_BYTES_MAX = keep
+    log(f"check packed_linear fwd/bwd and masked: bits 1/2/4/8 x k 33/100/256"
+        f" x C 1/3/8/9 and above the class tile ({'; '.join(above)}) x N "
+        f"0/1/31/33/3000 x block_n 32/512 x dead all/none/10 %/90 %; 16-bit "
+        f"at k=33 (two groups of partials); 2-bit backward in groups of 3 "
+        f"chunks: bit-exact")
     torch.cuda.synchronize()
 
 
@@ -1811,6 +1966,416 @@ def dense_cross_check(device) -> dict:
                 csr_edge=flips["csr"])
 
 
+def learn_protos():
+    """The learn path's 64 prototype rows (URL_NNZ columns each, as
+    ``url_rows`` makes them); prototypes 0-31 are class +1, 32-63 class
+    -1, and prototype p is class p % 8 of the one-vs-rest fit."""
+    import numpy as np
+    return url_rows(np.random.default_rng(LEARN_SEED), LEARN_PROTOS)
+
+
+def learn_rows(rng, protos, n: int):
+    """n rows, each a prototype with each nonzero moved to a fresh uniform
+    column (new value, same scale) with probability LEARN_MOVED / URL_NNZ:
+    about 35 of 115, a cosine of about 0.7 to its prototype -> (cols int32
+    [n, URL_NNZ], vals float32 [n, URL_NNZ], prototype ids int64 [n]).
+    A moved column may repeat one in the row; the projection sums both."""
+    import numpy as np
+    pcols, pvals = protos
+    pid = rng.integers(0, LEARN_PROTOS, n)
+    cols, vals = pcols[pid], pvals[pid]
+    moved = rng.random((n, URL_NNZ)) < LEARN_MOVED / URL_NNZ
+    m = int(moved.sum())
+    cols[moved] = rng.integers(0, URL_D, m, dtype=np.int32)
+    vals[moved] = rng.standard_normal(m, dtype=np.float32) * \
+        np.float32(1 / math.sqrt(URL_NNZ))
+    return cols, vals, pid
+
+
+def prototype_cosine(cols, vals, pid, protos, m: int = 2048) -> float:
+    """Mean cosine of the first m rows to their prototypes."""
+    import numpy as np
+    pcols, pvals = protos
+    cos = []
+    for i in range(min(m, cols.shape[0])):
+        a = np.zeros(URL_NNZ, np.float64)
+        for j, c in enumerate(cols[i]):        # a repeated column adds up
+            hit = np.flatnonzero(pcols[pid[i]] == c)
+            if hit.size:
+                a[j] = pvals[pid[i], hit[0]]
+        dense = {}
+        for c, v in zip(cols[i].tolist(), vals[i].astype(np.float64)):
+            dense[c] = dense.get(c, 0.0) + v
+        norm = math.sqrt(sum(v * v for v in dense.values()))
+        cos.append(float(vals[i].astype(np.float64) @ a) /
+                   (norm * float(np.linalg.norm(pvals[pid[i]]))))
+    return float(np.mean(cos))
+
+
+def learn_kernel_phase(rows, words, device) -> None:
+    """The packed-linear kernels at the learn path's shapes, on its
+    2,330,594 training rows: forward and backward at C = 1 and C = 8, both
+    masked forms with 10 % of the rows dead, each bit-exact against its
+    plain version and timed beside it, its bound and its library yardstick
+    (F.embedding_bag over flat indices for the forward; for the backward
+    torch.bincount with weights at C = 1 and g @ one-hot at C = 8; indices
+    and one-hot made outside the window); the C = 1 rows go to the
+    kernels line. Then a float64 oracle over 4,096 rows from a dense
+    one-hot."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(16)
+    n, w = words.shape
+    bits, p = 2, 4
+    f_all = w * (32 // bits)
+    fp = f_all * p
+    live = torch.rand((n,), generator=gen, device=device) >= 0.1
+    valid = packing.pack_bitmask(live)
+    n_live = int(live.sum())
+    shifts = torch.arange(32 // bits, device=device) * bits
+    flat = (((packing.as_u32(words)[:, :, None] >> shifts) & (p - 1))
+            .reshape(n, f_all) + torch.arange(f_all, device=device) * p)
+    live_w = live[:, None].to(torch.float32).expand(n, f_all).contiguous()
+    for c in (1, 8):
+        tab = torch.randn((c, fp), generator=gen, device=device)
+        g = torch.randn((c, n), generator=gen, device=device)
+        g_live = g * live
+        # the yardsticks' inputs, made outside the windows: at C = 1 g
+        # repeated a field, for torch.bincount; at C = 8 the one-hot
+        # [N, F*P], 9.5 GB, for one matmul that gives every class at once
+        if c == 1:
+            g_rep = g[0][:, None].expand(n, f_all).reshape(-1)
+            g_live_rep = g_live[0][:, None].expand(n, f_all).reshape(-1)
+
+            def lib_bwd(masked):
+                return torch.bincount(flat.reshape(-1), minlength=fp,
+                                      weights=g_live_rep if masked
+                                      else g_rep)[None]
+        else:
+            hot = torch.zeros((n, fp), device=device).scatter_(1, flat, 1.0)
+
+            def lib_bwd(masked):
+                return (g_live if masked else g) @ hot
+        # The bytes the function must move, each once: the words of the
+        # rows it reads (the masked forms need only the live rows'), the
+        # tables and the margins (or g and the gradients), and the mask's
+        # bits. A float add a (row, class, field) it reads.
+        words_b = {False: 4.0 * n * w, True: 4.0 * n_live * w + n / 8}
+        other_b = 4.0 * (c * fp + c * n)
+        adds = {False: float(n) * c * f_all, True: float(n_live) * c * f_all}
+        cases = {
+            "packed_linear_fwd": (
+                lambda: ops.packed_linear_fwd(tab, words, bits, impl="kernel"),
+                lambda: ref.packed_linear_fwd_ref(tab, words, bits),
+                lambda: F.embedding_bag(flat, tab.t().contiguous(),
+                                        mode="sum").t(), False),
+            "packed_linear_fwd_masked": (
+                lambda: ops.packed_linear_fwd_masked(tab, words, valid, bits,
+                                                     impl="kernel"),
+                lambda: ref.packed_linear_fwd_masked_ref(tab, words, valid,
+                                                         bits),
+                lambda: F.embedding_bag(flat, tab.t().contiguous(),
+                                        mode="sum",
+                                        per_sample_weights=live_w).t(),
+                True),
+            "packed_linear_bwd": (
+                lambda: ops.packed_linear_bwd(g, words, bits, impl="kernel"),
+                lambda: ref.packed_linear_bwd_ref(g, words, bits),
+                lambda: lib_bwd(False), False),
+            "packed_linear_bwd_masked": (
+                lambda: ops.packed_linear_bwd_masked(g, words, valid, bits,
+                                                     impl="kernel"),
+                lambda: ref.packed_linear_bwd_masked_ref(g, words, valid,
+                                                         bits),
+                lambda: lib_bwd(True), True),
+        }
+        for name, (fn_k, fn_p, fn_lib, masked) in cases.items():
+            t0 = time.perf_counter()
+            got = fn_k()
+            if not same_bits(got, fn_p()):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at C={c}")
+            lib_err = float((fn_lib() - got).abs().max())
+            lib_ms = time_ms(fn_lib)
+            ms = time_ms(fn_k)
+            plain_ms = time_ms(fn_p, reps=3, warmup=1)
+            b_ms, b_by, pipe = bound([("f32", adds[masked], F32_FLOP_S)],
+                                     words_b[masked] + other_b)
+            log(f"kernel {name}: [C={c}, N={n}, W={w}] live "
+                f"{n_live if masked else n} bit-exact ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (max abs "
+                f"difference {lib_err:.3e}) bound_ms={b_ms:.5f} ({b_by}, "
+                f"{pipe}); phase {time.perf_counter() - t0:.1f} s")
+            if c == 1:
+                rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  bound_pipe=pipe, library_ms=lib_ms,
+                                  shape=[c, n, w],
+                                  live_rows=n_live if masked else n)
+        if c == 1:
+            del g_rep, g_live_rep
+        else:
+            del hot
+    del live_w
+    del flat
+    torch.cuda.empty_cache()
+
+    # float64 oracle from a dense one-hot: each kernel result within 1e-5
+    # of the sum of its terms' magnitudes
+    m = LEARN_ORACLE_ROWS
+    sub = words[:m].contiguous()
+    hot = ref.onehot_rows(sub, bits, torch.float64)
+    tab = torch.randn((8, fp), generator=gen, device=device)
+    g = torch.randn((8, m), generator=gen, device=device)
+    worst = {}
+    for name, got, want, terms in (
+            ("margins", ops.packed_linear_fwd(tab, sub, bits, impl="kernel"),
+             tab.double() @ hot.t(), tab.double().abs() @ hot.t()),
+            ("gradients", ops.packed_linear_bwd(g, sub, bits, impl="kernel"),
+             g.double() @ hot, g.double().abs() @ hot)):
+        rel = float(((got.double() - want).abs() / terms.clamp(min=1e-300))
+                    .max())
+        worst[name] = rel
+        if rel > 1e-5:
+            raise AssertionError(f"float64 oracle: {name} off by {rel:.3e} "
+                                 f"of their terms' magnitudes")
+    log(f"learn float64 oracle ({m} rows, C=8, dense one-hot): margins "
+        f"within {worst['margins']:.3e}, gradients within "
+        f"{worst['gradients']:.3e} of their terms' magnitudes (gate 1e-5)")
+
+
+def learn_path(device, rows, profile: bool = False) -> tuple:
+    """SVM training on packed codes at the URL corpus's published shape:
+    CSR rows with planted labels -> IngestPipeline -> CodeStore ->
+    fit_store (full batch), fit_words (minibatch; one-vs-rest) ->
+    MutableAnnEngine, churn -> fit_log, counted; then the gates and the
+    packed-linear kernels at these shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.ann import CodeStore
+    from repro_torch.core import packing
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.encode import IngestPipeline
+    from repro_torch.index import MutableAnnEngine
+    from repro_torch.kernels import ops
+    from repro_torch.learn import LearnConfig, fit_log, fit_store, fit_words
+    from repro_torch.learn.linear import (adam_update, packed_data_grads,
+                                          packed_loss_and_grads, targets_pm)
+    crp = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,
+                                             seed=0), URL_D)
+    enc, bits = crp.stream_encoder(), crp.spec.bits
+    w_words = packing.packed_width(K, bits)
+    n_all, n_chunks = URL_ROWS, -(-URL_ROWS // URL_CHUNK)
+    n_train = n_all - LEARN_HELD
+    protos = learn_protos()
+    t0 = time.perf_counter()
+    chunks = [learn_rows(np.random.default_rng([LEARN_SEED, c]), protos,
+                         min(URL_CHUNK, n_all - c * URL_CHUNK))
+              for c in range(n_chunks)]
+    pid = np.concatenate([ch[2] for ch in chunks])
+    cos = prototype_cosine(*chunks[0], protos)
+    t_gen = time.perf_counter() - t0
+    y = np.where(pid < LEARN_PROTOS // 2, 1, -1)
+    y_tr, y_ho = y[:n_train], y[n_train:]
+    log(f"learn: {n_all} CSR rows at D={URL_D}, {URL_NNZ} nonzeros, each one "
+        f"of {LEARN_PROTOS} prototypes with each nonzero moved with "
+        f"probability {LEARN_MOVED}/{URL_NNZ}: mean cosine {cos:.4f} to the "
+        f"prototype (first {min(2048, URL_CHUNK)} rows); labels: prototype < "
+        f"{LEARN_PROTOS // 2} -> +1 ({int((y_tr > 0).sum())} of {n_train} "
+        f"training rows), one-vs-rest: prototype % {LEARN_OVR}; made on the "
+        f"host in {t_gen:.1f} s, outside every window; last {LEARN_HELD} "
+        f"rows held out")
+
+    def empty_store():
+        return CodeStore(words=torch.zeros((0, w_words), dtype=torch.int32,
+                                           device=device), k=K, bits=bits)
+
+    rates = {}
+    ops.reset_launch_counts()
+    pipe = IngestPipeline(enc, empty_store(), chunk_rows=URL_CHUNK)
+    held = IngestPipeline(enc, empty_store(), chunk_rows=URL_CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c, (cols, vals, _) in enumerate(chunks):
+        lo = c * URL_CHUNK
+        cut = max(0, min(cols.shape[0], n_train - lo))
+        if cut:
+            pipe.ingest(as_csr(cols[:cut], vals[:cut]))
+        if cut < cols.shape[0]:
+            held.ingest(as_csr(cols[cut:], vals[cut:]))
+    torch.cuda.synchronize()
+    t_ing = time.perf_counter() - t0
+    store, held_words = pipe.store, held.store.words
+    if store.n != n_train or held_words.shape[0] != LEARN_HELD:
+        raise AssertionError("learn: the stores are short")
+    onehot_bytes = 4.0 * n_train * K * (1 << bits)
+    log(f"learn ingest: {n_all} rows in {t_ing:.3f} s = {n_all / t_ing:.1f} "
+        f"rows/s; training store {store.nbytes} bytes, its one-hot would be "
+        f"{onehot_bytes:.0f} bytes")
+
+    # the first 3 Adam steps, kernels against plain versions on the card
+    m_k = fit_store(store, y_tr, crp, LearnConfig(steps=3))
+    m_r = fit_store(store, y_tr, crp, LearnConfig(steps=3, impl="ref"))
+    if not (same_bits(m_k.tables, m_r.tables) and
+            same_bits(m_k.bias, m_r.bias)):
+        raise AssertionError("learn: 3 full-batch steps differ between "
+                             "impl='auto' and impl='ref'")
+    log("learn: 3 full-batch Adam steps bit-exact between impl='auto' and "
+        "impl='ref' (tables and bias)")
+    del m_k, m_r
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def held_acc(model, labels):
+        return model.accuracy(held_words, labels)
+
+    cfg = LearnConfig()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    m_full, t_full = timed(lambda: fit_store(store, y_tr, crp, cfg))
+    peak = torch.cuda.max_memory_allocated() - before
+    acc_full = held_acc(m_full, y_ho)
+    rates.update(full_row_steps_s=n_train * cfg.steps / t_full,
+                 full_step_ms=1e3 * t_full / cfg.steps,
+                 full_held_acc=acc_full, full_peak_bytes=peak)
+    log(f"learn fit_store full batch: {cfg.steps} steps over {n_train} rows "
+        f"in {t_full:.3f} s = {1e3 * t_full / cfg.steps:.4f} ms a step, "
+        f"{n_train * cfg.steps / t_full:.1f} row-steps/s; held-out accuracy "
+        f"{acc_full:.4f}; peak device memory beyond the store {peak} bytes "
+        f"({peak / onehot_bytes:.5f} of the one-hot)")
+    if peak > onehot_bytes / 16:
+        raise AssertionError(f"learn: peak {peak} bytes over 1/16 of the "
+                             f"one-hot")
+
+    mb = LearnConfig(batch=LEARN_BATCH, steps=LEARN_MB_STEPS)
+    m_mb, t_mb = timed(lambda: fit_words(store.words, y_tr, crp, mb))
+    rng = np.random.default_rng(mb.seed)
+    t0 = time.perf_counter()
+    for _ in range(mb.steps):
+        rng.choice(n_train, size=mb.batch, replace=False)
+    t_draw = time.perf_counter() - t0
+    acc_mb = held_acc(m_mb, y_ho)
+    rates.update(mb_row_steps_s=mb.batch * mb.steps / t_mb,
+                 mb_held_acc=acc_mb, mb_draw_s=t_draw)
+    log(f"learn fit_words minibatch: {mb.steps} steps of {mb.batch} rows in "
+        f"{t_mb:.3f} s = {mb.batch * mb.steps / t_mb:.1f} row-steps/s; "
+        f"held-out accuracy {acc_mb:.4f}; the host's index draws "
+        f"(rng.choice without replacement over {n_train} rows, as the "
+        f"reference draws them) {t_draw:.3f} s of it")
+
+    ovr = LearnConfig(steps=LEARN_OVR_STEPS)
+    m_ovr, t_ovr = timed(lambda: fit_words(store.words, pid[:n_train] %
+                                           LEARN_OVR, crp, ovr,
+                                           n_outputs=LEARN_OVR))
+    acc_ovr = held_acc(m_ovr, pid[n_train:] % LEARN_OVR)
+    rates.update(ovr_row_steps_s=n_train * ovr.steps / t_ovr,
+                 ovr_held_acc=acc_ovr)
+    log(f"learn fit_words one-vs-rest, C={LEARN_OVR}: {ovr.steps} steps in "
+        f"{t_ovr:.3f} s = {n_train * ovr.steps / t_ovr:.1f} row-steps/s; "
+        f"held-out accuracy {acc_ovr:.4f}")
+
+    _, t_inf = timed(lambda: m_full.margins(held_words))
+    _, t_inf_all = timed(lambda: m_full.margins(store.words))
+    rates.update(infer_held_rows_s=LEARN_HELD / t_inf,
+                 infer_train_rows_s=n_train / t_inf_all)
+    log(f"learn inference (margins): {LEARN_HELD} held-out rows in "
+        f"{1e3 * t_inf:.3f} ms = {LEARN_HELD / t_inf:.1f} rows/s; all "
+        f"{n_train} training rows in {1e3 * t_inf_all:.3f} ms = "
+        f"{n_train / t_inf_all:.1f} rows/s")
+    del m_mb, m_ovr
+
+    # the log: training rows in 262,144-row segments, 10 % deleted, 65,536
+    # upserted with new rows and labels
+    mut = MutableAnnEngine(crp, tail_rows=LEARN_TAIL)
+    label_of = y_tr.astype(np.int64)
+    (ids, t_add) = timed(lambda: mut.add_words(store.words))
+    rng = np.random.default_rng(LEARN_SEED + 1)
+    dead = rng.choice(n_train, n_train // 10, replace=False)
+    _, t_del = timed(lambda: mut.delete(dead))
+    alive = np.setdiff1d(ids, dead)
+    up = np.sort(rng.choice(alive, LEARN_UPSERT, replace=False))
+    cols, vals, up_pid = learn_rows(np.random.default_rng([LEARN_SEED,
+                                                           n_chunks]),
+                                    protos, LEARN_UPSERT)
+    _, t_up = timed(lambda: mut.upsert(up, as_csr(cols, vals)))
+    label_of[up] = np.where(up_pid < LEARN_PROTOS // 2, 1, -1)
+    log(f"learn log: {n_train} rows added in {t_add:.3f} s, {dead.size} "
+        f"deleted in {t_del:.3f} s, {LEARN_UPSERT} upserted (new rows and "
+        f"labels) in {t_up:.3f} s: {mut.store.n_segments} segments, "
+        f"{mut.n} live")
+    lcfg = LearnConfig(steps=LEARN_LOG_STEPS)
+    m_log, t_log = timed(lambda: fit_log(mut.store, lambda i: label_of[i],
+                                         crp, lcfg))
+    live_words = mut.store.live_words()
+    y_live = label_of[mut.store.live_ids()]
+    m_fresh, t_fresh = timed(lambda: fit_words(live_words, y_live, crp, lcfg))
+    rates.update(log_row_steps_s=mut.n * lcfg.steps / t_log,
+                 log_fresh_row_steps_s=mut.n * lcfg.steps / t_fresh)
+    counts = ops.launch_counts()
+    log(f"launch counts on the learn path: {json.dumps(counts)}")
+    require_launched(counts, "learn")
+
+    diff = (m_log.tables - m_fresh.tables).abs()
+    tol = 1e-5 + 1e-4 * m_fresh.tables.abs()
+    agree = float((m_log.predict(held_words) ==
+                   m_fresh.predict(held_words)).float().mean())
+    acc_log = held_acc(m_log, y_ho)
+    rates.update(log_held_acc=acc_log, log_fresh_agree=agree,
+                 log_max_table_diff=float(diff.max()))
+    log(f"learn fit_log over {mut.store.n_segments} segments: "
+        f"{lcfg.steps} steps in {t_log:.3f} s = "
+        f"{mut.n * lcfg.steps / t_log:.1f} row-steps/s (fit_words over "
+        f"live_words(): {t_fresh:.3f} s); tables differ by at most "
+        f"{float(diff.max()):.3e} ({int((diff > tol).sum())} entries beyond "
+        f"rtol 1e-4, atol 1e-5); held-out predictions agree on {agree:.5f}; "
+        f"held-out accuracy {acc_log:.4f}")
+    if bool((diff > tol).any()) or agree < 0.999:
+        raise AssertionError("learn: fit_log departs from fit_words over the "
+                             "live rows")
+    for name, acc in (("fit_store", acc_full), ("minibatch", acc_mb),
+                      ("fit_log", acc_log)):
+        if acc < 0.9:
+            raise AssertionError(f"learn {name}: held-out accuracy {acc:.4f}"
+                                 f" < 0.9")
+
+    if profile:
+        params = (m_full.tables.clone(), m_full.bias.clone())
+        moments = tuple(tuple(torch.zeros_like(p) for p in params)
+                        for _ in range(2))
+        y_pm = targets_pm(y_tr, 1, device)
+        fspec = m_full.fspec
+
+        def full_step():
+            g = packed_loss_and_grads(params, store.words, y_pm, fspec)[1]
+            adam_update(params, *moments, g, 1, cfg.steps, cfg.lr)
+
+        parts = [(seg.words, seg.valid_dev(), targets_pm(
+                  torch.from_numpy(np.where(
+                      seg.ids >= 0, label_of[np.maximum(seg.ids, 0)], 1)),
+                  1, device)) for seg in mut.store.segments() if seg.live]
+
+        def log_step():
+            dt = torch.zeros_like(params[0])
+            for words, vw, yp in parts:
+                dt = dt + packed_data_grads(params, words, yp, fspec,
+                                            valid_words=vw)[1][0]
+
+        profile_window("learn full-batch step (fit_store)", full_step, top=8)
+        profile_window(f"learn fit_log gradient over "
+                       f"{len(parts)} segments", log_step, top=8)
+    del mut, live_words
+    learn_kernel_phase(rows, store.words, device)
+    torch.cuda.empty_cache()
+    return counts, rates
+
+
 def profile_main_path(engine, queries, device) -> None:
     """``--profile``: device time by kernel for 8 ``sketch`` calls, each
     on a 65,536-row chunk made beforehand and each followed by a
@@ -1905,7 +2470,10 @@ def main(argv) -> int:
     scored_checks(device)
     masked_checks(device)
     encode_checks(device)
-    log(f"phase small checks: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    linear_checks(device)
+    log(f"phase small checks: {time.perf_counter() - t0:.1f} s (packed "
+        f"linear {time.perf_counter() - t1:.1f} s)")
     if "--check" in argv:
         log("check mode: stopping after the small-shape kernel checks")
         return 0
@@ -1957,8 +2525,14 @@ def main(argv) -> int:
     rates_dense = dense_cross_check(device)
     log(f"dense cross-check: {json.dumps(rates_dense)}")
     log(f"phase dense cross-check: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_learn, rates_learn = learn_path(device, rows,
+                                           profile="--profile" in argv)
+    log(f"learn path: {json.dumps(rates_learn)}")
+    log(f"phase learn path: {time.perf_counter() - t0:.1f} s")
     path_counts = {"main": counts, "scored": counts_scored,
-                   "mutable": counts_mutable, "url": counts_url}
+                   "mutable": counts_mutable, "url": counts_url,
+                   "learn": counts_learn}
     kernels = []
     for name, (path, src, rep) in KERNELS.items():
         row = dict(name=name, route="cuda", source=src, replaces=rep,

@@ -6,7 +6,9 @@ sketcher, ``offsets`` = its ``_offsets``), so both packages can run on
 identical R; ``store_from_numpy`` wraps uint32 words packed by ``repro``
 as a searchable ``CodeStore``; ``rank_tables_from_numpy`` wraps the
 arrays of a ``repro.rank.RankTables`` so that both packages score with
-identical tables.
+identical tables; ``linear_model_from_numpy`` wraps the tables and bias of
+a ``repro.learn.PackedLinearModel`` so that both compute the same
+margins.
 """
 from __future__ import annotations
 
@@ -17,9 +19,12 @@ from repro_torch.ann.store import CodeStore
 from repro_torch.core.schemes import CodeSpec
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
 from repro_torch.device import resolve_device
+from repro_torch.learn.features import PackedFeatureSpec
+from repro_torch.learn.linear import PackedLinearModel
 from repro_torch.rank.tables import RankTables
 
-__all__ = ["sketch_from_numpy", "store_from_numpy", "rank_tables_from_numpy"]
+__all__ = ["sketch_from_numpy", "store_from_numpy", "rank_tables_from_numpy",
+           "linear_model_from_numpy"]
 
 
 def sketch_from_numpy(cfg: SketchConfig, d: int, r, offsets=None,
@@ -63,3 +68,24 @@ def rank_tables_from_numpy(spec: CodeSpec, k: int, pair, rho_grid,
 
     return RankTables(spec=spec, k=k, pair=on(pair), rho_grid=on(rho_grid),
                       score_grid=on(score_grid), dtype=dtype)
+
+
+def linear_model_from_numpy(fspec, tables, bias, loss: str = "sq_hinge",
+                            device=None) -> PackedLinearModel:
+    """``PackedLinearModel`` holding float32 ``tables`` [C, F*P] and
+    ``bias`` [C] as given (``np.asarray`` of a ``repro`` model's
+    fields). ``fspec`` is the port's ``PackedFeatureSpec`` or any object
+    with its four fields (a ``repro`` one)."""
+    fspec = PackedFeatureSpec(k=fspec.k, bits=fspec.bits,
+                              n_codes=fspec.n_codes,
+                              normalize=fspec.normalize)
+    tables = np.asarray(tables, dtype=np.float32)
+    bias = np.asarray(bias, dtype=np.float32)
+    if tables.ndim != 2 or tables.shape[1] != fspec.table_width \
+            or bias.shape != (tables.shape[0],):
+        raise ValueError(f"tables {tables.shape} / bias {bias.shape} do not "
+                         f"fit table width {fspec.table_width}")
+    dev = resolve_device(device)
+    return PackedLinearModel(
+        fspec=fspec, tables=torch.from_numpy(tables.copy()).to(dev),
+        bias=torch.from_numpy(bias.copy()).to(dev), loss=loss)

@@ -1,5 +1,5 @@
 // LUT scoring and the block-wide stable top-k selection shared by
-// packed_lut.cu and fused_scored.cu.
+// packed_lut.cu and fused_scored.cu (and the scoring by packed_linear.cu).
 //
 // A row's score adds, in (word, field) order, the table entry its b-bit
 // code selects at each of the W * 32/b field slots, one rounded float32
@@ -33,19 +33,35 @@ __device__ __forceinline__ float entry(const uint16_t* t, int i) {
   return __uint_as_float((uint32_t)t[i] << 16);
 }
 
-// Float tables (float32 or bf16 bits); scales unused.
-template <typename T>
-__device__ float score_row(const T* tab, const float* /*scales*/,
-                           const uint32_t* row, int w, int bits) {
+// CB float tables (float32 or bf16 bits) fp entries apart, scored at
+// once: each field is decoded once and its code selects an entry of every
+// table; s[c] adds them in (word, field) order from 0.0.
+template <int CB, typename T>
+__device__ __forceinline__ void score_row_classes(const T* tab, size_t fp,
+                                                  const uint32_t* row, int w,
+                                                  int bits, float* s) {
   const int cpw = 32 / bits, p = 1 << bits;
   const uint32_t mask = (uint32_t)p - 1u;
-  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < CB; ++c) s[c] = 0.0f;
   for (int j = 0; j < w; ++j) {
     const uint32_t word = row[j];
     const T* t = tab + (size_t)j * cpw * p;
-    for (int f = 0; f < cpw; ++f)
-      s = __fadd_rn(s, entry(t, f * p + (int)((word >> (f * bits)) & mask)));
+    for (int f = 0; f < cpw; ++f) {
+      const int e = f * p + (int)((word >> (f * bits)) & mask);
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        s[c] = __fadd_rn(s[c], entry(t + c * fp, e));
+    }
   }
+}
+
+// One float table; scales unused.
+template <typename T>
+__device__ float score_row(const T* tab, const float* /*scales*/,
+                           const uint32_t* row, int w, int bits) {
+  float s;
+  score_row_classes<1>(tab, 0, row, w, bits, &s);
   return s;
 }
 

@@ -1,6 +1,6 @@
 """Dispatch between the CUDA kernels and their plain versions.
 
-Counterpart of ``repro/kernels/ops.py:51-182, 278-332``. ``impl``:
+Counterpart of ``repro/kernels/ops.py:51-332``. ``impl``:
 
 * ``"auto"``: the kernel for CUDA tensors, the plain version (``ref.py``)
   for CPU tensors;
@@ -23,6 +23,7 @@ from repro_torch.kernels import fused_scored as _fused_scored
 from repro_torch.kernels import normal_unit as _normal_unit
 from repro_torch.kernels import pack_codes as _pack_codes
 from repro_torch.kernels import packed_collision as _packed_collision
+from repro_torch.kernels import packed_linear as _packed_linear
 from repro_torch.kernels import packed_lut as _packed_lut
 from repro_torch.kernels import proj_code as _proj_code
 from repro_torch.kernels import ref as _ref
@@ -31,6 +32,8 @@ __all__ = ["coded_project", "encode_fused", "code_pack", "normal_unit",
            "normal_from_bits", "csr_unit_step", "pack_codes", "packed_topk",
            "packed_topk_masked", "packed_collision_counts",
            "packed_lut_rerank", "fused_scored_topk", "fused_scored_topk_masked",
+           "packed_linear_fwd", "packed_linear_fwd_masked",
+           "packed_linear_bwd", "packed_linear_bwd_masked",
            "launch_counts", "reset_launch_counts"]
 
 # wrapper name -> (module, its launch counter)
@@ -46,7 +49,12 @@ _WRAPPERS = {"coded_project": (_proj_code, "launches"),
              "packed_collision_counts": (_packed_collision, "counts_launches"),
              "packed_lut_rerank": (_packed_lut, "launches"),
              "fused_scored_topk": (_fused_scored, "launches"),
-             "fused_scored_topk_masked": (_fused_scored, "masked_launches")}
+             "fused_scored_topk_masked": (_fused_scored, "masked_launches"),
+             "packed_linear_fwd": (_packed_linear, "launches"),
+             "packed_linear_fwd_masked": (_packed_linear, "masked_launches"),
+             "packed_linear_bwd": (_packed_linear, "bwd_launches"),
+             "packed_linear_bwd_masked": (_packed_linear,
+                                          "bwd_masked_launches")}
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -210,6 +218,57 @@ def fused_scored_topk_masked(q_words: torch.Tensor, q_tables: torch.Tensor,
     return _ref.fused_scored_topk_masked_ref(q_words, q_tables, words_db,
                                              valid_words, bits, k, rerank_m,
                                              top_k, scales=scales)
+
+
+def packed_linear_fwd(tables: torch.Tensor, words: torch.Tensor, bits: int,
+                      impl: str = "auto") -> torch.Tensor:
+    """Packed-linear margins: class weight tables float [C, F*P] x int32
+    words [N, W] -> float32 [C, N] (the learn forward)."""
+    if _use_kernel(impl, words):
+        return _packed_linear.packed_linear_fwd_cuda(
+            tables.to(torch.float32).contiguous(), words.contiguous(), bits)
+    return _ref.packed_linear_fwd_ref(tables, words, bits)
+
+
+def packed_linear_fwd_masked(tables: torch.Tensor, words: torch.Tensor,
+                             valid_words: torch.Tensor, bits: int,
+                             impl: str = "auto") -> torch.Tensor:
+    """Packed-linear margins over the live rows of ``valid_words`` int32
+    [ceil(N/32)]; dead rows emit 0.0."""
+    if _use_kernel(impl, words):
+        return _packed_linear.packed_linear_fwd_cuda(
+            tables.to(torch.float32).contiguous(), words.contiguous(), bits,
+            valid_words=valid_words.contiguous())
+    return _ref.packed_linear_fwd_masked_ref(tables, words, valid_words, bits)
+
+
+def packed_linear_bwd(g: torch.Tensor, words: torch.Tensor, bits: int,
+                      impl: str = "auto", *,
+                      block_n: int = 512) -> torch.Tensor:
+    """Weight-table gradients: margin gradients float32 [C, N] x int32
+    words [N, W] -> float32 [C, F*P] (the learn backward), summed in
+    ``block_n``-row chunks in the order of ``ref.packed_linear_bwd_ref``
+    (the reference's ``block_c`` tiles classes and changes no number;
+    the port has none)."""
+    if _use_kernel(impl, words):
+        return _packed_linear.packed_linear_bwd_cuda(
+            g.to(torch.float32).contiguous(), words.contiguous(), bits,
+            block_n=block_n)
+    return _ref.packed_linear_bwd_ref(g, words, bits, block_n=block_n)
+
+
+def packed_linear_bwd_masked(g: torch.Tensor, words: torch.Tensor,
+                             valid_words: torch.Tensor, bits: int,
+                             impl: str = "auto", *,
+                             block_n: int = 512) -> torch.Tensor:
+    """Weight-table gradients over the live rows of ``valid_words``: dead
+    rows contribute nothing."""
+    if _use_kernel(impl, words):
+        return _packed_linear.packed_linear_bwd_cuda(
+            g.to(torch.float32).contiguous(), words.contiguous(), bits,
+            block_n=block_n, valid_words=valid_words.contiguous())
+    return _ref.packed_linear_bwd_masked_ref(g, words, valid_words, bits,
+                                             block_n=block_n)
 
 
 def launch_counts() -> dict:

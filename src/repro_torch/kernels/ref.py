@@ -1,12 +1,15 @@
 """Plain PyTorch versions of the port's kernels (counterpart of
-``repro/kernels/ref.py:30-257, 333-547``).
+``repro/kernels/ref.py:30-330, 333-547``).
 
 They define the semantics the CUDA kernels are held to on the card, and
 they are what ``ops`` runs for tensors on the CPU. Integer outputs are
 bit-exact against the JAX oracles; the projections follow
 ``torch.matmul``'s float32 sum order. LUT scores add float32 table
 entries one by one in (word, field) order, and every top-k is a stable
-sort: ties go to the lowest index, as ``lax.top_k`` gives them.
+sort: ties go to the lowest index, as ``lax.top_k`` gives them. The
+packed-linear backward adds in an order it defines in full (chunk
+partials folded in chunk order), so its kernel is bit-exact against it
+and training is deterministic.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ __all__ = ["coded_project_ref", "pack_codes_ref", "encode_fused_ref",
            "topk_scored_ref", "packed_lut_rerank_ref",
            "coarse_survivor_mask_ref", "fused_scored_topk_ref",
            "fused_scored_topk_masked_ref", "two_stage_scored_ref",
-           "two_stage_scored_masked_ref"]
+           "two_stage_scored_masked_ref", "onehot_rows",
+           "packed_linear_fwd_ref", "packed_linear_fwd_masked_ref",
+           "packed_linear_bwd_ref", "packed_linear_bwd_masked_ref"]
 
 
 def coded_project_ref(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
@@ -351,3 +356,101 @@ def two_stage_scored_masked_ref(q_words: torch.Tensor,
     _, ci = packed_topk_masked_ref(q_words, words_db, valid_words, bits, k,
                                    rerank_m)
     return _rerank_coarse(ci, q_tables, words_db, bits, top_k)
+
+
+# -- packed linear classifier (learn) -----------------------------------------
+
+def packed_linear_fwd_ref(tables: torch.Tensor, words_db: torch.Tensor,
+                          bits: int) -> torch.Tensor:
+    """Margins of a packed linear model: class weight tables float
+    [C, F*P] (flat ``learn.features`` layout) x words [N, W] -> float32
+    [C, N], ``lut_scores_rowwise_ref`` with one table a class and every
+    class's candidates the whole corpus: margin[c, n] adds, in (word,
+    field) order from 0.0, the entry each b-bit field of row n selects."""
+    return lut_scores_rowwise_ref(
+        tables, words_db[None].expand((tables.shape[0],) + words_db.shape),
+        bits)
+
+
+def packed_linear_fwd_masked_ref(tables: torch.Tensor, words_db: torch.Tensor,
+                                 valid_words: torch.Tensor,
+                                 bits: int) -> torch.Tensor:
+    """``packed_linear_fwd_ref`` over the live rows of ``valid_words``
+    int32 [ceil(N/32)]: dead rows emit margin 0.0."""
+    scores = packed_linear_fwd_ref(tables, words_db, bits)
+    live = _packing.unpack_bitmask(valid_words, words_db.shape[0])
+    return torch.where(live[None, :], scores, torch.zeros_like(scores))
+
+
+def onehot_rows(words: torch.Tensor, bits: int,
+                dtype=torch.float32) -> torch.Tensor:
+    """Dense one-hot of every field slot: words [n, W] -> [n, F*P] of
+    ``dtype`` in the flat table layout (phantom field slots included),
+    built from ``packing.unpack_codes`` and independent of the kernels:
+    entry [n, f*P + v] is 1 iff field f of row n holds code v."""
+    p = 1 << bits
+    f = words.shape[-1] * (32 // bits)
+    codes = _packing.unpack_codes(words, bits, f).to(torch.int64)
+    hot = codes[..., None] == torch.arange(p, device=words.device)
+    return hot.reshape(words.shape[0], f * p).to(dtype)
+
+
+def packed_linear_bwd_ref(g: torch.Tensor, words_db: torch.Tensor, bits: int,
+                          *, block_n: int = 512) -> torch.Tensor:
+    """Weight-table gradients: margin gradients g float32 [C, N] x words
+    [N, W] -> float32 [C, F*P], dTables[c, f*P + v] = the sum of g[c, n]
+    over the rows n whose field f holds code v.
+
+    The sum order, which the kernel (``csrc/packed_linear.cu``) follows
+    bit for bit: rows go in chunks of ``block_n``; within a chunk, each
+    row's contribution is added, in ascending row order, onto a partial
+    that starts at 0.0; the accumulator starts at 0.0 and the chunks'
+    partials are added onto it in chunk order. The reference fixes its
+    order only up to XLA's dot inside a chunk (``repro/kernels/ref.py:
+    292-319``), so the two agree to float rounding, exactly where every
+    partial sum is exact.
+
+    The loop runs over the position i within a chunk: one gather and one
+    scatter add row i of every chunk at once, for all classes and fields,
+    and no two of those writes reach the same entry.
+    """
+    if block_n < 1:
+        raise ValueError(f"block_n must be positive, got {block_n}")
+    c, n = g.shape
+    p, cpw = 1 << bits, 32 // bits
+    n_words = words_db.shape[1]
+    f = n_words * cpw
+    acc = torch.zeros((c, f * p), dtype=torch.float32, device=g.device)
+    if n == 0 or c == 0:
+        return acc
+    nch = -(-n // block_n)
+    pad = nch * block_n - n
+    gp = torch.nn.functional.pad(g.to(torch.float32), (0, pad)) \
+        .reshape(c, nch, block_n)
+    wp = torch.nn.functional.pad(_packing.as_u32(words_db), (0, 0, 0, pad)) \
+        .reshape(nch, block_n, n_words)
+    shifts = torch.arange(cpw, device=g.device) * bits
+    part = torch.zeros((nch, c, f, p), dtype=torch.float32, device=g.device)
+    for i in range(min(block_n, n)):
+        # padded rows of the last chunk carry g = 0.0, and x + 0.0 == x for
+        # every partial (a partial that starts at +0.0 is never -0.0)
+        codes = ((wp[:, i, :, None] >> shifts) & (p - 1)).reshape(nch, f)
+        idx = codes[:, None, :, None].expand(nch, c, f, 1)
+        gi = gp[:, :, i].t()[:, :, None, None].expand(nch, c, f, 1)
+        part.scatter_(3, idx, part.gather(3, idx) + gi)
+    part = part.reshape(nch, c, f * p)
+    for ch in range(nch):
+        acc = acc + part[ch]
+    return acc
+
+
+def packed_linear_bwd_masked_ref(g: torch.Tensor, words_db: torch.Tensor,
+                                 valid_words: torch.Tensor, bits: int, *,
+                                 block_n: int = 512) -> torch.Tensor:
+    """``packed_linear_bwd_ref`` over the live rows of ``valid_words``:
+    dead rows' gradients are zeroed first, so they add exact zeros (the
+    kernel skips them, which is the same)."""
+    live = _packing.unpack_bitmask(valid_words, words_db.shape[0])
+    g = torch.where(live[None, :], g.to(torch.float32),
+                    torch.zeros((), dtype=torch.float32, device=g.device))
+    return packed_linear_bwd_ref(g, words_db, bits, block_n=block_n)

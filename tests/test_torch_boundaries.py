@@ -16,6 +16,8 @@ from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
 from repro_torch.index import MutableAnnEngine, SegmentLogStore, restore_index
 from repro_torch.kernels import ops
+from repro_torch.learn import (PackedFeatureSpec, PackedLinearModel,
+                               expand_codes, train_dense_linear)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -60,8 +62,22 @@ def no_cuda(monkeypatch):
     lambda: SegmentLogStore(32, 2),
     lambda: restore_index("no-such-snapshot"),
     lambda: restore_checkpoint("no-such-checkpoint", 0, {}),
+    lambda: PackedLinearModel.zeros(PackedFeatureSpec(32, 2, 4)),
+    lambda: convert.linear_model_from_numpy(
+        PackedFeatureSpec(32, 2, 4), np.zeros((1, 128), np.float32),
+        np.zeros(1, np.float32)),
+    lambda: train_dense_linear(np.zeros((4, 3), np.float32),
+                               np.ones(4, np.float32)),
+    lambda: expand_codes(np.zeros((2, 32), np.int32), CodeSpec("2bit", 0.75)),
+    lambda: PackedFeatureSpec(32, 2, 4).entry_mask(),
+    lambda: PackedFeatureSpec(32, 2, 4).tables_from_dense(
+        np.zeros((1, 128), np.float32)),
+    lambda: PackedFeatureSpec(32, 2, 4).dense_from_tables(
+        np.zeros((1, 128), np.float32)),
 ], ids=["sketch-default", "sketch-cuda", "store", "store-numpy",
-        "sketch-numpy", "segment-log", "restore-index", "restore-checkpoint"])
+        "sketch-numpy", "segment-log", "restore-index", "restore-checkpoint",
+        "linear-model", "linear-model-numpy", "dense-linear", "expand-codes",
+        "entry-mask", "tables-from-dense", "dense-from-tables"])
 def test_entry_points_need_the_card_unless_asked(no_cuda, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
@@ -111,10 +127,22 @@ def test_mutable_index_on_cpu_on_request(no_cuda, tmp_path):
         torch.zeros(4, 32), torch.zeros(5, dtype=torch.int64),
         torch.zeros(0, dtype=torch.int32), torch.zeros(0), r, 0,
         impl="kernel"),
+    lambda x, r, c, w: ops.packed_linear_fwd(torch.zeros(1, 128), w, 2,
+                                             impl="kernel"),
+    lambda x, r, c, w: ops.packed_linear_fwd_masked(
+        torch.zeros(1, 128), w, torch.ones(1, dtype=torch.int32), 2,
+        impl="kernel"),
+    lambda x, r, c, w: ops.packed_linear_bwd(torch.zeros(1, 4), w, 2,
+                                             impl="kernel"),
+    lambda x, r, c, w: ops.packed_linear_bwd_masked(
+        torch.zeros(1, 4), w, torch.ones(1, dtype=torch.int32), 2,
+        impl="kernel"),
 ], ids=["coded_project", "encode_fused", "pack_codes", "packed_topk",
         "packed_collision_counts", "packed_lut_rerank", "fused_scored_topk",
         "packed_topk_masked", "fused_scored_topk_masked", "code_pack",
-        "normal_unit", "normal_from_bits", "csr_unit_step"])
+        "normal_unit", "normal_from_bits", "csr_unit_step",
+        "packed_linear_fwd", "packed_linear_fwd_masked", "packed_linear_bwd",
+        "packed_linear_bwd_masked"])
 def test_kernel_impl_on_cpu_raises(call):
     x, r = torch.zeros(4, 8), torch.zeros(8, 32)
     codes, words = torch.zeros(4, 32, dtype=torch.int32), torch.zeros(

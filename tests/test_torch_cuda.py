@@ -312,3 +312,58 @@ def test_sparse_and_streamed_encode_match_plain_versions(gen):
     x = torch.from_numpy(csr.densify()).cuda()
     assert torch.equal(enc.project(x), enc.project(x, impl="ref"))
     assert enc._rmat is None
+
+
+def _bits_equal(got, want):
+    return got.shape == want.shape and torch.equal(got.view(torch.int32),
+                                                   want.view(torch.int32))
+
+
+@pytest.mark.parametrize("bits,k", [(1, 100), (2, 33), (2, 256), (4, 100),
+                                    (8, 33), (16, 33)])
+def test_packed_linear_kernels_bit_exact(gen, bits, k):
+    """Forward, backward and both masked forms against their plain
+    versions at ragged shapes: N across chunk and mask-word edges, C above
+    the forward's class tile, block_n 32 and 512, 10 % dead."""
+    from repro_torch.kernels.packed_linear import fwd_class_tile
+    w = _words(gen, 1000, k, bits)
+    fp = (w.shape[1] * (32 // bits)) << bits
+    tile = fwd_class_tile(fp)
+    for c in (1, 3) + ((tile + 1,) if 0 < tile < 40 else ()):
+        tab = torch.randn((c, fp), generator=gen, device="cuda")
+        for n in (0, 1, 33, 1000):
+            words = w[:n]
+            g = torch.randn((c, n), generator=gen, device="cuda")
+            valid = packing.pack_bitmask(
+                torch.rand((n,), generator=gen, device="cuda") >= 0.1)
+            assert _bits_equal(ops.packed_linear_fwd(tab, words, bits,
+                                                     impl="kernel"),
+                               ref.packed_linear_fwd_ref(tab, words, bits))
+            assert _bits_equal(
+                ops.packed_linear_fwd_masked(tab, words, valid, bits,
+                                             impl="kernel"),
+                ref.packed_linear_fwd_masked_ref(tab, words, valid, bits))
+            for bn in (32, 512):
+                assert _bits_equal(
+                    ops.packed_linear_bwd(g, words, bits, impl="kernel",
+                                          block_n=bn),
+                    ref.packed_linear_bwd_ref(g, words, bits, block_n=bn))
+                assert _bits_equal(
+                    ops.packed_linear_bwd_masked(g, words, valid, bits,
+                                                 impl="kernel", block_n=bn),
+                    ref.packed_linear_bwd_masked_ref(g, words, valid, bits,
+                                                     block_n=bn))
+
+
+def test_fit_words_three_steps_bit_exact(gen):
+    """Three full-batch Adam steps through the kernels equal the same
+    steps through the plain versions, bit for bit."""
+    from repro_torch.learn import LearnConfig, fit_words
+    words = _words(gen, 3000, 256, 2)
+    y = torch.where(torch.rand((3000,), generator=gen, device="cuda") < 0.5,
+                    1, -1)
+    spec = CodeSpec("2bit", 0.75)
+    got = fit_words(words, y, spec, LearnConfig(steps=3), k=256)
+    want = fit_words(words, y, spec, LearnConfig(steps=3, impl="ref"), k=256)
+    assert _bits_equal(got.tables, want.tables)
+    assert _bits_equal(got.bias, want.bias)
