@@ -18,7 +18,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels bits 1/2/4/8 at k = 33, 100 and 256, C = 1, 3, 8, 9 and one C
    above the forward's shared-memory class tile, N = 0, 1, 31, 33 and
    3,000, block_n = 32 and 512, the same masks, 16-bit fields at k = 33,
-   and the backward's partials folded in groups), then the main path's
+   and the backward's partials folded in groups; for the LUT top-k
+   kernels bits 1/2/4/8/16 with float32 and bf16 tables at N = 0, 1,
+   31, 33 and 3,000, top_k above the live rows, the same masks, all rows
+   tied; the unpacked count kernel on int32 codes of any value at every
+   tile; top_k and rerank_m above 2048 in every top-k kernel; the bf16
+   draw against the CPU's prng on whole units and all 128 uniforms, bf16
+   R through the GEMMs and bf16 z through code_pack), then the main path's
    shapes (the masked kernels on one 262,144-row segment and on the
    4,194,304 rows with 10 % dead): each kernel against its
    plain PyTorch version on the same inputs, on the card. Every kernel
@@ -124,7 +130,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    yardstick alone), and a float64 one-hot
    oracle over 4,096 rows (within 1e-5 of the terms' magnitudes).
    ``--profile`` adds one full-batch step and one ``fit_log`` gradient.
-10. A ``kernels`` JSON line, the card line, and as the last line
+10. Repairs (phases 10 and 11 run between phases 5 and 6, while the
+    main path's engine is resident), on the engine after ``add``: 16
+    queries with top_k and rerank_m above 2048 (count-ranked top_k 2049,
+    scored fused top_k 513 so m 2052, two-stage and LSH scored at m 2100)
+    bit-exact against ``impl="ref"``; a bf16 sketch of 65,536 rows (R
+    bit-exact to the CPU's prng; resident codes against ``impl="ref"``
+    but at counted fields within 1e-5 of a bin edge; streamed bit-exact).
+11. Serving (``repro_torch.serve.AnnService``) at the main path's width
+    over the same engine: ``warmup(d)`` with ``autotune_warmup=True`` on
+    a fresh cache (must launch ``packed_lut_topk``); every op of
+    ``autotune.SWEEPS`` swept at the serving shapes with each candidate
+    held bit-identical to the default; the cache saved and loaded back;
+    8,192 tickets drawn from the 1,024 queries, flushed in batches of 1,
+    5, 8, 40, 64, 200, 256 and 300, count-ranked, scored f32 and
+    two-stage, every result bit-exact against a direct ``search``; a
+    mutable service over a 17-segment index (64 ``bulk_load`` calls of
+    the main path's corpus) with ``delete``, ``upsert``, ``add``,
+    ``bulk_load`` and ``compact`` between flushes, every result equal to
+    a direct search at its generation; ``classify`` with a model trained
+    by ``fit_store`` (50 steps, labels from a seeded teacher's margins),
+    margins bit-exact against ``model.margins``; kernelstats calls equal
+    to the launch counters over the phase; a deep ``Tracer`` syncing the
+    flush spans; the registry on against off. Printed: queries/s through
+    the service and direct, flush p50/p99 against the 0.050 s deadline,
+    cache hit rate, padding waste, classify rows/s, the sweep's seconds
+    and each winner against the default. TPU kernels 15-17 are also
+    timed at the main path's shapes in phase 2 (256 queries, tables
+    [256, 1,024], 4,194,304 rows, top_k 10, 10 % dead for the masked
+    one; 256 x 4,194,304 codes at k = 256 for the count kernel, beside
+    ``k - torch.cdist(q, db, p=0)``).
+12. A ``kernels`` JSON line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -219,6 +255,13 @@ KERNELS = {
     "packed_linear_bwd_masked": ("learn",
                                  "src/repro_torch/kernels/csrc/packed_linear.cu",
                                  "src/repro/kernels/packed_linear.py:273"),
+    "packed_lut_topk": ("serve", "src/repro_torch/kernels/csrc/lut_topk.cu",
+                        "src/repro/kernels/packed_lut.py:135"),
+    "packed_lut_topk_masked": ("serve",
+                               "src/repro_torch/kernels/csrc/lut_topk.cu",
+                               "src/repro/kernels/packed_lut.py:213"),
+    "collision_counts": ("serve", "src/repro_torch/kernels/csrc/collision.cu",
+                         "src/repro/kernels/collision.py:42"),
 }
 # path -> every kernel it must launch
 PATH_KERNELS = {
@@ -234,6 +277,12 @@ PATH_KERNELS = {
     "learn": ("code_pack", "normal_unit", "csr_unit_step", "pack_codes",
               "packed_linear_fwd", "packed_linear_fwd_masked",
               "packed_linear_bwd", "packed_linear_bwd_masked"),
+    "serve": ("encode_fused", "coded_project", "pack_codes", "code_pack",
+              "packed_topk", "packed_topk_masked", "fused_scored_topk",
+              "fused_scored_topk_masked", "packed_lut_rerank",
+              "packed_collision_counts", "packed_lut_topk",
+              "packed_lut_topk_masked", "collision_counts",
+              "packed_linear_fwd", "packed_linear_bwd"),
 }
 
 
@@ -892,6 +941,7 @@ def kernel_phase(crp, device) -> dict:
         f"bound_ms={b_ms:.4f} ({b_by}, {pipe})")
     scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word)
     masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word)
+    serve_kernel_phase(rows, crp, codes_q, wq, wdb, gen)
     del wdb
     torch.cuda.empty_cache()
     return rows
@@ -2376,6 +2426,629 @@ def learn_path(device, rows, profile: bool = False) -> tuple:
     return counts, rates
 
 
+def serve_checks(device) -> None:
+    """Small ragged shapes for TPU kernels 15-17 and the two repairs, each
+    kernel against its plain version, bit for bit: the LUT top-k kernels
+    over bits 1/2/4/8/16 x float32 and bf16 tables x N 0/1/31/33/3,000
+    (top_k above the live rows) x all, none, 10 % and 90 % of the rows
+    dead, and all rows tied; the count kernel on int32 codes of any value
+    at every tile size; top_k and rerank_m above 2048 in every top-k
+    kernel; the bf16 draw (whole units, all 128 uniforms) against the
+    CPU's prng; bf16 R through the GEMMs and bf16 z through code_pack."""
+    import torch
+    from repro_torch.core import packing, prng
+    from repro_torch.core.schemes import CodeSpec
+    from repro_torch.kernels import collision, ops, ref
+    gen = torch.Generator(device=device).manual_seed(16)
+
+    def words(n, k, bits):
+        return ref.pack_codes_ref(torch.randint(
+            0, 1 << bits, (n, k), generator=gen, device=device), bits)
+
+    def mask(n, dead):
+        return packing.pack_bitmask(
+            torch.rand((n,), generator=gen, device=device) >= dead)
+
+    def tables(nq, k, bits, dtype=torch.float32):
+        fp = packing.packed_width(k, bits) * (32 // bits) << bits
+        return torch.randn((nq, fp), generator=gen, device=device).to(dtype)
+
+    def check(name, got, want, *what):
+        if not same(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{what}")
+
+    t0 = time.perf_counter()
+    for bits in (1, 2, 4, 8, 16):
+        k = 17 if bits == 16 else 40
+        for dtype in (torch.float32, torch.bfloat16):
+            for nq, n, top_k in ((9, 3000, 10), (5, 33, 50), (3, 31, 7),
+                                 (2, 1, 3), (2, 0, 3)):
+                wdb, tab = words(n, k, bits), tables(nq, k, bits, dtype)
+                check("packed_lut_topk",
+                      ops.packed_lut_topk(tab, wdb, bits, top_k,
+                                          impl="kernel"),
+                      ref.packed_lut_topk_ref(tab, wdb, bits, top_k),
+                      bits, dtype, n, top_k)
+                for dead in (1.0, 0.0, 0.1, 0.9):
+                    vw = mask(n, dead)
+                    check("packed_lut_topk_masked",
+                          ops.packed_lut_topk_masked(tab, wdb, vw, bits,
+                                                     top_k, impl="kernel"),
+                          ref.packed_lut_topk_masked_ref(tab, wdb, vw, bits,
+                                                         top_k),
+                          bits, dtype, n, top_k, dead)
+    tab, wdb = torch.ones((2, 4 * 16 * 4), device=device), words(500, 64, 2)
+    got = ops.packed_lut_topk(tab, wdb, 2, 20, impl="kernel")
+    check("packed_lut_topk", got, ref.packed_lut_topk_ref(tab, wdb, 2, 20),
+          "all rows tied")
+    if got[1][0].tolist() != list(range(20)):
+        raise AssertionError("tied LUT scores did not go to the lowest ids")
+    vals = torch.tensor([-2, -1, 0, 1, 7, 2 ** 31 - 1, -2 ** 31],
+                        device=device, dtype=torch.int32)
+    for nq, n, k in ((37, 3001, 100), (1, 1, 1), (130, 257, 256), (3, 0, 5)):
+        cq = vals[torch.randint(0, 7, (nq, k), generator=gen, device=device)]
+        cdb = vals[torch.randint(0, 7, (n, k), generator=gen, device=device)]
+        want = ref.collision_counts_ref(cq, cdb)
+        for bq in collision.BLOCKS:
+            for bn in collision.BLOCKS:
+                check("collision_counts",
+                      ops.collision_counts(cq, cdb, impl="kernel",
+                                           block_q=bq, block_n=bn),
+                      want, nq, n, k, bq, bn)
+    log(f"small checks, TPU kernels 15-17: bit-exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # repair 1: top_k and rerank_m above 2048 (lists in device memory)
+    t0 = time.perf_counter()
+    bits, k, n, nq = 2, 64, 20000, 5
+    wq, wdb, vw = words(nq, k, bits), words(n, k, bits), mask(n, 0.1)
+    tab = tables(nq, k, bits)
+    check("packed_topk", ops.packed_topk(wq, wdb, bits, k, 2049,
+                                         impl="kernel"),
+          ref.packed_topk_ref(wq, wdb, bits, k, 2049), "top_k 2049")
+    check("packed_topk_masked",
+          ops.packed_topk_masked(wq, wdb, vw, bits, k, 4000, impl="kernel"),
+          ref.packed_topk_masked_ref(wq, wdb, vw, bits, k, 4000),
+          "top_k 4000")
+    for m, top_k in ((2052, 513), (5000, 2100)):
+        check("fused_scored_topk",
+              ops.fused_scored_topk(wq, tab, wdb, bits, k, m, top_k,
+                                    impl="kernel"),
+              ref.fused_scored_topk_ref(wq, tab, wdb, bits, k, m, top_k),
+              m, top_k)
+        check("fused_scored_topk_masked",
+              ops.fused_scored_topk_masked(wq, tab, wdb, vw, bits, k, m,
+                                           top_k, impl="kernel"),
+              ref.fused_scored_topk_masked_ref(wq, tab, wdb, vw, bits, k, m,
+                                               top_k), m, top_k)
+    check("packed_lut_topk", ops.packed_lut_topk(tab, wdb, bits, 2049,
+                                                 impl="kernel"),
+          ref.packed_lut_topk_ref(tab, wdb, bits, 2049), "top_k 2049")
+    cand = words(nq * 3000, k, bits).reshape(nq, 3000, -1)
+    cvalid = torch.rand((nq, 3000), generator=gen, device=device) > 0.2
+    check("packed_lut_rerank",
+          ops.packed_lut_rerank(tab, cand, cvalid, bits, 2500, impl="kernel"),
+          ref.packed_lut_rerank_ref(tab, cand, cvalid, bits, 2500),
+          "top_k 2500")
+    log(f"small checks, top_k and rerank_m above 2048: bit-exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # repair 2: bf16 sketches
+    t0 = time.perf_counter()
+    for seed, u, width, kk in ((0, 0, 4096, 256), (0, 789, 217, 256),
+                               (2 ** 31 + 5, 3, 1, 7)):
+        key = prng.fold_in(prng.PRNGKey(seed), u)
+        got = ops.normal_unit(key, width, kk, device, impl="kernel",
+                              dtype=torch.bfloat16)
+        want = prng.normal(key, (width, kk), dtype=torch.bfloat16)
+        if not torch.equal(got.cpu().view(torch.int16),
+                           want.view(torch.int16)):
+            raise AssertionError(f"bf16 draw of unit {u} [{width}, {kk}] "
+                                 f"differs from the CPU's prng")
+    m = (prng.random_bits(prng.fold_in(prng.PRNGKey(0), 0), (4096, 256))
+         >> 1) & 127
+    if torch.unique(m).numel() != 128:
+        raise AssertionError("the bf16 unit does not hold all 128 uniforms")
+    for scheme, w in (("2bit", 0.75), ("offset", 1.0), ("uniform", 0.75)):
+        spec = CodeSpec(scheme, w)
+        x = unit_rows(300, 96, gen, device)
+        r = torch.randn((96, 100), generator=gen, device=device).to(
+            torch.bfloat16)
+        q = (torch.rand((100,), generator=gen, device=device) * w).to(
+            torch.bfloat16) if scheme == "offset" else None
+        z = torch.matmul(x, r.float())
+        want = ref.coded_project_ref(x, r, spec, q)
+        qf = None if q is None else q.float()
+        check_codes(ops.coded_project(x, r, spec, q, impl="kernel"), want, z,
+                    spec, qf, f"coded_project bf16 R {scheme}")
+        check_codes(packing.unpack_codes(
+            ops.encode_fused(x, r, spec, q, impl="kernel"), spec.bits, 100),
+            want, z, spec, qf, f"encode_fused bf16 R {scheme}")
+        zb = (3.0 * torch.randn((777, 100), generator=gen,
+                                device=device)).to(torch.bfloat16)
+        check("code_pack", ops.code_pack(zb, spec, q, impl="kernel"),
+              ref.code_pack_ref(zb, spec, q), "bf16 z", scheme)
+    log(f"small checks, bf16 draw (all 128 uniforms, whole units) and bf16 "
+        f"GEMM/code_pack: bit-exact but at counted bin edges "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def serve_kernel_phase(rows, crp, codes_q, wq, wdb, gen) -> None:
+    """TPU kernels 15-17 at the main path's shapes, on the packed_topk
+    phase's queries and 4,194,304-row corpus: the LUT top-k with the
+    sketcher's float32 tables [256, 1,024] (and 10 % dead for the masked
+    one), and the unpacked count kernel on 256 x 4,194,304 codes at
+    k = 256 (yardstick ``k - torch.cdist(q, db, p=0)``, exact for
+    integer codes)."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, ref
+    from repro_torch.rank import build_rank_tables
+    bits, nq = crp.spec.bits, CHUNK_Q
+    w_words = packing.packed_width(K, bits)
+    fields = w_words * (32 // bits)
+    q_tab = build_rank_tables(crp).query_tables(codes_q)
+    fp = q_tab.shape[1]
+    live = torch.rand((N_ROWS,), generator=gen, device=wdb.device) >= 0.1
+    valid = packing.pack_bitmask(live)
+    n_live = int(live.sum())
+
+    def row(name, fn_kernel, fn_plain, want, b, shape, lib=None,
+            **extra):
+        t0 = time.perf_counter()
+        got = fn_kernel()
+        if not same(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+            raise AssertionError(f"{name} differs from its plain version")
+        del got, want
+        ms = time_ms(fn_kernel)
+        plain_ms = time_ms(fn_plain, reps=3, warmup=1)
+        lib_ms = None if lib is None else time_ms(lib, reps=3, warmup=1)
+        b_ms, b_by, pipe = b
+        rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe,
+                          library_ms=lib_ms, shape=shape, **extra)
+        lib_txt = "" if lib_ms is None else f" library_ms={lib_ms:.4f}"
+        log(f"kernel {name}: {shape} bit-exact ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f}{lib_txt} bound_ms={b_ms:.4f} ({b_by}, "
+            f"{pipe}); phase {time.perf_counter() - t0:.1f} s")
+
+    # the least work: one float add a (query, row, field); each field is
+    # decoded once for all queries, and the corpus and tables read once
+    row("packed_lut_topk",
+        lambda: ops.packed_lut_topk(q_tab, wdb, bits, TOP_K, impl="kernel"),
+        lambda: ref.packed_lut_topk_ref(q_tab, wdb, bits, TOP_K),
+        ref.packed_lut_topk_ref(q_tab, wdb, bits, TOP_K),
+        bound([("f32", float(nq) * N_ROWS * fields, F32_FLOP_S)],
+              4.0 * (N_ROWS * w_words + nq * fp + 2 * nq * TOP_K)),
+        [nq, N_ROWS, w_words, TOP_K])
+    row("packed_lut_topk_masked",
+        lambda: ops.packed_lut_topk_masked(q_tab, wdb, valid, bits, TOP_K,
+                                           impl="kernel"),
+        lambda: ref.packed_lut_topk_masked_ref(q_tab, wdb, valid, bits,
+                                               TOP_K),
+        ref.packed_lut_topk_masked_ref(q_tab, wdb, valid, bits, TOP_K),
+        bound([("f32", float(nq) * n_live * fields, F32_FLOP_S)],
+              4.0 * (N_ROWS * w_words + nq * fp + 2 * nq * TOP_K)
+              + N_ROWS / 8),
+        [nq, N_ROWS, w_words, TOP_K], live_rows=n_live)
+    torch.cuda.empty_cache()
+    cq = codes_q.to(torch.int32)
+    cdb = packing.unpack_codes(wdb, bits, K)
+    want = ref.collision_counts_ref(cq, cdb, block_elems=1 << 28)
+    cqf, cdbf = cq.float(), cdb.float()   # the yardstick's inputs, made once
+    lib_equal = bool(torch.equal(K - torch.cdist(cqf, cdbf, p=0),
+                                 want.float()))
+    if not lib_equal:
+        raise AssertionError("k - cdist(p=0) differs from the counts")
+    # one compare and one add a (query, row, position); codes read once,
+    # counts written once
+    row("collision_counts",
+        lambda: ops.collision_counts(cq, cdb, impl="kernel"),
+        lambda: ref.collision_counts_ref(cq, cdb, block_elems=1 << 28),
+        want,
+        bound([("int32", 2.0 * nq * N_ROWS * K, INT32_OP_S)],
+              4.0 * (nq * K + N_ROWS * K + nq * N_ROWS)),
+        [nq, N_ROWS, K], lib=lambda: K - torch.cdist(cqf, cdbf, p=0))
+    del cdb, cdbf, want
+    torch.cuda.empty_cache()
+
+
+def repair_path(engine, queries, device) -> dict:
+    """The two repairs at the main path's scale: 16 queries through the
+    engine after ``add`` (4,259,840 rows) with top_k and rerank_m above
+    2048, against the same engine on ``impl="ref"``; a bf16 sketch of
+    65,536 rows (D = 1,024) against ``impl="ref"`` under the bin-edge
+    rule, resident and streamed."""
+    import torch
+    from repro_torch.ann.engine import SearchConfig
+    from repro_torch.core import packing, prng
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.encode import StreamingEncoder
+    rates = {}
+    codes = engine.encode_queries(queries[:16])
+    for tag, kw in (("count-ranked top_k 2049", dict(top_k=2049)),
+                    ("scored fused top_k 513 (m 2052)",
+                     dict(top_k=513, scored=True)),
+                    ("two-stage m 2100", dict(top_k=TOP_K, rerank_m=2100,
+                                              scored=True, fused=False)),
+                    ("LSH scored m 2100", dict(top_k=TOP_K, rerank_m=2100,
+                                               scored=True, mode="lsh"))):
+        cfg = SearchConfig(chunk_q=16, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = engine.search_codes(codes, cfg)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = engine.search_codes(codes, SearchConfig(chunk_q=16,
+                                                       impl="ref", **kw))
+        if not same(got, want):
+            raise AssertionError(f"{tag}: the card differs from impl='ref'")
+        rates[tag] = ms
+        log(f"repair, {tag}: 16 queries over {engine.n} rows bit-exact "
+            f"against impl='ref' ({ms:.3f} ms on the card)")
+    gen = torch.Generator(device=device).manual_seed(CORPUS_SEED + 16)
+    crp = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,
+                                             seed=0, dtype="bfloat16"), D)
+    r = crp.stream_encoder().r_matrix()
+    if not torch.equal(r.cpu().view(torch.int16), prng.normal(
+            prng.fold_in(prng.PRNGKey(0), 0), (D, K),
+            dtype=torch.bfloat16).view(torch.int16)):
+        raise AssertionError("bf16 R differs from the CPU's prng")
+    x = unit_rows(CHUNK, D, gen, device)
+    z = torch.matmul(x, r.float())
+    want = packing.unpack_codes(crp.sketch(x, impl="ref"), 2, K)
+    got = packing.unpack_codes(crp.sketch(x), 2, K)
+    flips = check_codes(got, want, z, crp.spec, None, "bf16 sketch")
+    streamed = StreamingEncoder(crp, r_cap_elems=D * K - 1)
+    s_got = streamed.encode_packed(x)
+    if not torch.equal(s_got, streamed.encode_packed(x, impl="ref")):
+        raise AssertionError("streamed bf16 sketch differs from impl='ref'")
+    rates["bf16_edge_flips"] = flips
+    log(f"repair, bf16 sketch: {CHUNK} rows, R bit-exact to the CPU's prng; "
+        f"resident codes differ from impl='ref' in {flips}/{CHUNK * K} "
+        f"fields, each within {EDGE_TOL} of a bin edge; streamed (bf16 "
+        f"accumulation) bit-exact")
+    return rates
+
+
+SERVE_SEED = 2017
+SERVE_TICKETS = 8192
+SERVE_SIZES = (1, 5, 8, 40, 64, 200, 256, 300)
+
+
+def serve_phase(engine, queries, device, profile: bool = False) -> tuple:
+    """The serving front end (``repro_torch.serve.AnnService``) at the
+    main path's width, over the engine after ``add`` (4,259,840 rows) and
+    a 17-segment mutable index. Returns (launch counts, rates).
+    ``profile`` adds torch.profiler breakdowns of a 40-ticket and a
+    300-ticket count-ranked flush on a cold cache."""
+    import numpy as np
+    import torch
+    from repro_torch.ann import BandSpec
+    from repro_torch.core import packing
+    from repro_torch.index import CompactionPolicy, MutableAnnEngine
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.learn import (LearnConfig, PackedLinearModel,
+                                   feature_spec_for, fit_store)
+    from repro_torch.obs import MetricsRegistry, Tracer, kernelstats
+    from repro_torch.serve import AnnService, AnnServiceConfig
+    crp, bits = engine.sketcher, engine.sketcher.spec.bits
+    store = engine.store
+    rates = {}
+    rng = np.random.default_rng(SERVE_SEED)
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cache_path = os.path.join(ROOT, "build", "autotune-serve.json")
+    if os.path.exists(cache_path):
+        os.remove(cache_path)
+    prev_cache = autotune.set_cache(autotune.AutotuneCache(cache_path))
+    prev_stats = kernelstats.set_kernel_stats(kernelstats.KernelStats())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+    # 1. warm-up with the sweep, on a fresh cache
+    svc = AnnService(engine, AnnServiceConfig(autotune_warmup=True))
+    t0 = time.perf_counter()
+    svc.warmup(D)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    if ops.launch_counts()["packed_lut_topk"] == 0:
+        raise AssertionError("warmup(autotune_warmup=True) did not launch "
+                             "packed_lut_topk")
+    log(f"serve warmup: tune_search_ops and {len(svc.cfg.buckets)} buckets "
+        f"in {t_warm:.3f} s; cache entries {len(autotune.default_cache())}")
+
+    # 2. every swept op at the serving shapes; each candidate must give
+    # the default's bits
+    q_codes = engine.encode_queries(queries[:CHUNK_Q])
+    q_words = ops.pack_codes(q_codes, bits)
+    tables = engine.rank_tables.query_tables(q_codes)
+    db = store.words
+    n, w = db.shape
+    fp = tables.shape[1]
+    valid = packing.pack_bitmask(
+        torch.rand((n,), generator=gen, device=device) >= 0.1)
+    db_codes = packing.unpack_codes(db[:N_ROWS], bits, K)
+    z = torch.randn((2048, K), generator=gen, device=device)
+    runs = {
+        "pack_codes": (dict(m=CHUNK_Q, k=K), torch.int32,
+                       lambda c: ops.pack_codes(q_codes, bits, **c)),
+        "code_pack": (dict(m=2048, k=K), torch.float32,
+                      lambda c: ops.code_pack(z, crp.spec, crp._offsets,
+                                              **c)),
+        "collision_counts": (dict(q=CHUNK_Q, n=N_ROWS), torch.int32,
+                             lambda c: ops.collision_counts(q_codes,
+                                                            db_codes, **c)),
+        "packed_collision_counts": (
+            dict(q=CHUNK_Q, n=n, w=w), torch.int32,
+            lambda c: ops.packed_collision_counts(q_words, db, bits, K,
+                                                  **c)),
+        "packed_topk": (dict(q=CHUNK_Q, n=n, w=w, top_k=TOP_K), torch.int32,
+                        lambda c: ops.packed_topk(q_words, db, bits, K,
+                                                  TOP_K, **c)),
+        "packed_topk_masked": (
+            dict(q=CHUNK_Q, n=n, w=w, top_k=TOP_K), torch.int32,
+            lambda c: ops.packed_topk_masked(q_words, db, valid, bits, K,
+                                             TOP_K, **c)),
+        "packed_lut_topk": (
+            dict(q=CHUNK_Q, n=n, w=w, t=fp, top_k=TOP_K), tables.dtype,
+            lambda c: ops.packed_lut_topk(tables, db, bits, TOP_K, **c)),
+        "packed_lut_topk_masked": (
+            dict(q=CHUNK_Q, n=n, w=w, t=fp, top_k=TOP_K), tables.dtype,
+            lambda c: ops.packed_lut_topk_masked(tables, db, valid, bits,
+                                                 TOP_K, **c)),
+        "fused_scored_topk": (
+            dict(q=CHUNK_Q, n=n, w=w, t=fp, top_k=TOP_K), tables.dtype,
+            lambda c: ops.fused_scored_topk(q_words, tables, db, bits, K,
+                                            RERANK_M, TOP_K, **c)),
+        "fused_scored_topk_masked": (
+            dict(q=CHUNK_Q, n=n, w=w, t=fp, top_k=TOP_K), tables.dtype,
+            lambda c: ops.fused_scored_topk_masked(
+                q_words, tables, db, valid, bits, K, RERANK_M, TOP_K, **c)),
+    }
+    if set(runs) != set(autotune.SWEEPS):
+        raise AssertionError("the serving sweep misses an op of SWEEPS")
+    t_sweep = time.perf_counter()
+    sweep = {}
+    for op, (dims, dtype, run) in runs.items():
+        serving_cache = autotune.set_cache(autotune.AutotuneCache())
+        base = run({})                 # the kernel's defaults: empty cache
+        base = base if isinstance(base, tuple) else (base,)
+        default_ms = time_ms(lambda: run({}), reps=3, warmup=0)
+        autotune.set_cache(serving_cache)
+        times = {}
+
+        def measure(run_, config, op=op, base=base, times=times):
+            out = run_(config)
+            if not same(out if isinstance(out, tuple) else (out,), base):
+                raise AssertionError(f"{op} at {config} differs from its "
+                                     f"default config")
+            del out
+            times[json.dumps(config, sort_keys=True)] = t = time_ms(
+                lambda: run_(config), reps=3, warmup=0)
+            return t
+
+        best = autotune.tune(op, run, dtype, dims, measure=measure)
+        del base
+        sweep[op] = dict(winner=best, ms=min(times.values()),
+                         default_ms=default_ms, candidates=len(times))
+        log(f"serve sweep {op}: {len(times)} candidates bit-identical to the "
+            f"default; winner {best} {sweep[op]['ms']:.4f} ms against the "
+            f"default's {default_ms:.4f} ms")
+    del db_codes
+    torch.cuda.empty_cache()
+    rates["sweep_s"] = time.perf_counter() - t_sweep
+    rates["sweep"] = sweep
+    saved = autotune.default_cache()
+    path = saved.save()
+    loaded = autotune.AutotuneCache(path)
+    if loaded._configs != saved._configs:
+        raise AssertionError("the autotune cache did not survive its JSON")
+    autotune.set_cache(loaded)
+    log(f"serve sweep: {rates['sweep_s']:.1f} s; cache of {len(loaded)} "
+        f"entries saved to {os.path.relpath(path, ROOT)} and loaded back")
+
+    # 3. traffic: tickets drawn from the 1,024 queries, flushed in batches
+    # of every size; every result against a direct search
+    def drive(svc, picks, want, flush_s):
+        ids_w, rho_w = want
+        pos, i = 0, 0
+        while pos < len(picks):
+            batch = picks[pos:pos + SERVE_SIZES[i % len(SERVE_SIZES)]]
+            pos, i = pos + len(batch), i + 1
+            tickets = [svc.submit(queries[j]) for j in batch]
+            t0 = time.perf_counter()
+            res = svc.flush()
+            flush_s.append(time.perf_counter() - t0)
+            got_i = np.stack([res[t][0] for t in tickets])
+            got_r = np.stack([res[t][1] for t in tickets])
+            if not (np.array_equal(got_i, ids_w[batch])
+                    and np.array_equal(got_r.view(np.int32),
+                                       rho_w[batch].view(np.int32))):
+                raise AssertionError("a flushed result differs from the "
+                                     "direct search")
+
+    def direct(eng, kw):
+        out = eng.search(queries, top_k=TOP_K, chunk_q=CHUNK_Q, **kw)
+        return out[0].cpu().numpy(), out[1].cpu().numpy()
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p))
+
+    picks = rng.integers(0, N_QUERIES, SERVE_TICKETS)
+    modes = {"count": {}, "scored_f32": dict(scored=True, table_dtype="f32"),
+             "two_stage": dict(scored=True, fused=False)}
+    for name, kw in modes.items():
+        want = direct(engine, kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct(engine, kw)
+        t_direct = time.perf_counter() - t0
+        msvc = svc if name == "count" else AnnService(
+            engine, AnnServiceConfig(**kw))
+        flush_s = []
+        t0 = time.perf_counter()
+        drive(msvc, picks, want, flush_s)
+        t_svc = time.perf_counter() - t0
+        st = msvc.stats
+        hit = st["cache_hits"] / st["queries"]
+        waste = st["padded_rows"] / (st["padded_rows"] + st["cache_misses"])
+        rates[f"serve_{name}"] = dict(
+            queries_s=len(picks) / t_svc, direct_queries_s=N_QUERIES / t_direct,
+            flush_p50_ms=1e3 * pct(flush_s, 50),
+            flush_p99_ms=1e3 * pct(flush_s, 99),
+            over_deadline=sum(s > 0.050 for s in flush_s) / len(flush_s),
+            hit_rate=hit, padding_waste=waste, flushes=len(flush_s))
+        log(f"serve {name}: {len(picks)} tickets in {len(flush_s)} flushes, "
+            f"every result bit-exact against a direct search; "
+            f"{len(picks) / t_svc:.1f} queries/s through the service against "
+            f"{N_QUERIES / t_direct:.1f} direct; flush p50 "
+            f"{1e3 * pct(flush_s, 50):.3f} ms p99 {1e3 * pct(flush_s, 99):.3f} "
+            f"ms against deadline_s 0.050 ({100 * rates[f'serve_{name}']['over_deadline']:.1f} "
+            f"% over); cache hit rate {hit:.4f}; padding waste {waste:.4f}")
+    if profile:
+        for size in (40, 300):
+            psvc = AnnService(engine, AnnServiceConfig())
+
+            def flush(psvc=psvc, size=size):
+                for j in picks[:size]:
+                    psvc.submit(queries[j])
+                psvc.flush()
+            profile_window(f"serve flush of {size} tickets, cold cache",
+                           flush)
+
+    # 4. the mutable service: bulk_load, then mutations between flushes
+    mut = MutableAnnEngine(crp, band_spec=BandSpec(16, 4),
+                           tail_rows=TAIL_ROWS)
+    msvc = AnnService(mut, AnnServiceConfig())
+    cgen = torch.Generator(device=device).manual_seed(CORPUS_SEED)
+    t0 = time.perf_counter()
+    for _ in range(N_ROWS // CHUNK):
+        msvc.bulk_load(corpus_chunk(cgen, device)[0], chunk_rows=CHUNK)
+    torch.cuda.synchronize()
+    log(f"serve bulk_load: {N_ROWS} rows in {time.perf_counter() - t0:.3f} s")
+    msvc.warmup(D)
+    mpicks = rng.integers(0, N_QUERIES, 1024)
+    flush_m = []
+    steps = [
+        ("delete", lambda: msvc.delete(rng.choice(N_ROWS, N_DELETE,
+                                                  replace=False))),
+        ("upsert", lambda: msvc.upsert(
+            rng.choice(mut.store.live_ids(), N_UPSERT, replace=False),
+            unit_rows(N_UPSERT, D, gen, device))),
+        ("add", lambda: msvc.add(unit_rows(CHUNK, D, gen, device))),
+        ("bulk_load", lambda: msvc.bulk_load(unit_rows(CHUNK, D, gen,
+                                                       device))),
+        ("compact", lambda: msvc.compact(CompactionPolicy(
+            target_rows=1_048_576, max_dead_fraction=0.05))),
+    ]
+    segs = []
+    for what, mutate in [("ingest", None)] + steps:
+        if mutate is not None:
+            t0 = time.perf_counter()
+            mutate()
+            torch.cuda.synchronize()
+            log(f"serve {what}: {1e3 * (time.perf_counter() - t0):.3f} ms, "
+                f"{mut.store.n_segments} segments, generation "
+                f"{mut.generation}")
+        segs.append(mut.store.n_segments)
+        drive(msvc, mpicks, direct(mut, {}), flush_m)
+    inval = msvc.stats["cache_invalidations"]
+    if inval != len(steps) or segs[0] != N_ROWS // TAIL_ROWS + 1:
+        raise AssertionError(f"mutable service: {inval} invalidations, "
+                             f"segments {segs}")
+    rates["serve_mutable"] = dict(
+        flush_p50_ms=1e3 * pct(flush_m, 50),
+        flush_p99_ms=1e3 * pct(flush_m, 99), invalidations=inval,
+        segments=segs)
+    log(f"serve mutable: {len(steps) + 1} rounds of 1,024 tickets, every "
+        f"result bit-exact against a direct search at its generation (no "
+        f"stale hit; {inval} cache invalidations); segments {segs}")
+    del mut, msvc
+    torch.cuda.empty_cache()
+
+    # 5. classify with a model trained by fit_store on the main store,
+    # labels from a seeded teacher's margins
+    fspec = feature_spec_for(crp)
+    teacher = PackedLinearModel.zeros(fspec, device=device)
+    teacher.tables.normal_(generator=gen)
+    y = torch.where(teacher.margins(store.words)[0] >= 0, 1, -1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = fit_store(store, y, crp, LearnConfig(steps=50))
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    svc.set_classifier(model)
+    svc.classify(queries[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, margins = svc.classify(queries)
+    t_cls = time.perf_counter() - t0
+    m_want = model.margins(ops.pack_codes(engine.encode_queries(queries),
+                                          bits))
+    if not (np.array_equal(margins.view(np.int32),
+                           m_want.cpu().numpy().view(np.int32))
+            and np.array_equal(labels, model.predict_from_margins(
+                m_want).cpu().numpy())):
+        raise AssertionError("classify differs from model.margins")
+    acc = float((torch.from_numpy(labels).to(device) == torch.where(
+        teacher.margins(ops.pack_codes(engine.encode_queries(queries),
+                                       bits))[0] >= 0, 1, -1)).float().mean())
+    rates["classify_rows_s"] = N_QUERIES / t_cls
+    log(f"serve classify: fit_store 50 steps over {store.n} rows in "
+        f"{t_fit:.3f} s; {N_QUERIES} rows in {1e3 * t_cls:.3f} ms = "
+        f"{N_QUERIES / t_cls:.1f} rows/s, margins bit-exact against "
+        f"model.margins; agreement with the teacher {acc:.4f}")
+
+    # 6. kernel stats against the launch counters over the phase
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    stats = kernelstats.get_kernel_stats().snapshot()
+    off = {f: (stats.get(f, {}).get("calls", 0), c) for f, c in counts.items()
+           if stats.get(f, {}).get("calls", 0) != c}
+    if off:
+        raise AssertionError(f"kernelstats calls != launches: {off}")
+    require_launched(counts, "serve")
+    log(f"serve kernelstats: calls equal launches for every family; launch "
+        f"counts {json.dumps(counts)}")
+    kernelstats.set_kernel_stats(prev_stats)
+
+    # 7. a deep tracer syncs the flush spans; the dump loads as JSON
+    with Tracer() as tr:
+        for j in range(8):
+            svc.submit(queries[j])
+        svc.flush()
+    flush_spans = [e for e in tr.events if e["name"] == "serve.flush"]
+    if not flush_spans or any(e["args"]["sync"] != "device"
+                              for e in flush_spans):
+        raise AssertionError("a flush span under a deep tracer is not synced")
+    trace_path = tr.dump(os.path.join(ROOT, "build", "trace-serve.json"))
+    with open(trace_path) as f:
+        n_ev = len(json.load(f)["traceEvents"])
+    os.remove(trace_path)
+    log(f"serve trace: {n_ev} spans under a deep tracer, flush synced; the "
+        f"dump loads as JSON")
+
+    # 8. the registry's cost: the same traffic, registry on and off
+    qps = {"on": [], "off": []}
+    for state in ("on", "off", "off", "on"):
+        reg = MetricsRegistry(enabled=state == "on")
+        osvc = AnnService(engine, AnnServiceConfig(), registry=reg)
+        sub = picks[:2048]
+        t0 = time.perf_counter()
+        drive(osvc, sub, direct(engine, {}), [])
+        qps[state].append(len(sub) / (time.perf_counter() - t0))
+    rates["registry_on_queries_s"] = qps["on"]
+    rates["registry_off_queries_s"] = qps["off"]
+    log(f"serve registry: queries/s enabled {qps['on']} against disabled "
+        f"{qps['off']} (order on, off, off, on)")
+    autotune.set_cache(prev_cache)
+    return counts, rates
+
+
 def profile_main_path(engine, queries, device) -> None:
     """``--profile``: device time by kernel for 8 ``sketch`` calls, each
     on a 65,536-row chunk made beforehand and each followed by a
@@ -2472,8 +3145,11 @@ def main(argv) -> int:
     encode_checks(device)
     t1 = time.perf_counter()
     linear_checks(device)
+    t2 = time.perf_counter()
+    serve_checks(device)
     log(f"phase small checks: {time.perf_counter() - t0:.1f} s (packed "
-        f"linear {time.perf_counter() - t1:.1f} s)")
+        f"linear {t2 - t1:.1f} s, serving slice "
+        f"{time.perf_counter() - t2:.1f} s)")
     if "--check" in argv:
         log("check mode: stopping after the small-shape kernel checks")
         return 0
@@ -2510,6 +3186,15 @@ def main(argv) -> int:
         engine, state, device, profile="--profile" in argv)
     log(f"mutable path: {json.dumps(rates_mutable)}")
     log(f"phase mutable path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rates_repair = repair_path(engine, state["queries"], device)
+    log(f"repairs: {json.dumps(rates_repair)}")
+    log(f"phase repairs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_serve, rates_serve = serve_phase(engine, state["queries"], device,
+                                            profile="--profile" in argv)
+    log(f"serve path: {json.dumps(rates_serve)}")
+    log(f"phase serve path: {time.perf_counter() - t0:.1f} s")
     del engine, queries, state
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2532,7 +3217,7 @@ def main(argv) -> int:
     log(f"phase learn path: {time.perf_counter() - t0:.1f} s")
     path_counts = {"main": counts, "scored": counts_scored,
                    "mutable": counts_mutable, "url": counts_url,
-                   "learn": counts_learn}
+                   "learn": counts_learn, "serve": counts_serve}
     kernels = []
     for name, (path, src, rep) in KERNELS.items():
         row = dict(name=name, route="cuda", source=src, replaces=rep,

@@ -18,9 +18,16 @@ search) takes the two-stage path: coarse top-m by count, then the LUT
 re-rank kernel over the gathered candidates. Count-ranked rho_hat
 comes from the paper's collision estimator. The sharded search is a
 later slice and raises ``NotImplementedError`` naming its ROADMAP item.
+
+Under a deep ``obs.Tracer`` every chunk runs under device-synced spans
+(``search.chunk``, ``search.fused``, or ``search.coarse`` then
+``search.rerank`` for two-stage scored search); otherwise one
+submission-timed ``search.chunks`` span covers the call. Each search
+appends an ``ann.search`` flight event.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
 
 import torch
@@ -32,6 +39,7 @@ from repro_torch.core import packing as _packing
 from repro_torch.core.sketch import CodedRandomProjection
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
+from repro_torch.obs import default_flight_recorder, deep_tracing_active, span
 from repro_torch.rank.tables import RankTables, build_rank_tables
 
 __all__ = ["SearchConfig", "AnnEngine", "QueryCoder", "merge_topk",
@@ -295,7 +303,9 @@ class AnnEngine:
                              "path (scored=True, fused=True, mode='exact')")
 
     def search_codes(self, q_codes: torch.Tensor, cfg: SearchConfig):
-        """Search pre-encoded queries [Q, k] in chunks of ``cfg.chunk_q``."""
+        """Search pre-encoded queries [Q, k] in chunks of ``cfg.chunk_q``
+        (under spans and with an ``ann.search`` flight event, as the
+        module docstring says)."""
         self._check(cfg)
         q = q_codes.shape[0]
         dev = self.store.words.device
@@ -304,8 +314,44 @@ class AnnEngine:
                                device=dev),
                     torch.full((q, cfg.top_k), -1.0, dtype=torch.float32,
                                device=dev))
-        body = self._exact_chunk if cfg.mode == "exact" else self._lsh_chunk
-        return run_chunked(q_codes, cfg, lambda chunk, c: body(chunk, cfg=c))
+        t0 = time.perf_counter()
+        deep = deep_tracing_active()
+        if deep:
+            out = run_chunked(q_codes, cfg, self._traced_chunk)
+        else:
+            body = (self._exact_chunk if cfg.mode == "exact"
+                    else self._lsh_chunk)
+            with span("search.chunks", sync=False, mode=cfg.mode, q=int(q),
+                      scored=cfg.scored):
+                out = run_chunked(q_codes, cfg,
+                                  lambda chunk, c: body(chunk, cfg=c))
+        default_flight_recorder().record(
+            "ann.search", t0, time.perf_counter(), batch=int(q),
+            outcome=cfg.mode, synced=deep)
+        return out
+
+    def _traced_chunk(self, chunk: torch.Tensor, cfg: SearchConfig):
+        """One chunk under device-synced spans (deep tracer installed):
+        ``search.chunk`` count-ranked, ``search.fused`` fused scored,
+        ``search.coarse`` then ``search.rerank`` two-stage scored."""
+        if not cfg.scored:
+            body = (self._exact_chunk if cfg.mode == "exact"
+                    else self._lsh_chunk)
+            with span("search.chunk", mode=cfg.mode,
+                      q=int(chunk.shape[0])) as sp:
+                return sp.sync(body(chunk, cfg=cfg))
+        if cfg.use_fused():
+            with span("search.fused", mode=cfg.mode, q=int(chunk.shape[0]),
+                      m=cfg.resolve_m(self.store.n),
+                      top_k=cfg.top_k) as sp:
+                return sp.sync(self._fused_chunk(chunk, cfg=cfg))
+        coarse = (self._exact_coarse if cfg.mode == "exact"
+                  else self._lsh_coarse)
+        with span("search.coarse", mode=cfg.mode, q=int(chunk.shape[0]),
+                  m=cfg.resolve_m(self.store.n)) as sp:
+            _, cand_ids = sp.sync(coarse(chunk, cfg=cfg))
+        with span("search.rerank", top_k=cfg.top_k) as sp:
+            return sp.sync(self._rerank(chunk, cand_ids, cfg))
 
     def search_sharded(self, *args, **kwargs):
         """Row-sharded search across devices: not yet ported."""

@@ -14,7 +14,13 @@ off:
 * ``uniform`` puts the top 23 bits into the mantissa of a float in
   [1, 2) and shifts it to the range;
 * ``normal`` is ``sqrt(2) * erfinv(max(lo, 2f + lo))`` with
-  ``lo = nextafter(-1, 0)``.
+  ``lo = nextafter(-1, 0)``;
+* ``normal(..., dtype=torch.bfloat16)`` follows JAX's bf16 draw: its
+  uniform takes one of 128 values from bits 1-7 of the same 32-bit bits
+  (f = m/128, u = max(lo, 2f + lo) with lo = -255/256, exact in bf16),
+  then erfinv in float32 rounded to bf16, times bf16(sqrt 2) rounded to
+  bf16 (``bf16_normal_of_index``). Held to ``jax.random.normal(key,
+  shape, bfloat16)`` bit for bit (``tests/test_torch_serve.py``).
 
 The f32 ``erfinv`` is XLA's CPU lowering, term for term: Giles'
 polynomial in ``w = -log1p(-x^2)`` with fused multiply-adds, where
@@ -39,7 +45,8 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "normal", "normal_from_bits", "erfinv_xla", "log2_xla"]
+           "normal", "normal_from_bits", "bf16_normal_of_index",
+           "erfinv_xla", "log2_xla"]
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -101,9 +108,20 @@ def _f32(v, like: torch.Tensor = None) -> torch.Tensor:
                         device=None if like is None else like.device)
 
 
-def uniform(key: tuple, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """float32 in [minval, maxval), as ``jax.random.uniform``."""
+def uniform(key: tuple, shape, minval: float = 0.0, maxval: float = 1.0,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """float32 or bf16 in [minval, maxval), as ``jax.random.uniform``
+    (bf16: f = m/128 from bits 1-7, the bounds and their span rounded to
+    bf16, f * span + lo rounded once to bf16; exact for the draw's and
+    the offsets' bounds)."""
+    if dtype == torch.bfloat16:
+        bf = torch.bfloat16
+        lo = torch.tensor(minval, dtype=bf).float()
+        span = (torch.tensor(maxval, dtype=bf).float() - lo).to(bf).float()
+        f = ((random_bits(key, shape) >> 1) & 127).to(torch.float32) / 128
+        return torch.maximum(lo, (f * span + lo).to(bf).float()).to(bf)
+    if dtype != torch.float32:
+        raise ValueError(f"uniform draws float32 or bfloat16, got {dtype}")
     lo, hi = _f32(minval), _f32(maxval)
     f = _unit_floats(random_bits(key, shape))
     # XLA contracts f * (hi - lo) + lo into one fused multiply-add
@@ -205,7 +223,25 @@ def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return _f32(np.sqrt(2.0), bits) * erfinv_xla(u)
 
 
-def normal(key: tuple, shape, device=None) -> torch.Tensor:
-    """Standard normal float32 draws on ``device`` (the CPU by default),
-    as ``jax.random.normal``."""
-    return normal_from_bits(random_bits(key, shape, device))
+def bf16_normal_of_index(m: torch.Tensor) -> torch.Tensor:
+    """The bf16 standard normal of JAX's bf16 draw for uniform index
+    ``m`` in [0, 128) (any integer tensor): u = m/64 - 255/256 (exact in
+    bf16), erfinv in float32 rounded to bf16, times bf16(sqrt 2), the
+    exact float32 product rounded to bf16."""
+    u = m.to(torch.float32) / 64.0 - 255.0 / 256.0
+    e = erfinv_xla(u).to(torch.bfloat16).to(torch.float32)
+    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=torch.bfloat16,
+                         device=m.device).to(torch.float32)
+    return (e * sqrt2).to(torch.bfloat16)
+
+
+def normal(key: tuple, shape, device=None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard normal draws in ``dtype`` (float32 or bf16) on ``device``
+    (the CPU by default), as ``jax.random.normal``."""
+    bits = random_bits(key, shape, device)
+    if dtype == torch.bfloat16:
+        return bf16_normal_of_index((bits >> 1) & 127)
+    if dtype != torch.float32:
+        raise ValueError(f"normal draws float32 or bfloat16, got {dtype}")
+    return normal_from_bits(bits)

@@ -80,6 +80,9 @@ def encode(x: torch.Tensor, spec: CodeSpec, q=None) -> torch.Tensor:
     raise ValueError(f"unknown scheme {spec.scheme!r}")
 
 
-def sample_offsets(key: tuple, k: int, w: float) -> torch.Tensor:
-    """q_j ~ Uniform(0, w), one per projection (CPU float32 [k])."""
-    return prng.uniform(key, (k,), 0.0, w)
+def sample_offsets(key: tuple, k: int, w: float,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """q_j ~ Uniform(0, w), one per projection (CPU [k] in ``dtype``,
+    float32 or bf16, as the reference draws them in the sketch's
+    dtype)."""
+    return prng.uniform(key, (k,), 0.0, w, dtype=dtype)

@@ -7,11 +7,19 @@ Counterpart of ``repro/core/sketch.py:46-207``:
              --(bit packing)-->              words [n, ceil(k*b/32)]
 
 R is canonical: unit u (rows u*r_unit .. u*r_unit + width) is
-``normal(fold_in(PRNGKey(seed), u), (width, k))``, bit-identical to the
-JAX reference. Units are drawn on the sketcher's device: by the CUDA
+``normal(fold_in(PRNGKey(seed), u), (width, k))`` in the config's dtype
+(float32 or bfloat16), bit-identical to the JAX reference. Units are drawn on the sketcher's device: by the CUDA
 kernel ``kernels/csrc/normal_unit.cu`` on the card, by ``core.prng``'s
 plain version on the CPU. Below the residency cap the streaming encoder
 caches the whole R; above it every unit is drawn again where it is used.
+
+A bf16 sketch (``SketchConfig(dtype="bfloat16")``) draws R and the
+offsets in bf16 and streams dense projections in bf16 as the
+reference's ``project`` does: each unit's product x_u @ R_u of the
+bf16-rounded rows, accumulated in float32 and rounded once to bf16, is
+added to the bf16 accumulator with one more rounding. Codes then differ
+from the reference's only where a projection lies within bf16 rounding
+of a bin edge.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ __all__ = ["SketchConfig", "CodedRandomProjection", "OFFSET_KEY_TAG"]
 # unit keys take fold_in(key, u) for u < n_units < 2^32 - 1; the offset
 # vector draws from fold_in(key, 2^32 - 1), disjoint from every unit
 OFFSET_KEY_TAG = 2 ** 32 - 1
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -58,8 +67,9 @@ class CodedRandomProjection:
     (``cuda`` unless ``device`` names another)."""
 
     def __init__(self, cfg: SketchConfig, d: int, device=None):
-        if cfg.dtype != "float32":
-            raise NotImplementedError("the port draws R in float32 only")
+        if cfg.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
+                             f"{cfg.dtype!r}")
         if cfg.r_unit <= 0:
             raise ValueError(f"r_unit must be positive, got {cfg.r_unit}")
         self.cfg = cfg
@@ -69,11 +79,12 @@ class CodedRandomProjection:
             raise ValueError(f"D={d} needs {self.n_units} projection units; "
                              f"key domain holds < {OFFSET_KEY_TAG}")
         self.spec = cfg.code_spec
+        self.dtype = _DTYPES[cfg.dtype]
         self._key = prng.PRNGKey(cfg.seed)
         self._offsets = None
         if cfg.scheme == "offset":
             self._offsets = _schemes.sample_offsets(
-                self.offset_key(), cfg.k, cfg.w).to(self.device)
+                self.offset_key(), cfg.k, cfg.w, self.dtype).to(self.device)
         self._estimator = CollisionEstimator(cfg.scheme, cfg.w)
         self._stream_encoder = None
 
@@ -92,10 +103,12 @@ class CodedRandomProjection:
         return prng.fold_in(self._key, OFFSET_KEY_TAG)
 
     def _block_r(self, u: int, width: int, impl: str = "auto") -> torch.Tensor:
-        """Gaussian unit R[u*r_unit : u*r_unit + width, :k], float32 on the
-        sketcher's device: the only generator of projection entries."""
+        """Gaussian unit R[u*r_unit : u*r_unit + width, :k] in the
+        config's dtype on the sketcher's device: the only generator of
+        projection entries."""
         return _ops.normal_unit(prng.fold_in(self._key, u), width,
-                                self.cfg.k, self.device, impl=impl)
+                                self.cfg.k, self.device, impl=impl,
+                                dtype=self.dtype)
 
     def as_input(self, x) -> torch.Tensor:
         """Dense rows (tensor or array) as float32 on the sketcher's device
@@ -111,20 +124,26 @@ class CodedRandomProjection:
             raise ValueError(f"x {tuple(x.shape)} != [n, {self.d}]")
 
     def project(self, x, impl: str = "auto") -> torch.Tensor:
-        """Dense x [n, D] -> [n, k] float32, streamed unit by unit in order
-        (acc += x_u @ R_u for u = 0, 1, ...; R is never built). A host
-        array (numpy, memmap) is sliced on the host and sent one unit
-        slab at a time, so device memory stays O(n * r_unit + n * k); a
-        tensor is sliced where it lies."""
+        """Dense x [n, D] -> [n, k] in the config's dtype, streamed unit by
+        unit in order (acc += x_u @ R_u for u = 0, 1, ...; R is never
+        built; bf16 as the module docstring says). A host array (numpy,
+        memmap) is sliced on the host and sent one unit slab at a time,
+        so device memory stays O(n * r_unit + n * k); a tensor is sliced
+        where it lies."""
         self._check_dense(x)
         ru = self.cfg.r_unit
-        acc = torch.zeros((x.shape[0], self.cfg.k), dtype=torch.float32,
+        acc = torch.zeros((x.shape[0], self.cfg.k), dtype=self.dtype,
                           device=self.device)
         for u in range(self.n_units):
             r = self._block_r(u, self.unit_width(u), impl=impl)
             xu = torch.as_tensor(x[:, u * ru:u * ru + r.shape[0]],
                                  device=self.device)
-            acc += xu.to(torch.float32) @ r
+            if self.dtype == torch.float32:
+                acc += xu.to(torch.float32) @ r
+            else:
+                xr = xu.to(self.dtype).float() @ r.float()
+                acc = (acc.float() + xr.to(self.dtype).float()).to(
+                    self.dtype)
         return acc
 
     # -- coding -------------------------------------------------------------

@@ -9,11 +9,14 @@ Counterpart of ``repro/encode/encoder.py:52-174``, in three regimes:
 * Matrix-free (above the cap; the paper's URL width, where R would be
   3.3 GB): dense batches stream over D unit by unit, each unit drawn on
   the device where it is used (``CodedRandomProjection.project``), into
-  one [n, k] float32 accumulator.
+  one [n, k] accumulator in the sketch's dtype.
 * CSR (``encode.CsrMatrix``, at any D): the chunk's arrays go to the
   device once; for each occupied unit, in ascending order, the unit is
   drawn and the CSR step kernel adds each row's products in CSR order.
-  Units no entry touches are skipped.
+  Units no entry touches are skipped. The accumulator is float32 for a
+  bf16 sketch too, with each bf16 unit widened exactly: the reference's
+  first step promotes its bf16 zeros to float32 (``acc + segment_sum``
+  of float32 products).
 
 The streamed and CSR regimes finalize with the code-and-pack kernel
 (``ops.code_pack``). They sum in the unit order of the ``core.sketch``
@@ -71,8 +74,9 @@ class StreamingEncoder:
         return s.cfg.r_unit * s.cfg.k
 
     def r_matrix(self) -> torch.Tensor:
-        """R [D, k] float32 on the sketcher's device, cached; raises above
-        the residency cap, where the point is never to build it."""
+        """R [D, k] in the sketch's dtype on the sketcher's device,
+        cached; raises above the residency cap, where the point is never
+        to build it."""
         s = self.sketcher
         if not self.r_resident:
             raise ValueError(
@@ -86,8 +90,9 @@ class StreamingEncoder:
 
     # -- streaming -----------------------------------------------------------
     def project(self, x, impl: str = "auto") -> torch.Tensor:
-        """Streaming projection x -> z [n, k] float32 without building R:
-        dense rows unit by unit, CSR rows over their nonzeros only.
+        """Streaming projection x -> z [n, k] without building R (in the
+        sketch's dtype for dense rows, float32 for CSR rows): dense rows
+        unit by unit, CSR rows over their nonzeros only.
         ``impl`` selects the kernels or the plain versions of the draw
         and of the CSR step."""
         s = self.sketcher
@@ -107,9 +112,9 @@ class StreamingEncoder:
         data = torch.as_tensor(np.asarray(x.data, np.float32),
                                device=s.device)
         for u in _occupied_units(indices, ru, s.n_units):
+            r = s._block_r(u, s.unit_width(u), impl=impl)
             _ops.csr_unit_step(acc, indptr, indices, data,
-                               s._block_r(u, s.unit_width(u), impl=impl),
-                               u * ru, impl=impl)
+                               r.to(torch.float32), u * ru, impl=impl)
         return acc
 
     # -- encoding ------------------------------------------------------------

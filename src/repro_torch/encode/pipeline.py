@@ -12,9 +12,16 @@ chunk; read it back after ``ingest``). The reference pads each chunk to
 a power of two to bound its jit compiles; the port compiles nothing and
 does not pad. The data-parallel ``encode_sharded`` is ROADMAP queue A
 item 4 and is not ported.
+
+Observability, under the reference's names: counters ``encode.rows``,
+``encode.chunks`` and ``encode.packed_bytes`` and the ``encode.chunk_s``
+histogram in the pipeline's registry (its own unless one is injected;
+``stats`` reads the counters), ``encode.ingest`` and ``encode.chunk``
+spans, and an ``encode.ingest`` flight event a call.
 """
 from __future__ import annotations
 
+import time
 from types import MappingProxyType
 
 import numpy as np
@@ -22,6 +29,8 @@ import torch
 
 from repro_torch.encode.encoder import StreamingEncoder
 from repro_torch.encode.sparse import CsrMatrix
+from repro_torch.obs import (MetricsRegistry, deep_tracing_active,
+                             default_flight_recorder, span)
 
 __all__ = ["IngestPipeline"]
 
@@ -31,19 +40,27 @@ class IngestPipeline:
     counts rows, chunks and packed bytes across calls."""
 
     def __init__(self, encoder: StreamingEncoder, store, *,
-                 chunk_rows: int = 2048, impl: str = "auto"):
+                 chunk_rows: int = 2048, impl: str = "auto",
+                 registry: MetricsRegistry = None):
         if chunk_rows <= 0:
             raise ValueError(f"chunk_rows must be positive: {chunk_rows}")
         self.encoder = encoder
         self.store = store
         self.chunk_rows = int(chunk_rows)
         self.impl = impl
-        self._stats = {"rows": 0, "chunks": 0, "packed_bytes": 0}
+        self.registry = registry if registry is not None \
+            else MetricsRegistry(enabled=True)
+        self._c_rows = self.registry.counter("encode.rows")
+        self._c_chunks = self.registry.counter("encode.chunks")
+        self._c_bytes = self.registry.counter("encode.packed_bytes")
+        self._h_chunk = self.registry.histogram("encode.chunk_s")
 
     @property
     def stats(self):
         """Read-only view of the ingest counters (plain ints)."""
-        return MappingProxyType(dict(self._stats))
+        return MappingProxyType({"rows": self._c_rows.value,
+                                 "chunks": self._c_chunks.value,
+                                 "packed_bytes": self._c_bytes.value})
 
     def ingest(self, x, ids=None) -> np.ndarray:
         """Encode and append every row of ``x`` (dense [n, D] or
@@ -73,20 +90,31 @@ class IngestPipeline:
                 raise ValueError(f"ids already live (upsert instead): "
                                  f"{clash[:5]}")
         out_ids = []
-        for lo in range(0, n, self.chunk_rows):
-            hi = min(lo + self.chunk_rows, n)
-            chunk = x.row_slice(lo, hi) if csr else x[lo:hi]
-            words = self.encoder.encode_packed(chunk, impl=self.impl)
-            if mutable:
-                out_ids.append(self.store.add_words(
-                    words, ids=None if ids is None else ids[lo:hi]))
-            else:
-                start = self.store.n
-                self.store = self.store.add_words(words)
-                out_ids.append(np.arange(start, start + hi - lo,
-                                         dtype=np.int64))
-            self._stats["rows"] += hi - lo
-            self._stats["chunks"] += 1
-            self._stats["packed_bytes"] += words.numel() * 4
+        t_ing = time.perf_counter()
+        with span("encode.ingest", rows=n) as sp:
+            for lo in range(0, n, self.chunk_rows):
+                hi = min(lo + self.chunk_rows, n)
+                chunk = x.row_slice(lo, hi) if csr else x[lo:hi]
+                t0 = time.perf_counter()
+                with span("encode.chunk", rows=hi - lo) as csp:
+                    words = csp.sync(self.encoder.encode_packed(
+                        chunk, impl=self.impl))
+                self._h_chunk.observe(time.perf_counter() - t0)
+                if mutable:
+                    out_ids.append(self.store.add_words(
+                        words, ids=None if ids is None else ids[lo:hi]))
+                else:
+                    start = self.store.n
+                    self.store = self.store.add_words(words)
+                    out_ids.append(np.arange(start, start + hi - lo,
+                                             dtype=np.int64))
+                self._c_rows.inc(hi - lo)
+                self._c_chunks.inc()
+                self._c_bytes.inc(words.numel() * 4)
+            sp.set(chunks=self._c_chunks.value)
+        default_flight_recorder().record(
+            "encode.ingest", t_ing, time.perf_counter(), batch=n,
+            generation=getattr(self.store, "generation", -1),
+            synced=deep_tracing_active())
         return (np.concatenate(out_ids) if out_ids
                 else np.zeros(0, np.int64))

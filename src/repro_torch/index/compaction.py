@@ -17,8 +17,10 @@ Policy, greedy over the log:
 
 A rewrite gathers the run's live rows on the device (``index_select``:
 O(run), never the whole corpus) into a fully live segment. ``compact``
-mutates the store and returns a report dict; the reference's
-``repro.obs`` counters and span wait for ROADMAP queue A item 7.
+mutates the store and returns a report dict; it runs under an
+``index.compact`` span and reports through the store's registry
+(``index.compactions``, ``index.compact_rows_dropped``,
+``index.compact_bytes_copied``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.index.segment_log import (Segment, SegmentLogStore,
                                            _np_pack_bitmask)
+from repro_torch.obs import span
 
 __all__ = ["CompactionPolicy", "plan_compaction", "compact"]
 
@@ -91,33 +94,41 @@ def compact(store: SegmentLogStore,
     """Rewrite the planned runs in place; the iteration order of live
     rows is unchanged. Returns {runs, segments_before, segments_after,
     rows_dropped, bytes_copied}."""
-    runs = plan_compaction(store, policy)
-    before = len(store.sealed)
-    dropped = copied_bytes = 0
-    run_at = {run[0]: run for run in runs}
-    in_run = {i for run in runs for i in run}
-    new_sealed: list[Segment] = []
-    for i, seg in enumerate(store.sealed):
-        if i not in in_run:
-            new_sealed.append(seg)
-            continue
-        if i not in run_at:
-            continue                # consumed by the run that starts earlier
-        run = [store.sealed[j] for j in run_at[i]]
-        merged = _rewrite_run(store, run)
-        dropped += sum(s.length for s in run) - merged.length
-        copied_bytes += merged.words.numel() * 4
-        for old in run:
-            store._retire(old)
-        store._index_rows(merged, np.arange(merged.length))
-        if merged.length:           # an all-dead run just vanishes
-            new_sealed.append(merged)
-    store.sealed = new_sealed
-    if runs:
-        store.generation += 1
-        # external ids survive a rewrite: listeners only learn that
-        # membership was rewritten
-        store._notify("compact", None)
+    with span("index.compact") as sp:
+        runs = plan_compaction(store, policy)
+        before = len(store.sealed)
+        dropped = copied_bytes = 0
+        run_at = {run[0]: run for run in runs}
+        in_run = {i for run in runs for i in run}
+        new_sealed: list[Segment] = []
+        for i, seg in enumerate(store.sealed):
+            if i not in in_run:
+                new_sealed.append(seg)
+                continue
+            if i not in run_at:
+                continue            # consumed by the run that starts earlier
+            run = [store.sealed[j] for j in run_at[i]]
+            merged = _rewrite_run(store, run)
+            sp.sync(merged.words)
+            dropped += sum(s.length for s in run) - merged.length
+            copied_bytes += merged.words.numel() * 4
+            for old in run:
+                store._retire(old)
+            store._index_rows(merged, np.arange(merged.length))
+            if merged.length:       # an all-dead run just vanishes
+                new_sealed.append(merged)
+        store.sealed = new_sealed
+        if runs:
+            store.generation += 1
+            # external ids survive a rewrite: listeners only learn that
+            # membership was rewritten
+            store._notify("compact", None)
+        reg = store.registry
+        reg.counter("index.compactions").inc()
+        reg.counter("index.compact_rows_dropped").inc(dropped)
+        reg.counter("index.compact_bytes_copied").inc(copied_bytes)
+        store._update_gauges()
+        sp.set(runs=len(runs), rows_dropped=dropped)
     return {"runs": len(runs), "segments_before": before,
             "segments_after": len(store.sealed),
             "rows_dropped": dropped, "bytes_copied": copied_bytes}

@@ -20,8 +20,14 @@ equal one search over a fresh ``AnnEngine`` of ``live_words()``, ids
 mapped through ``live_ids()``. Scored search takes its coarse top-m per
 segment, as the reference does, so it equals the fresh engine only when
 m covers every segment's live rows.
+
+Each segment's search runs under ``search.fused``, or ``search.coarse``
+and ``search.rerank``, spans (synced only under a deep ``obs.Tracer``),
+and each search appends an ``index.search`` flight event.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -38,6 +44,7 @@ from repro_torch.index.segment_log import Segment, SegmentLogStore
 from repro_torch.index.snapshot import restore_index, save_index
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
+from repro_torch.obs import default_flight_recorder, deep_tracing_active, span
 from repro_torch.rank.tables import RankTables, build_rank_tables
 
 __all__ = ["MutableAnnEngine"]
@@ -210,7 +217,13 @@ class MutableAnnEngine:
                                device=dev),
                     torch.full((q, cfg.top_k), -1.0, dtype=torch.float32,
                                device=dev))
-        return run_chunked(q_codes, cfg, self._search_chunk)
+        t0 = time.perf_counter()
+        out = run_chunked(q_codes, cfg, self._search_chunk)
+        default_flight_recorder().record(
+            "index.search", t0, time.perf_counter(), batch=int(q),
+            generation=self.generation, outcome=cfg.mode,
+            synced=deep_tracing_active())
+        return out
 
     def _lsh_coarse(self, seg: Segment, q_words, qh, top: int,
                     cfg: SearchConfig):
@@ -242,26 +255,37 @@ class MutableAnnEngine:
         elif cfg.scored:
             q_tables = self.rank_tables.query_tables(q_codes)
         vals_l, ids_l = [], []
-        for seg in self.store.segments():
+        # the span syncs block only under a deep tracer (profiling)
+        for i, seg in enumerate(self.store.segments()):
             if seg.live == 0:
                 continue
             if fused:
-                vals, rows = _ops.fused_scored_topk_masked(
-                    q_words, q_tables, seg.words, seg.valid_dev(), bits, k,
-                    cfg.resolve_m(seg.cap), cfg.top_k, scales=scales,
-                    impl=cfg.impl)
+                m = cfg.resolve_m(seg.cap)
+                with span("search.fused", segment=i, rows=seg.cap, m=m,
+                          top_k=cfg.top_k) as sp:
+                    vals, rows = _ops.fused_scored_topk_masked(
+                        q_words, q_tables, seg.words, seg.valid_dev(), bits,
+                        k, m, cfg.top_k, scales=scales, impl=cfg.impl)
+                    sp.sync(vals)
             else:
                 top = cfg.resolve_m(seg.cap) if cfg.scored else cfg.top_k
-                if cfg.mode == "exact":
-                    vals, rows = _ops.packed_topk_masked(
-                        q_words, seg.words, seg.valid_dev(), bits, k, top,
-                        impl=cfg.impl)
-                else:
-                    vals, rows = self._lsh_coarse(seg, q_words, qh, top, cfg)
+                with span("search.coarse", mode=cfg.mode, segment=i,
+                          rows=seg.cap) as sp:
+                    if cfg.mode == "exact":
+                        vals, rows = _ops.packed_topk_masked(
+                            q_words, seg.words, seg.valid_dev(), bits, k,
+                            top, impl=cfg.impl)
+                    else:
+                        vals, rows = self._lsh_coarse(seg, q_words, qh, top,
+                                                      cfg)
+                    sp.sync(rows)
                 if cfg.scored:
-                    rows, vals = lut_rerank_stage(
-                        self.rank_tables, q_codes, rows, seg.words,
-                        cfg.top_k, impl=cfg.impl, q_tables=q_tables)
+                    with span("search.rerank", segment=i,
+                              top_k=cfg.top_k) as sp:
+                        rows, vals = lut_rerank_stage(
+                            self.rank_tables, q_codes, rows, seg.words,
+                            cfg.top_k, impl=cfg.impl, q_tables=q_tables)
+                        sp.sync(vals)
             ext = seg.ids_dev()[rows.clamp(0, seg.cap - 1).to(torch.int64)]
             ids_l.append(torch.where(rows < 0, torch.full_like(ext, -1), ext))
             vals_l.append(vals)

@@ -23,9 +23,14 @@ Counterpart of ``repro/index/segment_log.py:71-436``:
 Row order: sealed segments in log order, live rows in row order, then
 the tail. It is the row order of a fresh ``CodeStore`` built from
 ``live_words()``, and so the search tie-break order. Packed words and
-band hashes are held as int32 bit-views of their uint32 values. The
-``repro.obs`` counters and gauges of the reference wait for ROADMAP
-queue A item 7; ``stats()`` returns the same numbers.
+band hashes are held as int32 bit-views of their uint32 values.
+
+The store reports to a ``repro_torch.obs`` registry (its own unless one
+is injected) under the reference's names: counters ``index.rows_appended``,
+``index.rows_deleted``, ``index.seals``; gauges ``index.live_rows``,
+``index.dead_rows``, ``index.live_fraction``, ``index.segments``,
+``index.tail_fill``, ``index.resident_bytes``, refreshed after every
+mutation.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from repro_torch.ann.bands import BandSpec, band_hashes, word_band_hashes
 from repro_torch.core import packing as _packing
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as _ops
+from repro_torch.obs import MetricsRegistry
 
 __all__ = ["Segment", "SegmentLogStore"]
 
@@ -153,7 +159,8 @@ class SegmentLogStore:
     """
 
     def __init__(self, k: int, bits: int, *, band_spec: BandSpec = None,
-                 tail_rows: int = 1024, impl: str = "auto", device=None):
+                 tail_rows: int = 1024, impl: str = "auto", device=None,
+                 registry: MetricsRegistry = None):
         if tail_rows % 32:
             raise ValueError(f"tail_rows must be a multiple of 32, "
                              f"got {tail_rows}")
@@ -172,6 +179,27 @@ class SegmentLogStore:
         self._segs: dict[int, Segment] = {}   # serial -> indexed segment
         self._n_serial = 0
         self._listeners: list = []
+        self.registry = registry if registry is not None \
+            else MetricsRegistry(enabled=True)
+        self._c_appended = self.registry.counter("index.rows_appended")
+        self._c_deleted = self.registry.counter("index.rows_deleted")
+        self._c_seals = self.registry.counter("index.seals")
+        self._g_live = self.registry.gauge("index.live_rows")
+        self._g_dead = self.registry.gauge("index.dead_rows")
+        self._g_livefrac = self.registry.gauge("index.live_fraction")
+        self._g_segments = self.registry.gauge("index.segments")
+        self._g_tail = self.registry.gauge("index.tail_fill")
+        self._g_bytes = self.registry.gauge("index.resident_bytes")
+
+    def _update_gauges(self):
+        """Refresh the store-shape gauges after any mutation."""
+        n_rows = self.n_rows
+        self._g_live.set(self.n_live)
+        self._g_dead.set(n_rows - self.n_live)
+        self._g_livefrac.set(self.n_live / n_rows if n_rows else 1.0)
+        self._g_segments.set(self.n_segments)
+        self._g_tail.set(self.tail.length / self.tail_rows)
+        self._g_bytes.set(self.nbytes)
 
     def _new_tail(self) -> Segment:
         return _empty_segment(
@@ -305,6 +333,8 @@ class SegmentLogStore:
                 self._seal_tail()
         self.next_id = max(self.next_id, int(ids.max()) + 1)
         self.generation += 1
+        self._c_appended.inc(m)
+        self._update_gauges()
         return ids
 
     def _write_tail(self, words, hashes, ids, pos: int, t: int):
@@ -348,6 +378,7 @@ class SegmentLogStore:
         keys on the Segment object, so nothing moves)."""
         self.sealed.append(self.tail)
         self.tail = self._new_tail()
+        self._c_seals.inc()
 
     # -- deletes / upserts ---------------------------------------------------
     def delete(self, ids, strict: bool = True) -> int:
@@ -370,6 +401,8 @@ class SegmentLogStore:
         for s in np.unique(serials).tolist():
             self._segs[s].kill_rows(rows[serials == s])
         self.generation += 1
+        self._c_deleted.inc(len(hits))
+        self._update_gauges()
         self._notify("delete", killed)
         return len(hits)
 

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("coded_gemm", "pack_codes", "packed_topk", "packed_counts",
            "packed_lut", "fused_scored", "code_pack", "normal_unit",
-           "csr_step", "packed_linear")
+           "csr_step", "packed_linear", "lut_topk", "collision")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

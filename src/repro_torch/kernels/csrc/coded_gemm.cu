@@ -20,6 +20,11 @@
 // neither the float32 projections nor (for encode_fused) the int32 codes
 // are ever written; the only write-back is codes or packed words.
 //
+// R comes in float32 or, for a bf16 sketch (SketchConfig(dtype=
+// "bfloat16")), as bf16, widened exactly to float32 as each slab is
+// loaded: the reference's dot with preferred_element_type=float32 over
+// a bf16 R is the same float32 product.
+//
 // The coding (code_common.cuh) is shared with code_pack.cu. Fields past
 // K are code 0. The 64-column tile holds whole words for every
 // bits in {1, 2, 4, 8, 16}, so each word is assembled in one block.
@@ -33,11 +38,17 @@ namespace {
 constexpr int BM = 128, BN = 64, BK = 16, THREADS = 128;
 constexpr int AS_LD = BM + 4;  // padded transposed x slab: fewer bank conflicts
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(uint16_t v) {  // bf16 bits
+  return __uint_as_float((uint32_t)v << 16);
+}
+
 // Accumulates the block's 128x64 tile of x @ r into acc (8x8 per thread).
 // Thread (tx, ty) = (t % 8, t / 8) owns rows {ty*4 + i, 64 + ty*4 + i} and
 // columns {tx*4 + j, 32 + tx*4 + j}, i, j < 4.
+template <typename TR>
 __device__ __forceinline__ void gemm_tile(const float* __restrict__ x,
-                                          const float* __restrict__ r, int m,
+                                          const TR* __restrict__ r, int m,
                                           int d, int k, int m0, int n0,
                                           float (*as)[BK][AS_LD],
                                           float (*bs)[BK][BN],
@@ -53,7 +64,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {  // r slab: 16 rows x 64 cols
       int e = t + i * THREADS, row = k0 + e / BN, col = n0 + e % BN;
-      pb[i] = (row < d && col < k) ? r[(size_t)row * k + col] : 0.f;
+      pb[i] = (row < d && col < k) ? widen(r[(size_t)row * k + col]) : 0.f;
     }
   };
   auto store = [&](int buf) {
@@ -108,8 +119,9 @@ __device__ __forceinline__ int tile_col(int j) {
   return (j < 4 ? 0 : 32) + (threadIdx.x % 8) * 4 + (j & 3);
 }
 
+template <typename TR>
 __global__ void __launch_bounds__(THREADS)
-coded_project_kernel(const float* __restrict__ x, const float* __restrict__ r,
+coded_project_kernel(const float* __restrict__ x, const TR* __restrict__ r,
                      const float* __restrict__ q, int32_t* __restrict__ out,
                      int m, int d, int k, int scheme, float w, int n_side) {
   __shared__ __align__(16) float as[2][BK][AS_LD];
@@ -130,8 +142,9 @@ coded_project_kernel(const float* __restrict__ x, const float* __restrict__ r,
   }
 }
 
+template <typename TR>
 __global__ void __launch_bounds__(THREADS)
-encode_fused_kernel(const float* __restrict__ x, const float* __restrict__ r,
+encode_fused_kernel(const float* __restrict__ x, const TR* __restrict__ r,
                     const float* __restrict__ q, uint32_t* __restrict__ out,
                     int m, int d, int k, int scheme, float w, int n_side,
                     int bits) {
@@ -165,22 +178,36 @@ encode_fused_kernel(const float* __restrict__ x, const float* __restrict__ r,
 
 }  // namespace
 
-extern "C" int coded_project_launch(const float* x, const float* r,
+// r_bf16: 0 for a float32 R, 1 for bf16 R bits.
+extern "C" int coded_project_launch(const float* x, const void* r, int r_bf16,
                                     const float* q, int32_t* out, int m, int d,
                                     int k, int scheme, float w, int n_side,
                                     void* stream) {
   dim3 grid((m + BM - 1) / BM, (k + BN - 1) / BN);
-  coded_project_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, r, q, out, m, d, k, scheme, w, n_side);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (r_bf16)
+    coded_project_kernel<<<grid, THREADS, 0, st>>>(
+        x, static_cast<const uint16_t*>(r), q, out, m, d, k, scheme, w,
+        n_side);
+  else
+    coded_project_kernel<<<grid, THREADS, 0, st>>>(
+        x, static_cast<const float*>(r), q, out, m, d, k, scheme, w, n_side);
   return (int)cudaGetLastError();
 }
 
-extern "C" int encode_fused_launch(const float* x, const float* r,
+extern "C" int encode_fused_launch(const float* x, const void* r, int r_bf16,
                                    const float* q, uint32_t* out, int m, int d,
                                    int k, int scheme, float w, int n_side,
                                    int bits, void* stream) {
   dim3 grid((m + BM - 1) / BM, (k + BN - 1) / BN);
-  encode_fused_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, r, q, out, m, d, k, scheme, w, n_side, bits);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (r_bf16)
+    encode_fused_kernel<<<grid, THREADS, 0, st>>>(
+        x, static_cast<const uint16_t*>(r), q, out, m, d, k, scheme, w,
+        n_side, bits);
+  else
+    encode_fused_kernel<<<grid, THREADS, 0, st>>>(
+        x, static_cast<const float*>(r), q, out, m, d, k, scheme, w, n_side,
+        bits);
   return (int)cudaGetLastError();
 }

@@ -28,8 +28,12 @@
 // query's table into shared memory when it fits (4 KB at the main path).
 // Each thread then LUT-scores survivors (lut_common.cuh, the reference's
 // accumulation order) and the block selects the top_k by (score, -id).
-// The [Q, N] count matrix and the survivor ids never reach device
-// memory; m is at most 2048, the per-warp lists' room in shared memory.
+// The [Q, N] count matrix never reaches device memory. Lists of up to
+// 2048 survivors live in shared memory; longer ones in device memory
+// (the partial scratch, and a merged scratch [Q, 2, m]), by the same
+// rule, so any m the reference takes is answered. The selection of the
+// top_k keeps only per-thread state and reads the scores from device
+// memory, so top_k is unbounded too.
 //
 // fused_scored_topk_masked_launch replaces
 // src/repro/kernels/fused_scored.py::fused_scored_topk_masked_pallas
@@ -53,16 +57,22 @@ __global__ void __launch_bounds__(THREADS)
 score_survivors(const int32_t* __restrict__ part_vals,
                 const int32_t* __restrict__ part_ids,
                 const T* __restrict__ tables, const float* __restrict__ scales,
-                const uint32_t* __restrict__ db, float* __restrict__ scratch,
-                float* __restrict__ out_s, int32_t* __restrict__ out_ids,
-                int nq, int m, int w, int bits, int top_k, int n_ranges,
-                int fp, int tab_in_smem) {
+                const uint32_t* __restrict__ db, int32_t* __restrict__ merged,
+                float* __restrict__ scratch, float* __restrict__ out_s,
+                int32_t* __restrict__ out_ids, int nq, int m, int w, int bits,
+                int top_k, int n_ranges, int fp, int tab_in_smem) {
   extern __shared__ __align__(16) unsigned char score_smem[];
   uint64_t* red = reinterpret_cast<uint64_t*>(score_smem);
-  int* lv = reinterpret_cast<int*>(red + 64);
-  int* li = lv + m;
-  T* stab = reinterpret_cast<T*>(li + m);
   const int qi = blockIdx.x;
+  // the merged survivor list: in shared memory up to SMEM_LIST_MAX,
+  // else in the merged scratch [nq][2][m]
+  const bool in_smem = m <= SMEM_LIST_MAX;
+  int* lv = in_smem ? reinterpret_cast<int*>(red + 64)
+                    : merged + (size_t)qi * 2 * m;
+  int* li = lv + m;
+  T* stab = reinterpret_cast<T*>(in_smem ? reinterpret_cast<int*>(red + 64) +
+                                               2 * m
+                                         : reinterpret_cast<int*>(red + 64));
   const T* tab = tables + (size_t)qi * fp;
   const float* scl = scales ? scales + (size_t)qi * w : nullptr;
   if (tab_in_smem) {
@@ -72,7 +82,7 @@ score_survivors(const int32_t* __restrict__ part_vals,
   if (threadIdx.x < 32)
     warp_merge_ranges(part_vals, part_ids, lv, li, nq, qi, m, n_ranges,
                       threadIdx.x);
-  __syncthreads();
+  __syncthreads();  // orders warp 0's list, in either memory, for the block
   float* sc = scratch + (size_t)qi * m;
   for (int i = threadIdx.x; i < m; i += THREADS)
     sc[i] = lv[i] >= 0
@@ -86,21 +96,21 @@ score_survivors(const int32_t* __restrict__ part_vals,
 template <typename T>
 cudaError_t launch_score(const int32_t* pv, const int32_t* pi,
                          const void* tables, const float* scales,
-                         const uint32_t* db, float* scratch, float* out_s,
-                         int32_t* out_ids, int nq, int m, int w, int bits,
-                         int top_k, int n_ranges, cudaStream_t st) {
+                         const uint32_t* db, int32_t* merged, float* scratch,
+                         float* out_s, int32_t* out_ids, int nq, int m, int w,
+                         int bits, int top_k, int n_ranges, cudaStream_t st) {
   const int fp = (w * (32 / bits)) << bits;
   const size_t tab_bytes = (size_t)fp * sizeof(T);
   const int in_smem = tab_bytes <= SMEM_TABLE_MAX;
-  const size_t smem = 64 * sizeof(uint64_t) + 2 * (size_t)m * sizeof(int) +
-                      (in_smem ? tab_bytes : 0);
+  const size_t lists = m <= SMEM_LIST_MAX ? 2 * (size_t)m * sizeof(int) : 0;
+  const size_t smem = 64 * sizeof(uint64_t) + lists + (in_smem ? tab_bytes : 0);
   cudaError_t err = cudaFuncSetAttribute(
       score_survivors<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   score_survivors<T><<<nq, THREADS, smem, st>>>(
-      pv, pi, static_cast<const T*>(tables), scales, db, scratch, out_s,
-      out_ids, nq, m, w, bits, top_k, n_ranges, fp, in_smem);
+      pv, pi, static_cast<const T*>(tables), scales, db, merged, scratch,
+      out_s, out_ids, nq, m, w, bits, top_k, n_ranges, fp, in_smem);
   return cudaGetLastError();
 }
 
@@ -108,7 +118,8 @@ cudaError_t launch_fused(const uint32_t* q, const uint32_t* db,
                          const uint32_t* valid, const void* tables,
                          int tab_dtype, const float* scales,
                          int32_t* part_vals, int32_t* part_ids,
-                         float* scratch, float* out_s, int32_t* out_ids,
+                         int32_t* merged, float* scratch, float* out_s,
+                         int32_t* out_ids,
                          int nq, int n, int w, int bits, int k, int m,
                          int top_k, int n_ranges, cudaStream_t st) {
   cudaError_t err = launch_partial_ranges(q, db, valid, part_vals, part_ids,
@@ -116,13 +127,13 @@ cudaError_t launch_fused(const uint32_t* q, const uint32_t* db,
   if (err != cudaSuccess) return err;
   if (tab_dtype == 0)
     return launch_score<float>(part_vals, part_ids, tables, nullptr, db,
-                               scratch, out_s, out_ids, nq, m, w, bits, top_k,
-                               n_ranges, st);
+                               merged, scratch, out_s, out_ids, nq, m, w,
+                               bits, top_k, n_ranges, st);
   if (tab_dtype == 1)
     return launch_score<uint16_t>(part_vals, part_ids, tables, nullptr, db,
-                                  scratch, out_s, out_ids, nq, m, w, bits,
-                                  top_k, n_ranges, st);
-  return launch_score<int8_t>(part_vals, part_ids, tables, scales, db,
+                                  merged, scratch, out_s, out_ids, nq, m, w,
+                                  bits, top_k, n_ranges, st);
+  return launch_score<int8_t>(part_vals, part_ids, tables, scales, db, merged,
                               scratch, out_s, out_ids, nq, m, w, bits, top_k,
                               n_ranges, st);
 }
@@ -130,17 +141,20 @@ cudaError_t launch_fused(const uint32_t* q, const uint32_t* db,
 }  // namespace
 
 // tab_dtype: 0 float32, 1 bf16, 2 int8 (scales [nq, w], else null).
-// part_vals/part_ids: scratch [n_ranges, nq, m]; scratch: [nq, m] float32.
+// part_vals/part_ids: scratch [n_ranges, nq, m]; merged: scratch
+// [nq, 2, m] int32 when m > SMEM_LIST_MAX (2048), else unused; scratch:
+// [nq, m] float32.
 extern "C" int fused_scored_launch(const uint32_t* q, const uint32_t* db,
                                    const void* tables, int tab_dtype,
                                    const float* scales, int32_t* part_vals,
-                                   int32_t* part_ids, float* scratch,
-                                   float* out_s, int32_t* out_ids, int nq,
-                                   int n, int w, int bits, int k, int m,
-                                   int top_k, int n_ranges, void* stream) {
+                                   int32_t* part_ids, int32_t* merged,
+                                   float* scratch, float* out_s,
+                                   int32_t* out_ids, int nq, int n, int w,
+                                   int bits, int k, int m, int top_k,
+                                   int n_ranges, void* stream) {
   return (int)launch_fused(q, db, nullptr, tables, tab_dtype, scales,
-                           part_vals, part_ids, scratch, out_s, out_ids, nq,
-                           n, w, bits, k, m, top_k, n_ranges,
+                           part_vals, part_ids, merged, scratch, out_s,
+                           out_ids, nq, n, w, bits, k, m, top_k, n_ranges,
                            (cudaStream_t)stream);
 }
 
@@ -148,11 +162,11 @@ extern "C" int fused_scored_launch(const uint32_t* q, const uint32_t* db,
 extern "C" int fused_scored_topk_masked_launch(
     const uint32_t* q, const uint32_t* db, const uint32_t* valid,
     const void* tables, int tab_dtype, const float* scales,
-    int32_t* part_vals, int32_t* part_ids, float* scratch, float* out_s,
-    int32_t* out_ids, int nq, int n, int w, int bits, int k, int m,
-    int top_k, int n_ranges, void* stream) {
+    int32_t* part_vals, int32_t* part_ids, int32_t* merged, float* scratch,
+    float* out_s, int32_t* out_ids, int nq, int n, int w, int bits, int k,
+    int m, int top_k, int n_ranges, void* stream) {
   return (int)launch_fused(q, db, valid, tables, tab_dtype, scales,
-                           part_vals, part_ids, scratch, out_s, out_ids, nq,
-                           n, w, bits, k, m, top_k, n_ranges,
+                           part_vals, part_ids, merged, scratch, out_s,
+                           out_ids, nq, n, w, bits, k, m, top_k, n_ranges,
                            (cudaStream_t)stream);
 }

@@ -19,6 +19,13 @@
 // exact hex literals. normal_bits_launch applies the same mapping to
 // given bits, so that a check can cover all 2^23 mantissas.
 //
+// normal_unit_bf16_launch draws a bf16 unit (SketchConfig(dtype=
+// "bfloat16")), as JAX's bf16 normal does (core/prng.py:
+// bf16_normal_of_index): the same 32-bit bits give the uniform index
+// m = (bits >> 1) & 127, u = m/64 - 255/256 (exact), erfinv(u) in float32
+// rounded to bf16 (nearest, ties to even), times bf16(sqrt 2) = 1.4140625
+// (an exact float32 product) rounded to bf16.
+//
 // Bound on this card: integer operations. threefry's 20 rounds (an add,
 // a rotate and a xor each) and its key injections are about 100 int32
 // operations an element against some 40 float32 ones for erfinv; the
@@ -126,6 +133,28 @@ __device__ __forceinline__ float normal_of_bits(uint32_t bits) {
   return __fmul_rn(0x1.6a09e6p+0f, erfinv_xla(u));
 }
 
+// float32 -> bf16 bits, round to nearest even (no NaN reaches it).
+__device__ __forceinline__ uint16_t bf16_rne(float x) {
+  const uint32_t b = __float_as_uint(x);
+  return (uint16_t)((b + 0x7FFFu + ((b >> 16) & 1u)) >> 16);
+}
+
+__device__ __forceinline__ uint16_t bf16_normal_of_bits(uint32_t bits) {
+  const float m = (float)((bits >> 1) & 127u);
+  const float u = __fsub_rn(__fmul_rn(m, 0x1p-6f), 0x1.fep-1f);  // exact
+  const float e = __uint_as_float((uint32_t)bf16_rne(erfinv_xla(u)) << 16);
+  return bf16_rne(__fmul_rn(e, 0x1.6ap+0f));  // bf16(sqrt 2), exact product
+}
+
+__global__ void normal_unit_bf16_kernel(uint32_t k0, uint32_t k1,
+                                        uint16_t* __restrict__ out,
+                                        uint64_t n) {
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < n;
+       i += (uint64_t)gridDim.x * blockDim.x)
+    out[i] = bf16_normal_of_bits(
+        threefry_bits(k0, k1, (uint32_t)(i >> 32), (uint32_t)i));
+}
+
 __global__ void normal_unit_kernel(uint32_t k0, uint32_t k1,
                                    float* __restrict__ out, uint64_t n) {
   for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < n;
@@ -153,6 +182,16 @@ extern "C" int normal_unit_launch(uint32_t k0, uint32_t k1, float* out,
   if (n == 0) return 0;
   normal_unit_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
       k0, k1, out, n);
+  return (int)cudaGetLastError();
+}
+
+// out: bf16 bits [n].
+extern "C" int normal_unit_bf16_launch(uint32_t k0, uint32_t k1,
+                                       uint16_t* out, uint64_t n,
+                                       void* stream) {
+  if (n == 0) return 0;
+  normal_unit_bf16_kernel<<<grid_for(n, 256), 256, 0,
+                            (cudaStream_t)stream>>>(k0, k1, out, n);
   return (int)cudaGetLastError();
 }
 

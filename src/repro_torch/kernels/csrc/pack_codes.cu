@@ -9,7 +9,8 @@
 // does a handful of integer operations a code. One thread builds one
 // output word from its 32/b codes; consecutive threads take consecutive
 // words of a row, so the code reads of a warp cover one contiguous
-// stretch of the row and the word writes are coalesced.
+// stretch of the row and the word writes are coalesced. The threads a
+// block are the wrapper's launch knob; they change no bit.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -35,10 +36,9 @@ __global__ void pack_codes_kernel(const int32_t* __restrict__ codes,
 }  // namespace
 
 extern "C" int pack_codes_launch(const int32_t* codes, uint32_t* out, int m,
-                                 int k, int bits, void* stream) {
+                                 int k, int bits, int threads, void* stream) {
   const int cpw = 32 / bits;
   const size_t total = (size_t)m * ((k + cpw - 1) / cpw);
-  const int threads = 256;
   size_t blocks = (total + threads - 1) / threads;
   if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond this
   if (blocks == 0) return 0;

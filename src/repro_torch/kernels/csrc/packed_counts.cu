@@ -12,25 +12,26 @@
 //
 // Design. The TPU kernel tiles (query, row, word) and accumulates over
 // word tiles in VMEM. Here a block of 128 threads takes 128 consecutive
-// rows and 32 queries: the queries' words sit in shared memory (read as
+// rows and qt queries (32 by default; the wrapper's block_q, which
+// changes no bit): the queries' words sit in shared memory (read as
 // broadcasts), each thread holds its row's words in registers (W <= 16
-// or 64; wider rows are read from device memory) and writes its 32
+// or 64; wider rows are read from device memory) and writes its qt
 // counts, so each warp's stores are 128 contiguous bytes of one output
-// row. Every corpus word is read once per 32 queries.
+// row. Every corpus word is read once per qt queries.
 #include "topk_common.cuh"
 
 namespace {
 
-constexpr int ROWS = 128, QT = 32;
+constexpr int ROWS = 128;
 
 template <int WR>
 __global__ void __launch_bounds__(ROWS)
 packed_counts(const uint32_t* __restrict__ q, const uint32_t* __restrict__ db,
               int32_t* __restrict__ out, int nq, int n, int w, int bits,
-              int k, uint32_t lsb) {
-  extern __shared__ uint32_t qs[];  // [QT][w]
-  const int q0 = blockIdx.y * QT;
-  const int nqt = min(QT, nq - q0);
+              int k, int qt, uint32_t lsb) {
+  extern __shared__ uint32_t qs[];  // [qt][w]
+  const int q0 = blockIdx.y * qt;
+  const int nqt = min(qt, nq - q0);
   for (int e = threadIdx.x; e < nqt * w; e += ROWS)
     qs[e] = q[(size_t)q0 * w + e];
   __syncthreads();
@@ -59,34 +60,34 @@ packed_counts(const uint32_t* __restrict__ q, const uint32_t* __restrict__ db,
 
 template <int WR>
 cudaError_t launch(const uint32_t* q, const uint32_t* db, int32_t* out,
-                   int nq, int n, int w, int bits, int k, uint32_t lsb,
-                   cudaStream_t st) {
-  const size_t smem = (size_t)QT * w * 4;
+                   int nq, int n, int w, int bits, int k, int qt,
+                   uint32_t lsb, cudaStream_t st) {
+  const size_t smem = (size_t)qt * w * 4;
   cudaError_t err = cudaFuncSetAttribute(
       packed_counts<WR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + ROWS - 1) / ROWS, (nq + QT - 1) / QT);
+  const dim3 grid((n + ROWS - 1) / ROWS, (nq + qt - 1) / qt);
   packed_counts<WR><<<grid, ROWS, smem, st>>>(q, db, out, nq, n, w, bits, k,
-                                              lsb);
+                                              qt, lsb);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// out: [nq, n] int32.
+// out: [nq, n] int32; qt: queries a block (their words in shared memory).
 extern "C" int packed_counts_launch(const uint32_t* q, const uint32_t* db,
                                     int32_t* out, int nq, int n, int w,
-                                    int bits, int k, void* stream) {
+                                    int bits, int k, int qt, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   uint32_t lsb = 0;
   for (int i = 0; i < 32 / bits; ++i) lsb |= 1u << (i * bits);
   cudaError_t err;
   if (w <= 16)
-    err = launch<16>(q, db, out, nq, n, w, bits, k, lsb, st);
+    err = launch<16>(q, db, out, nq, n, w, bits, k, qt, lsb, st);
   else if (w <= 64)
-    err = launch<64>(q, db, out, nq, n, w, bits, k, lsb, st);
+    err = launch<64>(q, db, out, nq, n, w, bits, k, qt, lsb, st);
   else
-    err = launch<0>(q, db, out, nq, n, w, bits, k, lsb, st);
+    err = launch<0>(q, db, out, nq, n, w, bits, k, qt, lsb, st);
   return (int)err;
 }

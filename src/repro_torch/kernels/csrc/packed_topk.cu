@@ -26,7 +26,9 @@
 // range, so a tie is always lost to the earlier, lower id, which is the
 // reference's stable merge. A second kernel merges the S partial lists
 // of each query in range order under the same rule. Rows >= N never
-// enter; top_k up to 2048 fits in shared memory.
+// enter. Lists of up to 2048 entries live in shared memory; longer ones
+// in the scratch and output they are written to (topk_common.cuh), so
+// any top_k the reference takes is answered, by the same rule.
 //
 // packed_topk_masked_launch replaces
 // src/repro/kernels/packed_collision.py::packed_topk_masked_pallas, the
@@ -52,11 +54,13 @@ packed_topk_merge(const int32_t* __restrict__ part_vals,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int qi = blockIdx.x * WARPS + warp;
   if (qi >= nq) return;  // whole warp: no block-wide barrier below
-  int* lv = msmem + warp * 2 * top_k;
-  int* li = lv + top_k;
+  const size_t o = (size_t)qi * top_k;
+  const bool in_smem = top_k <= SMEM_LIST_MAX;
+  int* lv = in_smem ? msmem + warp * 2 * top_k : out_vals + o;
+  int* li = in_smem ? lv + top_k : out_ids + o;
   warp_merge_ranges(part_vals, part_ids, lv, li, nq, qi, top_k, n_ranges,
                     lane);
-  const size_t o = (size_t)qi * top_k;
+  if (!in_smem) return;
   for (int i = lane; i < top_k; i += 32) {
     out_vals[o + i] = lv[i];
     out_ids[o + i] = li[i];
@@ -72,7 +76,8 @@ cudaError_t launch_topk(const uint32_t* q, const uint32_t* db,
                                           nq, n, w, bits, k, top_k, n_ranges,
                                           st);
   if (err != cudaSuccess) return err;
-  const size_t msmem = 2 * (size_t)WARPS * top_k * 4;
+  const size_t msmem =
+      top_k <= SMEM_LIST_MAX ? 2 * (size_t)WARPS * top_k * 4 : 0;
   err = cudaFuncSetAttribute(packed_topk_merge,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)msmem);

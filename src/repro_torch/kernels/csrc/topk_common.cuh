@@ -1,12 +1,20 @@
-// Count-ranked building blocks shared by packed_topk.cu and
-// fused_scored.cu: the field fold, the per-warp sorted (count, id) list
-// and the partial top-k kernel over S contiguous corpus ranges (its
-// design note is in packed_topk.cu). The partial kernel takes an
-// optional validity bitmask (bit r % 32 of word r / 32 marks row r
-// live; null for the unmasked kernels): a dead row gets count -1 and
-// its popcounts are skipped. Lists start at -1 and an offer must
-// strictly beat the last entry, so a dead row never enters one.
+// Top-k building blocks shared by packed_topk.cu, fused_scored.cu and
+// lut_topk.cu: the field fold, the per-warp sorted (value, id) list (int
+// counts or float scores) and the partial top-k kernel by count over S
+// contiguous corpus ranges (its design note is in packed_topk.cu). The
+// partial kernel takes an optional validity bitmask (bit r % 32 of word
+// r / 32 marks row r live; null for the unmasked kernels): a dead row
+// gets count -1 and its popcounts are skipped. Lists start at the empty
+// value (-1 for counts, -inf for scores) and an offer must strictly beat
+// the last entry, so a dead row never enters one.
+//
+// A list of up to SMEM_LIST_MAX entries lives in shared memory. A longer
+// one lives in device memory, in the output it is written to (a range's
+// partial list, a query's merged list): the same insertion, one warp per
+// list, so the same bits at any length; __syncwarp orders the warp's
+// device-memory accesses as it does its shared ones.
 #pragma once
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -15,6 +23,13 @@ namespace {
 
 constexpr int WARPS = 8, THREADS = WARPS * 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SMEM_LIST_MAX = 2048;
+
+template <typename V> __device__ __forceinline__ V list_empty();
+template <> __device__ __forceinline__ int list_empty<int>() { return -1; }
+template <> __device__ __forceinline__ float list_empty<float>() {
+  return -INFINITY;
+}
 
 __device__ __forceinline__ int field_mismatches(uint32_t x, int bits,
                                                 uint32_t lsb) {
@@ -25,10 +40,11 @@ __device__ __forceinline__ int field_mismatches(uint32_t x, int bits,
   return __popc(x & lsb);
 }
 
-// Inserts (c, id) into the warp's list, sorted by count descending and,
-// within a count, by arrival: it goes after every entry with count >= c.
-__device__ inline void warp_insert(int* lv, int* li, int top_k, int c, int id,
-                            int lane) {
+// Inserts (c, id) into the warp's list, sorted by value descending and,
+// within a value, by arrival: it goes after every entry with value >= c.
+template <typename V>
+__device__ inline void warp_insert(V* lv, int* li, int top_k, V c, int id,
+                                   int lane) {
   int p = 0;
   for (int base = 0; base < top_k; base += 32) {
     const int i = base + lane;
@@ -37,7 +53,8 @@ __device__ inline void warp_insert(int* lv, int* li, int top_k, int c, int id,
   for (int hi = top_k - 1; hi > p; hi -= 32) {  // shift [p, top_k-1) down
     const int i = hi - lane;
     const bool act = i > p;
-    int v = 0, d = 0;
+    V v = 0;
+    int d = 0;
     if (act) { v = lv[i - 1]; d = li[i - 1]; }
     __syncwarp();
     if (act) { lv[i] = v; li[i] = d; }
@@ -47,14 +64,16 @@ __device__ inline void warp_insert(int* lv, int* li, int top_k, int c, int id,
   __syncwarp();
 }
 
-// Offers one lane-ordered batch of 32 candidates (count -1 = none).
-__device__ __forceinline__ void offer_batch(int* lv, int* li, int top_k,
-                                            int cnt, int id, int lane) {
+// Offers one lane-ordered batch of 32 candidates (the empty value =
+// none).
+template <typename V>
+__device__ __forceinline__ void offer_batch(V* lv, int* li, int top_k, V cnt,
+                                            int id, int lane) {
   unsigned cand = __ballot_sync(FULL, cnt > lv[top_k - 1]);
   while (cand) {
     const int src = __ffs(cand) - 1;
     cand &= cand - 1;
-    const int c = __shfl_sync(FULL, cnt, src);
+    const V c = __shfl_sync(FULL, cnt, src);
     const int d = __shfl_sync(FULL, id, src);
     if (c > lv[top_k - 1]) warp_insert(lv, li, top_k, c, d, lane);
   }
@@ -75,14 +94,19 @@ packed_topk_partial(const uint32_t* __restrict__ q,
   const int wp = w | 1;
   uint32_t* tile = smem;                    // [tn][wp]
   uint32_t* qs = tile + tn * wp;            // [WARPS][w]
-  int* lv = reinterpret_cast<int*>(qs + WARPS * w);  // [WARPS][top_k]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int* li = lv + WARPS * top_k + warp * top_k;
-  lv += warp * top_k;
   uint32_t* qw = qs + warp * w;
   const int qi = blockIdx.x * WARPS + warp;
   const bool has_q = qi < nq;
-  for (int i = lane; i < top_k; i += 32) { lv[i] = -1; li[i] = -1; }
+  const bool in_smem = top_k <= SMEM_LIST_MAX;
+  const size_t o = ((size_t)blockIdx.y * nq + qi) * top_k;
+  int* lv = in_smem ? reinterpret_cast<int*>(qs + WARPS * w) + warp * top_k
+                    : part_vals + o;        // [WARPS][top_k] in smem
+  int* li = in_smem ? reinterpret_cast<int*>(qs + WARPS * w) +
+                          (WARPS + warp) * top_k
+                    : part_ids + o;
+  if (has_q)
+    for (int i = lane; i < top_k; i += 32) { lv[i] = -1; li[i] = -1; }
   for (int j = lane; j < w; j += 32) qw[j] = has_q ? q[(size_t)qi * w + j] : 0u;
   __syncwarp();
   uint32_t qr[WQ > 0 ? WQ : 1];
@@ -122,8 +146,7 @@ packed_topk_partial(const uint32_t* __restrict__ q,
       offer_batch(lv, li, top_k, cnt, row, lane);
     }
   }
-  if (has_q) {
-    const size_t o = ((size_t)blockIdx.y * nq + qi) * top_k;
+  if (has_q && in_smem) {
     for (int i = lane; i < top_k; i += 32) {
       part_vals[o + i] = lv[i];
       part_ids[o + i] = li[i];
@@ -134,17 +157,21 @@ packed_topk_partial(const uint32_t* __restrict__ q,
 // Merges the S partial lists of query qi, in range order, into the
 // warp's list (lv, li) of top_k entries: the same strictly-beats rule,
 // so ties keep the lower id.
-__device__ inline void warp_merge_ranges(const int32_t* __restrict__ part_vals,
-                                  const int32_t* __restrict__ part_ids,
-                                  int* lv, int* li, int nq, int qi, int top_k,
-                                  int n_ranges, int lane) {
-  for (int i = lane; i < top_k; i += 32) { lv[i] = -1; li[i] = -1; }
+template <typename V>
+__device__ inline void warp_merge_ranges(const V* __restrict__ part_vals,
+                                         const int32_t* __restrict__ part_ids,
+                                         V* lv, int* li, int nq, int qi,
+                                         int top_k, int n_ranges, int lane) {
+  for (int i = lane; i < top_k; i += 32) {
+    lv[i] = list_empty<V>();
+    li[i] = -1;
+  }
   __syncwarp();
   for (int s = 0; s < n_ranges; ++s) {
     const size_t o = ((size_t)s * nq + qi) * top_k;
     for (int b = 0; b < top_k; b += 32) {
       const int i = b + lane;
-      const int c = i < top_k ? part_vals[o + i] : -1;
+      const V c = i < top_k ? part_vals[o + i] : list_empty<V>();
       const int d = i < top_k ? part_ids[o + i] : -1;
       offer_batch(lv, li, top_k, c, d, lane);
     }
@@ -183,8 +210,8 @@ inline cudaError_t launch_partial_ranges(const uint32_t* q, const uint32_t* db,
   for (int i = 0; i < 32 / bits; ++i) lsb |= 1u << (i * bits);
   const int rpr = (n + n_ranges - 1) / n_ranges;
   const dim3 grid((nq + WARPS - 1) / WARPS, n_ranges);
-  const size_t smem =
-      ((size_t)tn * wp + (size_t)WARPS * w + 2 * (size_t)WARPS * top_k) * 4;
+  const size_t lists = top_k <= SMEM_LIST_MAX ? 2 * (size_t)WARPS * top_k : 0;
+  const size_t smem = ((size_t)tn * wp + (size_t)WARPS * w + lists) * 4;
   if (w <= 16)
     return launch_partial<16>(grid, smem, st, q, db, valid, part_vals,
                               part_ids, nq, n, w, bits, k, top_k, rpr, tn,

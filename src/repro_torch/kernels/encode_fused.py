@@ -3,11 +3,12 @@
 (``csrc/code_pack.cu``).
 
 Counterparts of ``repro/kernels/encode_fused.py``:
-``encode_fused_pallas``, x float32 [M, D] @ r float32 [D, K] -> packed
+``encode_fused_pallas``, x float32 [M, D] @ r float32 or bf16 [D, K]
+(bf16 widened on load) -> packed
 words [M, ceil(K*b/32)] (int32 bit-views of uint32), neither projections
 nor codes reaching device memory; and ``code_pack_pallas``, projected z
-float32 [M, K] -> the same words, the finalize of every streamed and CSR
-chunk.
+float32 or bf16 [M, K] -> the same words, the finalize of every
+streamed and CSR chunk (``threads`` a block is its launch knob).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.core.packing import packed_width
 from repro_torch.core.schemes import CodeSpec
+from repro_torch.kernels.pack_codes import THREADS
 from repro_torch.kernels.proj_code import (SCHEME_IDS, check_gemm_args,
                                            check_offsets)
 
@@ -44,9 +46,10 @@ def encode_fused_cuda(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
     if m == 0 or k == 0:
         return out
     fn = _build.function("coded_gemm", "encode_fused_launch",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+                         [_P, _P, _I, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                           _I, _I, _P])
-    err = fn(x.data_ptr(), r.data_ptr(), q_ptr, out.data_ptr(), m, d, k,
+    err = fn(x.data_ptr(), r.data_ptr(), int(r.dtype == torch.bfloat16),
+             q_ptr, out.data_ptr(), m, d, k,
              SCHEME_IDS[spec.scheme], float(spec.w), spec.n_bins_side,
              spec.bits, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
@@ -55,14 +58,19 @@ def encode_fused_cuda(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
     return out
 
 
-def code_pack_cuda(z: torch.Tensor, spec: CodeSpec, q=None) -> torch.Tensor:
-    """Launches the code-and-pack kernel -> int32 words [M, W]."""
+def code_pack_cuda(z: torch.Tensor, spec: CodeSpec, q=None,
+                   threads: int = 256) -> torch.Tensor:
+    """Launches the code-and-pack kernel, ``threads`` a block -> int32
+    words [M, W]."""
     global code_pack_launches
     from repro_torch.kernels import _build
-    if not z.is_cuda or z.dtype != torch.float32 or z.dim() != 2 \
-            or not z.is_contiguous():
-        raise ValueError(f"z must be a contiguous 2-D float32 CUDA tensor, "
-                         f"got {z.dtype} {tuple(z.shape)} on {z.device}")
+    if not z.is_cuda or z.dtype not in (torch.float32, torch.bfloat16) \
+            or z.dim() != 2 or not z.is_contiguous():
+        raise ValueError(f"z must be a contiguous 2-D float32 or bf16 CUDA "
+                         f"tensor, got {z.dtype} {tuple(z.shape)} on "
+                         f"{z.device}")
+    if threads not in THREADS:
+        raise ValueError(f"threads must be in {THREADS}, got {threads}")
     m, k = z.shape
     q_ptr = check_offsets(z, k, spec, q)
     out = torch.empty((m, packed_width(k, spec.bits)), dtype=torch.int32,
@@ -70,11 +78,12 @@ def code_pack_cuda(z: torch.Tensor, spec: CodeSpec, q=None) -> torch.Tensor:
     if out.numel() == 0:
         return out
     fn = _build.function("code_pack", "code_pack_launch",
-                         [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I,
-                          _P])
-    err = fn(z.data_ptr(), q_ptr, out.data_ptr(), m, k,
-             SCHEME_IDS[spec.scheme], float(spec.w), spec.n_bins_side,
-             spec.bits, torch.cuda.current_stream(z.device).cuda_stream)
+                         [_P, _I, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I,
+                          _I, _P])
+    err = fn(z.data_ptr(), int(z.dtype == torch.bfloat16), q_ptr,
+             out.data_ptr(), m, k, SCHEME_IDS[spec.scheme], float(spec.w),
+             spec.n_bins_side, spec.bits, threads,
+             torch.cuda.current_stream(z.device).cuda_stream)
     if err:
         raise RuntimeError(f"code_pack kernel launch failed: CUDA error {err}")
     code_pack_launches += 1

@@ -8,6 +8,11 @@ over the stable top-``rerank_m`` by collision count, (-inf, -1) in empty
 slots. ``fused_scored_topk_masked_cuda``
 (``fused_scored_topk_masked_pallas``) does the same over the rows whose
 bit is set in a validity bitmask int32 [ceil(N/32)].
+
+Any rerank_m and top_k are answered: survivor lists longer than 2048
+live in device memory (a merged scratch [Q, 2, m]), and the final
+selection keeps only per-thread state. ``n_ranges`` (S) is the launch
+knob; it changes no bit.
 """
 from __future__ import annotations
 
@@ -16,14 +21,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels.packed_collision import (check_valid, check_words,
-                                                  n_ranges)
+                                                  resolve_ranges)
 from repro_torch.kernels.packed_lut import check_tables
 
 __all__ = ["fused_scored_topk_cuda", "fused_scored_topk_masked_cuda",
-           "MAX_RERANK_M", "MAX_TOP_K", "launches", "masked_launches"]
+           "SMEM_LIST_MAX", "launches", "masked_launches"]
 
-MAX_RERANK_M = 2048   # the partial kernel's per-warp lists in shared memory
-MAX_TOP_K = 2048      # one block-wide selection round per output slot
+SMEM_LIST_MAX = 2048   # longer survivor lists live in device memory
 # kernel launches since the last reset (ops.reset_launch_counts)
 launches = 0          # fused_scored_topk
 masked_launches = 0   # fused_scored_topk_masked
@@ -33,7 +37,7 @@ _I = ctypes.c_int
 
 
 def _fused(words_q, tables, words_db, valid_words, bits: int, k: int,
-           rerank_m: int, top_k: int, scales):
+           rerank_m: int, top_k: int, scales, s):
     """Partial top-``rerank_m`` over S corpus ranges, then merge, score
     and select: the unmasked entry point when ``valid_words`` is None,
     else the masked one."""
@@ -57,29 +61,30 @@ def _fused(words_q, tables, words_db, valid_words, bits: int, k: int,
                          f"[{nq}, {w}] on {words_q.device}, got "
                          f"{scales.dtype} {tuple(scales.shape)} on "
                          f"{scales.device}")
-    if not 1 <= rerank_m <= MAX_RERANK_M:
-        raise ValueError(f"rerank_m must be in [1, {MAX_RERANK_M}], got "
-                         f"{rerank_m}")
-    if not 1 <= top_k <= MAX_TOP_K:
-        raise ValueError(f"top_k must be in [1, {MAX_TOP_K}], got {top_k}")
+    if rerank_m < 1 or top_k < 1:
+        raise ValueError(f"rerank_m and top_k must be at least 1, got "
+                         f"{rerank_m}, {top_k}")
     dev = words_q.device
     if nq == 0 or n == 0:
         return (torch.full((nq, top_k), float("-inf"), dtype=torch.float32,
                            device=dev),
                 torch.full((nq, top_k), -1, dtype=torch.int32, device=dev))
-    s = n_ranges(nq, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    s = resolve_ranges(s, nq, n, dev)
     part_v = torch.empty((s, nq, rerank_m), dtype=torch.int32, device=dev)
     part_i = torch.empty((s, nq, rerank_m), dtype=torch.int32, device=dev)
+    merged = (torch.empty((nq, 2, rerank_m), dtype=torch.int32, device=dev)
+              if rerank_m > SMEM_LIST_MAX else None)
     scratch = torch.empty((nq, rerank_m), dtype=torch.float32, device=dev)
     scores = torch.empty((nq, top_k), dtype=torch.float32, device=dev)
     ids = torch.empty((nq, top_k), dtype=torch.int32, device=dev)
     tail = [tables.data_ptr(), code,
             None if scales is None else scales.data_ptr(), part_v.data_ptr(),
-            part_i.data_ptr(), scratch.data_ptr(), scores.data_ptr(),
+            part_i.data_ptr(), None if merged is None else merged.data_ptr(),
+            scratch.data_ptr(), scores.data_ptr(),
             ids.data_ptr(), nq, n, w, bits, k, rerank_m, top_k, s,
             torch.cuda.current_stream(dev).cuda_stream]
-    types = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-             _P]
+    types = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _I, _P]
     if valid_words is None:
         fn = _build.function("fused_scored", "fused_scored_launch",
                              [_P, _P] + types)
@@ -102,21 +107,22 @@ def _fused(words_q, tables, words_db, valid_words, bits: int, k: int,
 
 def fused_scored_topk_cuda(words_q: torch.Tensor, tables: torch.Tensor,
                            words_db: torch.Tensor, bits: int, k: int,
-                           rerank_m: int, top_k: int, scales=None):
+                           rerank_m: int, top_k: int, scales=None,
+                           n_ranges=None):
     """Launches the partial top-``rerank_m`` kernel over S corpus ranges
     and the merge, score and select kernel -> (scores float32, ids
     int32) [Q, top_k]."""
     return _fused(words_q, tables, words_db, None, bits, k, rerank_m, top_k,
-                  scales)
+                  scales, n_ranges)
 
 
 def fused_scored_topk_masked_cuda(words_q: torch.Tensor, tables: torch.Tensor,
                                   words_db: torch.Tensor,
                                   valid_words: torch.Tensor, bits: int,
                                   k: int, rerank_m: int, top_k: int,
-                                  scales=None):
+                                  scales=None, n_ranges=None):
     """``fused_scored_topk_cuda`` over the rows whose bit is set in
     ``valid_words`` int32 [ceil(N/32)]: dead rows take count -1 before
     the survivor rule -> (scores float32, ids int32) [Q, top_k]."""
     return _fused(words_q, tables, words_db, valid_words, bits, k, rerank_m,
-                  top_k, scales)
+                  top_k, scales, n_ranges)

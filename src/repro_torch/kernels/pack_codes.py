@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.core.packing import packed_width
 
-__all__ = ["pack_codes_cuda", "launches"]
+__all__ = ["pack_codes_cuda", "THREADS", "launches"]
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
@@ -19,8 +19,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def pack_codes_cuda(codes: torch.Tensor, bits: int) -> torch.Tensor:
-    """Launches the packing kernel -> int32 words [M, W]."""
+THREADS = (128, 256, 512, 1024)   # a block's threads (launch knob)
+
+
+def pack_codes_cuda(codes: torch.Tensor, bits: int,
+                    threads: int = 256) -> torch.Tensor:
+    """Launches the packing kernel, ``threads`` a block -> int32 words
+    [M, W]."""
     global launches
     from repro_torch.kernels import _build
     if not codes.is_cuda or codes.dtype != torch.int32 or codes.dim() != 2 \
@@ -28,14 +33,16 @@ def pack_codes_cuda(codes: torch.Tensor, bits: int) -> torch.Tensor:
         raise ValueError(f"codes must be a contiguous 2-D int32 CUDA tensor, "
                          f"got {codes.dtype} {tuple(codes.shape)} on "
                          f"{codes.device}")
+    if threads not in THREADS:
+        raise ValueError(f"threads must be in {THREADS}, got {threads}")
     m, k = codes.shape
     out = torch.empty((m, packed_width(k, bits)), dtype=torch.int32,
                       device=codes.device)
     if out.numel() == 0:
         return out
     fn = _build.function("pack_codes", "pack_codes_launch",
-                         [_P, _P, _I, _I, _I, _P])
-    err = fn(codes.data_ptr(), out.data_ptr(), m, k, bits,
+                         [_P, _P, _I, _I, _I, _I, _P])
+    err = fn(codes.data_ptr(), out.data_ptr(), m, k, bits, threads,
              torch.cuda.current_stream(codes.device).cuda_stream)
     if err:
         raise RuntimeError(f"pack_codes kernel launch failed: CUDA error {err}")

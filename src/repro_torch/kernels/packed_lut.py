@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/packed_lut.py::packed_lut_rerank_pallas``:
 float32 or bf16 tables [Q, F*P], candidate words int32 [Q, M, W] and
 their validity bool [Q, M] -> (scores float32, candidate positions int32)
 [Q, top_k], the stable top-k by LUT score; invalid candidates and empty
-slots are (-inf, -1).
+slots are (-inf, -1). The selection keeps only per-thread state and
+reads the scores from a device-memory scratch, so any top_k is answered.
 """
 from __future__ import annotations
 
@@ -13,9 +14,8 @@ import ctypes
 import torch
 
 __all__ = ["packed_lut_rerank_cuda", "check_tables", "TABLE_DTYPES",
-           "MAX_TOP_K", "launches"]
+           "launches"]
 
-MAX_TOP_K = 2048   # one block-wide selection round per output slot
 TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
@@ -61,8 +61,8 @@ def packed_lut_rerank_cuda(tables: torch.Tensor, cand_words: torch.Tensor,
                          f"[{nq}, {m}] on {cand_words.device}, got "
                          f"{cand_valid.dtype} {tuple(cand_valid.shape)} on "
                          f"{cand_valid.device}")
-    if not 1 <= top_k <= MAX_TOP_K:
-        raise ValueError(f"top_k must be in [1, {MAX_TOP_K}], got {top_k}")
+    if top_k < 1:
+        raise ValueError(f"top_k must be at least 1, got {top_k}")
     dev = cand_words.device
     scores = torch.empty((nq, top_k), dtype=torch.float32, device=dev)
     pos = torch.empty((nq, top_k), dtype=torch.int32, device=dev)

@@ -1,8 +1,8 @@
 """Wrapper of the coded-projection CUDA kernel (``csrc/coded_gemm.cu``).
 
 Counterpart of ``repro/kernels/proj_code.py::coded_project_pallas``:
-x float32 [M, D] @ r float32 [D, K] -> int32 codes [M, K], the projection
-never written to device memory.
+x float32 [M, D] @ r float32 or bf16 [D, K] -> int32 codes [M, K], the
+projection never written to device memory.
 """
 from __future__ import annotations
 
@@ -23,13 +23,15 @@ _I = ctypes.c_int
 
 
 def check_gemm_args(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec, q):
-    """Validates the GEMM kernels' inputs -> the offset pointer (or None)."""
-    for name, t in (("x", x), ("r", r)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 2 \
+    """Validates the GEMM kernels' inputs (x float32, r float32 or bf16)
+    -> the offset pointer (or None)."""
+    for name, t, dtypes in (("x", x, (torch.float32,)),
+                            ("r", r, (torch.float32, torch.bfloat16))):
+        if not t.is_cuda or t.dtype not in dtypes or t.dim() != 2 \
                 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D float32 CUDA "
-                             f"tensor, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
+            raise ValueError(f"{name} must be a contiguous 2-D CUDA tensor "
+                             f"of {[str(d) for d in dtypes]}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     if x.shape[1] != r.shape[0] or x.device != r.device:
         raise ValueError(f"x {tuple(x.shape)} and r {tuple(r.shape)} do not "
                          f"chain on one device")
@@ -62,9 +64,10 @@ def coded_project_cuda(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
     if m == 0 or k == 0:
         return out
     fn = _build.function("coded_gemm", "coded_project_launch",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+                         [_P, _P, _I, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                           _I, _P])
-    err = fn(x.data_ptr(), r.data_ptr(), q_ptr, out.data_ptr(), m, d, k,
+    err = fn(x.data_ptr(), r.data_ptr(), int(r.dtype == torch.bfloat16),
+             q_ptr, out.data_ptr(), m, d, k,
              SCHEME_IDS[spec.scheme], float(spec.w), spec.n_bins_side,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err:

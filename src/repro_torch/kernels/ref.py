@@ -20,11 +20,12 @@ from repro_torch.core import schemes as _schemes
 from repro_torch.core.schemes import CodeSpec
 
 __all__ = ["coded_project_ref", "pack_codes_ref", "encode_fused_ref",
-           "code_pack_ref", "csr_unit_step_ref",
+           "code_pack_ref", "csr_unit_step_ref", "collision_counts_ref",
            "packed_collision_ref", "topk_stable_ref", "packed_topk_ref",
            "packed_topk_masked_ref",
            "lut_scores_rowwise_ref", "lut_scores_rowwise_int8_ref",
-           "topk_scored_ref", "packed_lut_rerank_ref",
+           "topk_scored_ref", "packed_lut_topk_ref",
+           "packed_lut_topk_masked_ref", "packed_lut_rerank_ref",
            "coarse_survivor_mask_ref", "fused_scored_topk_ref",
            "fused_scored_topk_masked_ref", "two_stage_scored_ref",
            "two_stage_scored_masked_ref", "onehot_rows",
@@ -34,8 +35,9 @@ __all__ = ["coded_project_ref", "pack_codes_ref", "encode_fused_ref",
 
 def coded_project_ref(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
                       q=None) -> torch.Tensor:
-    """x [M, D] @ r [D, K] in float32 -> int32 codes [M, K]."""
-    return _schemes.encode(torch.matmul(x, r), spec, q)
+    """x [M, D] @ r [D, K] in float32 -> int32 codes [M, K] (a bf16 r
+    widens exactly, as the reference's float32-preferred dot does)."""
+    return _schemes.encode(torch.matmul(x, r.to(torch.float32)), spec, q)
 
 
 def pack_codes_ref(codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -84,6 +86,21 @@ def csr_unit_step_ref(acc: torch.Tensor, indptr: torch.Tensor,
         at = pos == j
         acc[rows[at]] = acc[rows[at]] + prods[at]
     return acc
+
+
+def collision_counts_ref(codes_q: torch.Tensor, codes_db: torch.Tensor,
+                         block_elems: int = 1 << 26) -> torch.Tensor:
+    """int32 codes [Q, K] x [N, K], any values -> int32 [Q, N] counts of
+    equal positions, over column blocks of at most ``block_elems``
+    (query, row, position) triples, so [Q, N, K] is never built."""
+    nq, k = codes_q.shape
+    n = codes_db.shape[0]
+    out = torch.empty((nq, n), dtype=torch.int32, device=codes_q.device)
+    step = max(1, block_elems // max(nq * k, 1))
+    for lo in range(0, n, step):
+        eq = codes_q[:, None, :] == codes_db[None, lo:lo + step, :]
+        out[:, lo:lo + step] = eq.sum(dim=2, dtype=torch.int32)
+    return out
 
 
 def packed_collision_ref(words_q: torch.Tensor, words_db: torch.Tensor,
@@ -154,20 +171,26 @@ def lut_scores_rowwise_ref(q_tables: torch.Tensor, cand_words: torch.Tensor,
                            bits: int) -> torch.Tensor:
     """Float tables [Q, F*P] x per-query candidate words [Q, M, W] ->
     float32 scores [Q, M]: one float32 add per field, in (word, field)
-    order, of the entry the field's code selects."""
+    order, of the entry the field's code selects. Words [M, W] are one
+    candidate list shared by every query (a corpus): each field is then
+    decoded once for all queries, with the same adds."""
     p, cpw = 1 << bits, 32 // bits
     n_words = cand_words.shape[-1]
     if q_tables.shape[-1] != n_words * cpw * p:
         raise ValueError(f"tables {tuple(q_tables.shape)} do not fit words "
                          f"{tuple(cand_words.shape)} at bits={bits}")
+    shared = cand_words.dim() == 2
     tab, u = q_tables.to(torch.float32), _packing.as_u32(cand_words)
-    score = torch.zeros(cand_words.shape[:-1], dtype=torch.float32,
+    shape = (q_tables.shape[0], cand_words.shape[0]) if shared \
+        else cand_words.shape[:-1]
+    score = torch.zeros(shape, dtype=torch.float32,
                         device=cand_words.device)
     for w in range(n_words):
         for f in range(cpw):
             c = (u[..., w] >> (f * bits)) & (p - 1)
-            col = (w * cpw + f) * p
-            score = score + torch.gather(tab[:, col:col + p], 1, c)
+            part = tab[:, (w * cpw + f) * p:(w * cpw + f + 1) * p]
+            score = score + (part[:, c] if shared
+                             else torch.gather(part, 1, c))
     return score
 
 
@@ -211,6 +234,58 @@ def topk_scored_ref(scores: torch.Tensor, top_k: int):
     vals, ids = vals[:, :top_k], ids[:, :top_k].to(torch.int32)
     return vals, torch.where(torch.isneginf(vals), torch.full_like(ids, -1),
                              ids)
+
+
+def _lut_topk_blocked(q_tables: torch.Tensor, words_db: torch.Tensor,
+                      live, bits: int, top_k: int, block_elems: int):
+    """Stable top-k by LUT score over the corpus, a column block at a
+    time: each block's rows are scored (``lut_scores_rowwise_ref`` on the
+    block's words, one list shared by every query), rows not ``live`` at
+    -inf, and merged into the running list by a stable sort of [running,
+    block]; running entries have the lower ids, so ties keep them."""
+    nq, n = q_tables.shape[0], words_db.shape[0]
+    dev = words_db.device
+    best_v = torch.full((nq, 0), float("-inf"), dtype=torch.float32,
+                        device=dev)
+    best_i = torch.full((nq, 0), -1, dtype=torch.int32, device=dev)
+    step = max(1, block_elems // max(nq, 1))
+    for lo in range(0, n, step):
+        blk = words_db[lo:lo + step]
+        sc = lut_scores_rowwise_ref(q_tables, blk, bits)
+        if live is not None:
+            sc = torch.where(live[None, lo:lo + step], sc,
+                             torch.full_like(sc, float("-inf")))
+        ids = torch.arange(lo, lo + blk.shape[0], dtype=torch.int32,
+                           device=dev).expand(nq, -1)
+        vals, pos = topk_scored_ref(torch.cat([best_v, sc], dim=1), top_k)
+        cat_i = torch.cat([best_i, ids], dim=1)
+        best_i = torch.gather(cat_i, 1, pos.clamp(min=0).to(torch.int64))
+        best_i = torch.where(pos < 0, torch.full_like(best_i, -1), best_i)
+        best_v = vals
+    if n == 0:
+        return topk_scored_ref(best_v, top_k)
+    return best_v, best_i
+
+
+def packed_lut_topk_ref(q_tables: torch.Tensor, words_db: torch.Tensor,
+                        bits: int, top_k: int, block_elems: int = 1 << 24):
+    """Full-corpus LUT-scored search: float tables [Q, F*P] x int32 words
+    [N, W] -> (scores float32, ids int32) [Q, top_k]: each row's score in
+    (word, field) order, the stable top-k (ties to the lowest id), empty
+    slots (-inf, -1). Column blocks of ``block_elems`` scores bound the
+    memory; [Q, N] is never built."""
+    return _lut_topk_blocked(q_tables, words_db, None, bits, top_k,
+                             block_elems)
+
+
+def packed_lut_topk_masked_ref(q_tables: torch.Tensor, words_db: torch.Tensor,
+                               valid_words: torch.Tensor, bits: int,
+                               top_k: int, block_elems: int = 1 << 24):
+    """``packed_lut_topk_ref`` over the live rows of ``valid_words`` int32
+    [ceil(N/32)]: dead rows score -inf and never surface."""
+    live = _packing.unpack_bitmask(valid_words, words_db.shape[0])
+    return _lut_topk_blocked(q_tables, words_db, live, bits, top_k,
+                             block_elems)
 
 
 def packed_lut_rerank_ref(q_tables: torch.Tensor, cand_words: torch.Tensor,

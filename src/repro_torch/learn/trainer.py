@@ -20,12 +20,20 @@ gradient evaluation; this module owns:
     the L2 term once. Labels are keyed by external id, so deletes,
     upserts and compaction never invalidate them.
 
+Observability, under the reference's names: each fit runs under a
+``learn.fit`` span and adds to ``learn.rows``, ``learn.steps`` and the
+``learn.fit_s`` histogram of the default registry (``fit_words`` also
+appends a ``learn.fit`` flight event); each minibatch step runs under a
+``learn.step`` span, timed into ``learn.step_s`` only under a deep
+tracer (whose span sync would otherwise serialise the steps).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: ``packed_grads_sharded`` and ``fit_words(mesh=...)`` (queue A item
-4, with ``search_sharded``), ``quality=`` (item 10). The reference's
-``repro.obs`` spans, counters and flight-recorder events wait for item 7.
+4, with ``search_sharded``), ``quality=`` (item 10).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -36,6 +44,8 @@ from repro_torch.learn.linear import (LearnConfig, PackedLinearModel,
                                       adam_update, full_batch_fit,
                                       packed_data_grads,
                                       packed_loss_and_grads, targets_pm)
+from repro_torch.obs import (deep_tracing_active, default_flight_recorder,
+                             default_registry, span)
 
 __all__ = ["fit_words", "fit_store", "fit_log", "packed_grads_sharded"]
 
@@ -75,13 +85,38 @@ def _fit_minibatch(words, y_pm, fspec, cfg):
     m = tuple(torch.zeros_like(p) for p in params)
     v = tuple(torch.zeros_like(p) for p in params)
     rng = np.random.default_rng(cfg.seed)
+    h_step = default_registry().histogram("learn.step_s")
+    traced = deep_tracing_active()
     for i in range(cfg.steps):
         idx = torch.from_numpy(rng.choice(n, size=cfg.batch,
                                           replace=False)).to(words.device)
-        g = packed_loss_and_grads(params, words[idx], y_pm[:, idx], fspec,
-                                  c=cfg.c, loss=cfg.loss, impl=cfg.impl)[1]
-        adam_update(params, m, v, g, i, cfg.steps, cfg.lr)
+        t0 = time.perf_counter()
+        with span("learn.step", step=i) as sp:
+            g = packed_loss_and_grads(params, words[idx], y_pm[:, idx],
+                                      fspec, c=cfg.c, loss=cfg.loss,
+                                      impl=cfg.impl)[1]
+            adam_update(params, m, v, g, i, cfg.steps, cfg.lr)
+            sp.sync(params)
+        if traced:
+            h_step.observe(time.perf_counter() - t0)
     return params
+
+
+def _finish(sp, tables: torch.Tensor, bias: torch.Tensor) -> None:
+    """Close a fit on its results: the span's sync, and a device sync
+    in any case, so ``learn.fit_s`` is an execution time."""
+    sp.sync((tables, bias))
+    if tables.is_cuda:
+        torch.cuda.synchronize(tables.device)
+
+
+def _count_fit(n: int, steps: int, t0: float) -> float:
+    reg = default_registry()
+    reg.counter("learn.rows").inc(n)
+    reg.counter("learn.steps").inc(steps)
+    t1 = time.perf_counter()
+    reg.histogram("learn.fit_s").observe(t1 - t0)
+    return t1
 
 
 def fit_words(words, y, spec, cfg: LearnConfig = LearnConfig(), *,
@@ -99,14 +134,21 @@ def fit_words(words, y, spec, cfg: LearnConfig = LearnConfig(), *,
     del axis
     fspec = _as_fspec(spec, k, normalize=normalize)
     y_pm = targets_pm(y, n_outputs, words.device)
-    if cfg.batch:
-        if valid_words is not None:
-            raise ValueError("minibatch + validity mask unsupported; "
-                             "train full-batch or drop dead rows")
-        tables, bias = _fit_minibatch(words, y_pm, fspec, cfg)
-    else:
-        tables, bias = full_batch_fit(words, y_pm, fspec, cfg,
-                                      valid_words=valid_words)
+    if cfg.batch and valid_words is not None:
+        raise ValueError("minibatch + validity mask unsupported; "
+                         "train full-batch or drop dead rows")
+    n = int(words.shape[0])
+    t0 = time.perf_counter()
+    with span("learn.fit", rows=n, steps=cfg.steps) as sp:
+        if cfg.batch:
+            tables, bias = _fit_minibatch(words, y_pm, fspec, cfg)
+        else:
+            tables, bias = full_batch_fit(words, y_pm, fspec, cfg,
+                                          valid_words=valid_words)
+        _finish(sp, tables, bias)
+    t1 = _count_fit(n, cfg.steps, t0)
+    default_flight_recorder().record("learn.fit", t0, t1, batch=n,
+                                     synced=True)
     return PackedLinearModel(fspec=fspec, tables=tables, bias=bias,
                              loss=cfg.loss)
 
@@ -181,6 +223,10 @@ def fit_log(store, labels, spec, cfg: LearnConfig = LearnConfig(), *,
             db = db + db_s
         return (dt + tables, db)
 
-    tables, bias = adam_cosine_train(params, grad_fn, cfg.steps, cfg.lr)
+    t0 = time.perf_counter()
+    with span("learn.fit", rows=store.n_live, steps=cfg.steps) as sp:
+        tables, bias = adam_cosine_train(params, grad_fn, cfg.steps, cfg.lr)
+        _finish(sp, tables, bias)
+    _count_fit(store.n_live, cfg.steps, t0)
     return PackedLinearModel(fspec=fspec, tables=tables, bias=bias,
                              loss=cfg.loss)

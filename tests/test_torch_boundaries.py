@@ -19,6 +19,17 @@ from repro_torch.kernels import ops
 from repro_torch.learn import (PackedFeatureSpec, PackedLinearModel,
                                expand_codes, train_dense_linear)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; torch's intra-op threads would
+    compete with them, so this file runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
 
@@ -137,12 +148,19 @@ def test_mutable_index_on_cpu_on_request(no_cuda, tmp_path):
     lambda x, r, c, w: ops.packed_linear_bwd_masked(
         torch.zeros(1, 4), w, torch.ones(1, dtype=torch.int32), 2,
         impl="kernel"),
+    lambda x, r, c, w: ops.collision_counts(c, c, impl="kernel"),
+    lambda x, r, c, w: ops.packed_lut_topk(torch.zeros(4, 128), w, 2, 3,
+                                           impl="kernel"),
+    lambda x, r, c, w: ops.packed_lut_topk_masked(
+        torch.zeros(4, 128), w, torch.ones(1, dtype=torch.int32), 2, 3,
+        impl="kernel"),
 ], ids=["coded_project", "encode_fused", "pack_codes", "packed_topk",
         "packed_collision_counts", "packed_lut_rerank", "fused_scored_topk",
         "packed_topk_masked", "fused_scored_topk_masked", "code_pack",
         "normal_unit", "normal_from_bits", "csr_unit_step",
         "packed_linear_fwd", "packed_linear_fwd_masked", "packed_linear_bwd",
-        "packed_linear_bwd_masked"])
+        "packed_linear_bwd_masked", "collision_counts", "packed_lut_topk",
+        "packed_lut_topk_masked"])
 def test_kernel_impl_on_cpu_raises(call):
     x, r = torch.zeros(4, 8), torch.zeros(8, 32)
     codes, words = torch.zeros(4, 32, dtype=torch.int32), torch.zeros(
@@ -168,3 +186,40 @@ def test_import_builds_nothing():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    timeout=120)
+
+
+def test_service_on_cpu_on_request(no_cuda):
+    """The serving front end runs where its engine runs; without a card
+    its warm-up's autotune sweep measures nothing and records nothing."""
+    from repro_torch.kernels import autotune
+    from repro_torch.serve import AnnService, AnnServiceConfig
+    crp = CodedRandomProjection(SketchConfig(k=64), 8, device="cpu")
+    eng = MutableAnnEngine(crp, tail_rows=32)
+    eng.ingest(np.eye(8, dtype=np.float32))
+    prev = autotune.set_cache(autotune.AutotuneCache())
+    try:
+        svc = AnnService(eng, AnnServiceConfig(buckets=(1, 8),
+                                               autotune_warmup=True))
+        svc.warmup(8)
+        assert len(autotune.default_cache()) == 0
+    finally:
+        autotune.set_cache(prev)
+    t = svc.submit(np.eye(8, dtype=np.float32)[3])
+    ids, _ = svc.flush()[t]
+    assert ids[0] == 3 and svc.stats["warmup_compiles"] == 2
+
+
+def test_tracing_never_blocks_on_request_traces():
+    """A span under a shallow request trace stays async; under a deep
+    tracer it syncs; with no tracer it records nothing."""
+    from repro_torch.obs import RequestTrace, Tracer, span
+    with span("none") as sp:
+        assert sp.sync(1) == 1
+    with RequestTrace(7) as rt:
+        with span("shallow") as sp:
+            sp.sync(torch.zeros(2))
+    with Tracer() as tr:
+        with span("deep") as sp:
+            sp.sync([torch.zeros(2), {"a": torch.ones(1)}])
+    assert rt.events[0]["args"] == {"sync": "async", "trace_id": 7}
+    assert tr.events[0]["args"] == {"sync": "device"}

@@ -12,6 +12,17 @@ from repro_torch.core import packing
 from repro_torch.core.schemes import CodeSpec
 from repro_torch.kernels import ops, ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; torch's intra-op threads would
+    compete with them, so this file runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.cuda
 
 
@@ -367,3 +378,201 @@ def test_fit_words_three_steps_bit_exact(gen):
     want = fit_words(words, y, spec, LearnConfig(steps=3, impl="ref"), k=256)
     assert _bits_equal(got.tables, want.tables)
     assert _bits_equal(got.bias, want.bias)
+
+
+# -- the serving slice: TPU kernels 15-17, the autotuner, the repairs ----------
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8, 16])
+def test_lut_topk_kernels_bit_exact(gen, bits, dtype):
+    k = 17 if bits == 16 else 40
+    for nq, n, top_k in ((9, 3000, 10), (5, 33, 50), (3, 31, 7), (2, 1, 3),
+                         (2, 0, 3)):
+        wq, wdb = _words(gen, nq, k, bits), _words(gen, n, k, bits)
+        tab, _ = _tables(gen, nq, wq.shape[1], bits, dtype)
+        assert _same(ops.packed_lut_topk(tab, wdb, bits, top_k,
+                                         impl="kernel"),
+                     ref.packed_lut_topk_ref(tab, wdb, bits, top_k))
+        for live_frac in (0.0, 0.1, 0.9, 1.0):
+            valid = _mask(gen, n, live_frac)
+            assert _same(ops.packed_lut_topk_masked(tab, wdb, valid, bits,
+                                                    top_k, impl="kernel"),
+                         ref.packed_lut_topk_masked_ref(tab, wdb, valid,
+                                                        bits, top_k))
+    # every row tied: ties go to the lowest ids
+    tab = torch.ones((2, tab.shape[1]), device="cuda")
+    wdb = _words(gen, 500, k, bits)
+    got = ops.packed_lut_topk(tab, wdb, bits, 20, impl="kernel")
+    assert _same(got, ref.packed_lut_topk_ref(tab, wdb, bits, 20))
+    assert got[1][0].tolist() == list(range(20))
+
+
+def test_collision_counts_kernel_on_any_codes(gen):
+    vals = torch.tensor([-2, -1, 0, 1, 7, 2 ** 31 - 1, -2 ** 31],
+                        device="cuda", dtype=torch.int32)
+    for nq, n, k in ((37, 3001, 100), (1, 1, 1), (130, 257, 256), (3, 0, 5),
+                     (0, 9, 4)):
+        cq = vals[torch.randint(0, 7, (nq, k), generator=gen, device="cuda")]
+        cdb = vals[torch.randint(0, 7, (n, k), generator=gen, device="cuda")]
+        want = ref.collision_counts_ref(cq, cdb)
+        for bq in (32, 64, 128):
+            for bn in (32, 64, 128):
+                got = ops.collision_counts(cq, cdb, impl="kernel", block_q=bq,
+                                           block_n=bn)
+                assert torch.equal(got, want)
+
+
+def _sweep_calls(gen):
+    """op -> a call of it with given knobs, on small tensors."""
+    from repro_torch.core.schemes import CodeSpec as Spec
+    bits, k, n, nq = 2, 64, 5000, 20
+    wq, wdb = _words(gen, nq, k, bits), _words(gen, n, k, bits)
+    valid = _mask(gen, n, 0.9)
+    tab, _ = _tables(gen, nq, wq.shape[1], bits, "f32")
+    codes = torch.randint(0, 4, (nq, k), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    z = torch.randn((777, k), generator=gen, device="cuda")
+    cdb = torch.randint(0, 4, (300, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return {
+        "pack_codes": lambda c: ops.pack_codes(codes, bits, **c),
+        "code_pack": lambda c: ops.code_pack(z, Spec("2bit", 0.75), **c),
+        "collision_counts": lambda c: ops.collision_counts(codes, cdb, **c),
+        "packed_collision_counts": lambda c: ops.packed_collision_counts(
+            wq, wdb, bits, k, **c),
+        "packed_topk": lambda c: ops.packed_topk(wq, wdb, bits, k, 10, **c),
+        "packed_topk_masked": lambda c: ops.packed_topk_masked(
+            wq, wdb, valid, bits, k, 10, **c),
+        "packed_lut_topk": lambda c: ops.packed_lut_topk(tab, wdb, bits, 10,
+                                                         **c),
+        "packed_lut_topk_masked": lambda c: ops.packed_lut_topk_masked(
+            tab, wdb, valid, bits, 10, **c),
+        "fused_scored_topk": lambda c: ops.fused_scored_topk(
+            wq, tab, wdb, bits, k, 64, 10, **c),
+        "fused_scored_topk_masked": lambda c: ops.fused_scored_topk_masked(
+            wq, tab, wdb, valid, bits, k, 64, 10, **c),
+    }
+
+
+def test_autotune_grid_is_bit_identical(gen):
+    """Every candidate of every swept op gives the default's bits, and a
+    measured sweep records a winner from the grid."""
+    from repro_torch.kernels import autotune
+    calls = _sweep_calls(gen)
+    assert set(calls) == set(autotune.SWEEPS)
+    for op, run in calls.items():
+        want = run({})
+        want = want if isinstance(want, tuple) else (want,)
+        for config in autotune.candidate_configs(op):
+            got = run(config)
+            assert _same(got if isinstance(got, tuple) else (got,), want), \
+                (op, config)
+    cache = autotune.AutotuneCache()
+    best = autotune.tune("packed_topk", calls["packed_topk"], torch.int32,
+                         dict(q=20, n=5000, w=4, top_k=10), cache=cache)
+    assert best in autotune.candidate_configs("packed_topk")
+    assert len(cache) == 1
+
+
+def test_topk_above_2048_on_the_card(gen):
+    bits, k, n, nq = 2, 64, 20000, 5
+    wq, wdb = _words(gen, nq, k, bits), _words(gen, n, k, bits)
+    valid = _mask(gen, n, 0.9)
+    tab, _ = _tables(gen, nq, wq.shape[1], bits, "f32")
+    assert _same(ops.packed_topk(wq, wdb, bits, k, 2049, impl="kernel"),
+                 ref.packed_topk_ref(wq, wdb, bits, k, 2049))
+    assert _same(ops.packed_topk_masked(wq, wdb, valid, bits, k, 4000,
+                                        impl="kernel"),
+                 ref.packed_topk_masked_ref(wq, wdb, valid, bits, k, 4000))
+    for m, top_k in ((2052, 513), (5000, 2100)):
+        assert _same(ops.fused_scored_topk(wq, tab, wdb, bits, k, m, top_k,
+                                           impl="kernel"),
+                     ref.fused_scored_topk_ref(wq, tab, wdb, bits, k, m,
+                                               top_k))
+        assert _same(ops.fused_scored_topk_masked(
+            wq, tab, wdb, valid, bits, k, m, top_k, impl="kernel"),
+            ref.fused_scored_topk_masked_ref(wq, tab, wdb, valid, bits, k, m,
+                                             top_k))
+    assert _same(ops.packed_lut_topk(tab, wdb, bits, 2049, impl="kernel"),
+                 ref.packed_lut_topk_ref(tab, wdb, bits, 2049))
+    cand = _words(gen, nq * 3000, k, bits).reshape(nq, 3000, -1)
+    cvalid = torch.rand((nq, 3000), generator=gen, device="cuda") > 0.2
+    assert _same(ops.packed_lut_rerank(tab, cand, cvalid, bits, 2500,
+                                       impl="kernel"),
+                 ref.packed_lut_rerank_ref(tab, cand, cvalid, bits, 2500))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(top_k=2049), dict(top_k=513, scored=True),
+    dict(top_k=10, rerank_m=2100, scored=True, fused=False),
+    dict(top_k=10, rerank_m=2100, scored=True, mode="lsh")])
+def test_engine_above_2048_matches_plain_versions(gen, kwargs):
+    from repro_torch.ann import AnnEngine, BandSpec
+    from repro_torch.ann.engine import SearchConfig
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    crp = CodedRandomProjection(SketchConfig(k=64), 32)
+    x = torch.randn((6000, 32), generator=gen, device="cuda")
+    eng = AnnEngine.build(crp, x, BandSpec(8, 4))
+    codes = eng.encode_queries(x[:6])
+    got = eng.search_codes(codes, SearchConfig(chunk_q=8, **kwargs))
+    want = eng.search_codes(codes, SearchConfig(chunk_q=8, impl="ref",
+                                                **kwargs))
+    assert _same(got, want)
+
+
+def test_bf16_draw_on_the_card(gen):
+    from repro_torch.core import prng
+    key = prng.fold_in(prng.PRNGKey(5), 9)
+    got = ops.normal_unit(key, 4096, 256, "cuda", impl="kernel",
+                          dtype=torch.bfloat16)
+    want = prng.normal(key, (4096, 256), dtype=torch.bfloat16)   # the CPU
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    m = (prng.random_bits(key, (4096, 256)) >> 1) & 127
+    assert torch.unique(m).numel() == 128                # all 128 uniforms
+
+
+@pytest.mark.parametrize("scheme,w", [("2bit", 0.75), ("offset", 1.0)])
+def test_bf16_sketch_kernels_match_plain(gen, scheme, w):
+    """bf16 R through the GEMMs, bf16 z through code_pack, and a bf16
+    sketch's regimes against ``impl="ref"`` (the GEMMs at bin edges
+    only)."""
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.encode import CsrMatrix, StreamingEncoder
+    spec = CodeSpec(scheme, w)
+    x = torch.randn((300, 96), generator=gen, device="cuda")
+    x = x / x.norm(dim=1, keepdim=True)
+    r = torch.randn((96, 100), generator=gen, device="cuda").to(torch.bfloat16)
+    q = (torch.rand((100,), generator=gen, device="cuda") * w).to(
+        torch.bfloat16) if scheme == "offset" else None
+    qf = None if q is None else q.float()
+    want = ref.coded_project_ref(x, r, spec, q)
+    near = _near_edge(torch.matmul(x, r.float()), spec, qf)
+    got = ops.coded_project(x, r, spec, q, impl="kernel")
+    assert not bool(((got != want) & ~near).any())
+    got = packing.unpack_codes(ops.encode_fused(x, r, spec, q, impl="kernel"),
+                               spec.bits, 100)
+    assert not bool(((got != want) & ~near).any())
+    z = (3.0 * torch.randn((777, 100), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    assert torch.equal(ops.code_pack(z, spec, q, impl="kernel"),
+                       ref.code_pack_ref(z, spec, q))
+    crp = CodedRandomProjection(SketchConfig(k=64, scheme=scheme, w=w,
+                                             dtype="bfloat16", r_unit=256),
+                                700)
+    xs = torch.randn((200, 700), generator=gen, device="cuda") / 700 ** 0.5
+    for cap in (1 << 24, 256 * 64):
+        enc = StreamingEncoder(crp, r_cap_elems=cap)
+        got = enc.encode_packed(xs)
+        want = enc.encode_packed(xs, impl="ref")
+        z = (enc.project(xs, impl="ref") if cap < 700 * 64
+             else torch.matmul(xs, enc.r_matrix().float()))
+        near = _near_edge(z.float(), spec, None if crp._offsets is None
+                          else crp._offsets.float())
+        diff = packing.unpack_codes(got, spec.bits, 64) != \
+            packing.unpack_codes(want, spec.bits, 64)
+        assert not bool((diff & ~near).any())
+    sp = xs * (torch.rand(xs.shape, generator=gen, device="cuda") < 0.05)
+    csr = CsrMatrix.from_dense(sp.cpu().numpy())
+    enc = StreamingEncoder(crp)
+    assert torch.equal(enc.encode_packed(csr), enc.encode_packed(csr,
+                                                                 impl="ref"))

@@ -26,6 +26,17 @@ from repro_torch.ann.engine import merge_topk, run_chunked
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
 from repro_torch.encode import StreamingEncoder
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; torch's intra-op threads would
+    compete with them, so this file runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 D, N, NQ = 96, 600, 33
 # the main path's scheme with a ragged last word, and the offset scheme
 # (the only one with offsets); the other schemes are covered code by code

@@ -54,6 +54,17 @@ from repro_torch.index.segment_log import _np_pack_bitmask
 from repro_torch.kernels import ops, ref
 from repro_torch.rank import build_rank_tables
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; torch's intra-op threads would
+    compete with them, so this file runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 D, K, BITS, TAIL = 16, 64, 2, 32
 
 

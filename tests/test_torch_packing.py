@@ -23,6 +23,17 @@ from repro_torch.core import packing as tpk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; torch's intra-op threads would
+    compete with them, so this file runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 J_PACK = jax.jit(jpk.pack_codes, static_argnums=1)
 J_UNPACK = jax.jit(jpk.unpack_codes, static_argnums=(1, 2))
 J_MISMATCH = jax.jit(jpk.mismatch_count_words, static_argnums=1)

@@ -15,6 +15,17 @@ from repro.core.sketch import SketchConfig as JaxCfg
 from repro_torch.core import prng
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; torch's intra-op threads would
+    compete with them, so this file runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = [0, 1, 2 ** 31 - 1]
 
 

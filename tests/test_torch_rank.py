@@ -23,6 +23,17 @@ from repro_torch.core.estimators import cell_probs, region_bounds
 from repro_torch.core.schemes import CodeSpec
 from repro_torch.rank import build_rank_tables
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; torch's intra-op threads would
+    compete with them, so this file runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the main path's table (2-bit, w = 0.75, k = 256) and the sign scheme's
 TABLE_CASES = [("2bit", 0.75, 256), ("sign", 1.0, 64)]
 

@@ -30,6 +30,17 @@ from repro_torch.core.estimators import rho_from_sign_collision as torch_rho_sig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; torch's intra-op threads would
+    compete with them, so this file runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 J_ENCODE = jax.jit(jsch.encode, static_argnums=1)
 J_CODED = jax.jit(jref.coded_project_ref, static_argnums=2)
 J_FUSED = jax.jit(jref.encode_fused_ref, static_argnums=2)

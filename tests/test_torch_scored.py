@@ -32,6 +32,17 @@ from repro_torch.ann.engine import SearchConfig
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
 from repro_torch.kernels import ops, ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU; torch's intra-op threads would
+    compete with them, so this file runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 D, N, NQ = 96, 600, 33
 CASES = [("2bit", 0.75, 100), ("offset", 1.0, 64)]
 
