@@ -28,11 +28,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes (the masked kernels on one 262,144-row segment and on the
    4,194,304 rows with 10 % dead): each kernel against its
    plain PyTorch version on the same inputs, on the card. Every kernel
-   but the two GEMMs must be bit-exact; the GEMMs may differ from
-   ``torch.matmul``'s float32 sum order only in fields whose reference
-   projection lies within 1e-5 of a bin edge. Each kernel is timed (CUDA
+   but the two GEMMs must be bit-exact; the GEMMs (3xTF32 on the tensor
+   cores) may differ from ``torch.matmul``'s float32 product only in
+   fields whose reference projection lies within 1e-5 of a bin edge, must
+   give the same bits on two launches, and ``encode_fused``'s words must
+   be the pack of ``coded_project``'s codes. Each kernel is timed (CUDA
    events, median of 10; 3 for the plain versions that build the whole
-   [256, 4,194,304] count matrix) beside its plain version and its bound.
+   [256, 4,194,304] count matrix) beside its plain version and its bound;
+   the GEMMs' bound is three TF32 tensor-core products a multiply-add at
+   495 TFLOP/s, printed beside the CUDA cores' float32 bound and
+   ``torch.matmul``, and ``coded_project`` is also timed at the serving
+   buckets M = 64 and 256.
 3. Main path at N = 4,194,304 rows, D = 1024, k = 256, 2-bit codes at
    w = 0.75: seeded Gaussian rows made on the card in 65,536-row chunks
    go through ``CodedRandomProjection.sketch`` into a ``CodeStore``;
@@ -182,6 +188,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # SM per clock).
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12      # dense tensor-core TF32
 INT32_OP_S = 132 * 64 * 1.98e9
 POPC_OP_S = 132 * 16 * 1.98e9
 SPIN_CYCLES = int(2e-3 * 1.98e9)   # 2 ms at the boost clock
@@ -391,7 +398,8 @@ def small_checks(device) -> None:
     for scheme, w in (("sign", 1.0), ("2bit", 0.75), ("uniform", 0.75),
                       ("offset", 1.0)):
         spec = CodeSpec(scheme, w)
-        for m, d, k in ((1000, 96, 100), (129, 1024, 256), (7, 33, 17)):
+        for m, d, k in ((1000, 96, 100), (129, 1024, 256), (7, 33, 17),
+                        (300, 33, 256)):
             x = unit_rows(m, d, gen, device)
             r = torch.randn((d, k), generator=gen, device=device)
             q = (sample_offsets(prng.PRNGKey(m), k, w).to(device)
@@ -401,15 +409,20 @@ def small_checks(device) -> None:
             got = ops.coded_project(x, r, spec, q, impl="kernel")
             n1 = check_codes(got, want, z, spec, q,
                              f"coded_project {scheme} {(m, d, k)}")
+            # deterministic, and one row codes alike in both kernels
+            if not torch.equal(got, ops.coded_project(
+                    x, r, spec, q, impl="kernel", r_split=ops.split_r(r))):
+                raise AssertionError(f"coded_project {(m, d, k)}: two "
+                                     f"launches differ")
             words = ops.encode_fused(x, r, spec, q, impl="kernel")
             if words.shape != (m, packing.packed_width(k, spec.bits)):
                 raise AssertionError(f"encode_fused shape {tuple(words.shape)}")
             n2 = check_codes(packing.unpack_codes(words, spec.bits, k), want,
                              z, spec, q, f"encode_fused {scheme} {(m, d, k)}")
-            # fields past k are zero: words repack from their own codes
-            if not torch.equal(words, packing.pack_codes(
-                    packing.unpack_codes(words, spec.bits, k), spec.bits)):
-                raise AssertionError("encode_fused: nonzero padding fields")
+            # fields past k are zero, and the words are coded_project's
+            if not torch.equal(words, packing.pack_codes(got, spec.bits)):
+                raise AssertionError(f"encode_fused {(m, d, k)}: words "
+                                     f"differ from coded_project's codes")
             log(f"check gemm {scheme:7s} m,d,k={m},{d},{k}: edge flips "
                 f"coded_project={n1} encode_fused={n2}")
     for bits in (1, 2, 4, 8, 16):
@@ -860,11 +873,28 @@ def kernel_phase(crp, device) -> dict:
     gen = torch.Generator(device=device).manual_seed(11)
     rows = {}
 
+    # the kernels as the encoder calls them: R split once, beside R
+    t0 = time.perf_counter()
+    r_split = crp.stream_encoder().r_split()
+    torch.cuda.synchronize()
+    split_ms = 1e3 * (time.perf_counter() - t0)
+    products = 2 if r.dtype == torch.bfloat16 else 3
+
+    def gemm_bounds(m, out_bytes):
+        """(the tensor-core bound: products TF32 products a multiply-add,
+        the CUDA cores' float32 bound) of one call at [m, D] x [D, K]."""
+        n_bytes = 4.0 * (m * D + D * K) + out_bytes(m)
+        flops = 2.0 * m * D * K
+        return (bound([("tf32", products * flops, TF32_FLOP_S)], n_bytes),
+                bound([("f32", flops, F32_FLOP_S)], n_bytes)[0])
+
     def gemm(name, m, fn_kernel, fn_plain, out_bytes):
         x = unit_rows(m, D, gen, device)
         z = torch.matmul(x, r)
         want = ref.coded_project_ref(x, r, spec, q)
         got = fn_kernel(x)
+        if not torch.equal(got, fn_kernel(x)):
+            raise AssertionError(f"{name}: two launches differ")
         if name == "encode_fused":
             got = packing.unpack_codes(got, bits, K)
         flips = check_codes(got, want, z, spec, q, name)
@@ -872,25 +902,46 @@ def kernel_phase(crp, device) -> dict:
         ms = time_ms(lambda: fn_kernel(x))
         plain_ms = time_ms(lambda: fn_plain(x))
         lib_ms = time_ms(lambda: torch.matmul(x, r))
-        b_ms, b_by, pipe = bound([("f32", 2.0 * m * D * K, F32_FLOP_S)],
-                                 4.0 * (m * D + D * K) + out_bytes(m))
-        log(f"kernel {name}: [{m},{D}]x[{D},{K}] edge flips {flips}/{m * K} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} gemm_library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}, {pipe})")
+        (b_ms, b_by, pipe), f32_ms = gemm_bounds(m, out_bytes)
+        log(f"kernel {name}: [{m},{D}]x[{D},{K}] edge flips {flips}/{m * K}, "
+            f"two launches bit-identical; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"gemm_library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+            f"{pipe} x{products}) f32_cuda_core_bound_ms={f32_ms:.4f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, bound_pipe=pipe, library_ms=None,
-                    gemm_library_ms=lib_ms, shape=[m, D, K], edge_flips=flips)
+                    bound_by=b_by, bound_pipe=f"{pipe} x{products}",
+                    library_ms=None, gemm_library_ms=lib_ms,
+                    f32_bound_ms=f32_ms, shape=[m, D, K], edge_flips=flips)
 
+    log(f"R split for the GEMM kernels (ops.split_r, once per R): "
+        f"{split_ms:.3f} ms")
     rows["encode_fused"] = gemm(
         "encode_fused", CHUNK,
-        lambda x: ops.encode_fused(x, r, spec, q, impl="kernel"),
+        lambda x: ops.encode_fused(x, r, spec, q, impl="kernel",
+                                   r_split=r_split),
         lambda x: ops.encode_fused(x, r, spec, q, impl="ref"),
         lambda m: 4.0 * m * w_words)
     rows["coded_project"] = gemm(
         "coded_project", N_QUERIES,
-        lambda x: ops.coded_project(x, r, spec, q, impl="kernel"),
+        lambda x: ops.coded_project(x, r, spec, q, impl="kernel",
+                                    r_split=r_split),
         lambda x: ops.coded_project(x, r, spec, q, impl="ref"),
         lambda m: 4.0 * m * K)
+    # the serving buckets' query coding
+    buckets = {}
+    for m in (64, 256):
+        x = unit_rows(m, D, gen, device)
+        check_codes(ops.coded_project(x, r, spec, q, impl="kernel",
+                                      r_split=r_split),
+                    ref.coded_project_ref(x, r, spec, q), torch.matmul(x, r),
+                    spec, q, f"coded_project M={m}")
+        ms = time_ms(lambda: ops.coded_project(x, r, spec, q, impl="kernel",
+                                               r_split=r_split))
+        lib_ms = time_ms(lambda: torch.matmul(x, r))
+        b_ms = gemm_bounds(m, lambda n: 4.0 * n * K)[0][0]
+        buckets[m] = dict(ms=ms, gemm_library_ms=lib_ms, bound_ms=b_ms)
+        log(f"kernel coded_project at the serving bucket [{m},{D}]x[{D},{K}]: "
+            f"ms={ms:.4f} gemm_library_ms={lib_ms:.4f} bound_ms={b_ms:.5f}")
+    rows["coded_project"]["buckets"] = buckets
 
     codes = torch.randint(0, 1 << bits, (CHUNK_Q, K), generator=gen,
                           device=device, dtype=torch.int32)

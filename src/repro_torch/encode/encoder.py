@@ -3,9 +3,10 @@
 Counterpart of ``repro/encode/encoder.py:52-174``, in three regimes:
 
 * R-resident (``d * k`` at most ``r_cap_elems``): R is drawn once from
-  its canonical units, cached on the sketcher's device, and every dense
-  batch runs one kernel: the fused project -> code -> pack for the
-  corpus, the fused project -> code for queries.
+  its canonical units, cached on the sketcher's device with the GEMM
+  kernels' split of it (``r_split``), and every dense batch runs one
+  kernel: the fused project -> code -> pack for the corpus, the fused
+  project -> code for queries.
 * Matrix-free (above the cap; the paper's URL width, where R would be
   3.3 GB): dense batches stream over D unit by unit, each unit drawn on
   the device where it is used (``CodedRandomProjection.project``), into
@@ -20,9 +21,10 @@ Counterpart of ``repro/encode/encoder.py:52-174``, in three regimes:
 
 The streamed and CSR regimes finalize with the code-and-pack kernel
 (``ops.code_pack``). They sum in the unit order of the ``core.sketch``
-oracle; the fused kernel sums its GEMM in its own order, so the regimes
-agree except where a projection lies within float32 rounding of a bin
-edge. The data-parallel ``encode_sharded`` is ROADMAP queue A item 4 and
+oracle; the fused kernels take the product as three TF32 tensor-core
+products in their own order (about 1e-6 from the float32 product for
+unit rows), so the regimes agree except where a projection lies that
+close to a bin edge. The data-parallel ``encode_sharded`` is ROADMAP queue A item 4 and
 is not ported.
 """
 from __future__ import annotations
@@ -59,6 +61,7 @@ class StreamingEncoder:
         self.sketcher = sketcher
         self.r_cap_elems = int(r_cap_elems)
         self._rmat = None
+        self._rsplit = None     # (R it was split from, ops.split_r(R))
 
     # -- R residency ---------------------------------------------------------
     @property
@@ -87,6 +90,17 @@ class StreamingEncoder:
             self._rmat = torch.cat([s._block_r(u, s.unit_width(u))
                                     for u in range(s.n_units)])
         return self._rmat
+
+    def r_split(self):
+        """The GEMM kernels' prepared R (``ops.split_r``: R^T in TF32 hi
+        and lo planes), made once per R and cached beside it; None off
+        the card, where the plain versions take R itself."""
+        r = self.r_matrix()
+        if r.device.type != "cuda":
+            return None
+        if self._rsplit is None or self._rsplit[0] is not r:
+            self._rsplit = (r, _ops.split_r(r))
+        return self._rsplit[1]
 
     # -- streaming -----------------------------------------------------------
     def project(self, x, impl: str = "auto") -> torch.Tensor:
@@ -125,7 +139,8 @@ class StreamingEncoder:
         s = self.sketcher
         if not isinstance(x, CsrMatrix) and self.r_resident:
             return _ops.encode_fused(s.as_input(x), self.r_matrix(), s.spec,
-                                     s._offsets, impl=impl)
+                                     s._offsets, impl=impl,
+                                     r_split=self.r_split())
         return _ops.code_pack(self.project(x, impl=impl), s.spec, s._offsets,
                               impl=impl)
 
@@ -136,7 +151,8 @@ class StreamingEncoder:
         s = self.sketcher
         if not isinstance(x, CsrMatrix) and self.r_resident:
             return _ops.coded_project(s.as_input(x), self.r_matrix(), s.spec,
-                                      s._offsets, impl=impl)
+                                      s._offsets, impl=impl,
+                                      r_split=self.r_split())
         return s.encode_projected(self.project(x, impl=impl))
 
     @property

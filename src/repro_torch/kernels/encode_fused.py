@@ -4,9 +4,9 @@
 
 Counterparts of ``repro/kernels/encode_fused.py``:
 ``encode_fused_pallas``, x float32 [M, D] @ r float32 or bf16 [D, K]
-(bf16 widened on load) -> packed
-words [M, ceil(K*b/32)] (int32 bit-views of uint32), neither projections
-nor codes reaching device memory; and ``code_pack_pallas``, projected z
+(3xTF32 on the tensor cores, as ``proj_code``) -> packed words
+[M, ceil(K*b/32)] (int32 bit-views of uint32), neither projections nor
+codes reaching device memory; and ``code_pack_pallas``, projected z
 float32 or bf16 [M, K] -> the same words, the finalize of every
 streamed and CSR chunk (``threads`` a block is its launch knob).
 """
@@ -19,8 +19,8 @@ import torch
 from repro_torch.core.packing import packed_width
 from repro_torch.core.schemes import CodeSpec
 from repro_torch.kernels.pack_codes import THREADS
-from repro_torch.kernels.proj_code import (SCHEME_IDS, check_gemm_args,
-                                           check_offsets)
+from repro_torch.kernels.proj_code import (SCHEME_IDS, check_offsets,
+                                           launch_gemm)
 
 __all__ = ["encode_fused_cuda", "code_pack_cuda", "launches",
            "code_pack_launches"]
@@ -34,27 +34,15 @@ _I = ctypes.c_int
 
 
 def encode_fused_cuda(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
-                      q=None) -> torch.Tensor:
-    """Launches the fused encode kernel -> int32 words [M, W]."""
+                      q=None, *, r_split=None) -> torch.Tensor:
+    """Launches the fused encode kernel -> int32 words [M, W];
+    ``r_split`` is ``proj_code.split_r(r)`` (split for this call when
+    None)."""
     global launches
-    from repro_torch.kernels import _build
-    q_ptr = check_gemm_args(x, r, spec, q)
-    m, d = x.shape
-    k = r.shape[1]
-    out = torch.empty((m, packed_width(k, spec.bits)), dtype=torch.int32,
-                      device=x.device)
-    if m == 0 or k == 0:
-        return out
-    fn = _build.function("coded_gemm", "encode_fused_launch",
-                         [_P, _P, _I, _P, _P, _I, _I, _I, _I, ctypes.c_float,
-                          _I, _I, _P])
-    err = fn(x.data_ptr(), r.data_ptr(), int(r.dtype == torch.bfloat16),
-             q_ptr, out.data_ptr(), m, d, k,
-             SCHEME_IDS[spec.scheme], float(spec.w), spec.n_bins_side,
-             spec.bits, torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"encode_fused kernel launch failed: CUDA error {err}")
-    launches += 1
+    out = torch.empty((x.shape[0], packed_width(r.shape[1], spec.bits)),
+                      dtype=torch.int32, device=x.device)
+    if launch_gemm(x, r, spec, q, r_split, out, spec.bits, "encode_fused"):
+        launches += 1
     return out
 
 

@@ -41,7 +41,8 @@ from repro_torch.kernels import proj_code as _proj_code
 from repro_torch.kernels import ref as _ref
 from repro_torch.obs import kernelstats as _kstats
 
-__all__ = ["coded_project", "encode_fused", "code_pack", "normal_unit",
+__all__ = ["coded_project", "encode_fused", "split_r", "code_pack",
+           "normal_unit",
            "normal_from_bits", "csr_unit_step", "pack_codes",
            "collision_counts", "packed_topk", "packed_topk_masked",
            "packed_collision_counts", "packed_lut_topk",
@@ -50,6 +51,8 @@ __all__ = ["coded_project", "encode_fused", "code_pack", "normal_unit",
            "packed_linear_fwd_masked", "packed_linear_bwd",
            "packed_linear_bwd_masked", "launch_counts",
            "reset_launch_counts"]
+
+split_r = _proj_code.split_r
 
 # wrapper name -> (module, its launch counter)
 _WRAPPERS = {"coded_project": (_proj_code, "launches"),
@@ -108,27 +111,31 @@ def _as_f32(q):
 
 
 def coded_project(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec, q=None,
-                  impl: str = "auto") -> torch.Tensor:
+                  impl: str = "auto", *, r_split=None) -> torch.Tensor:
     """encode(x @ r): float32 [M, D] x float32 or bf16 [D, K] -> int32
-    codes [M, K]."""
+    codes [M, K]. ``r_split`` (``split_r(r)``, the kernel's prepared R;
+    the plain version ignores it) saves the kernel splitting R for the
+    call."""
     _kstats.record("coded_project", m=x.shape[0], d=x.shape[1],
                    k=r.shape[1])
     if _use_kernel(impl, x):
         return _proj_code.coded_project_cuda(x.contiguous(), r.contiguous(),
-                                             spec, _as_f32(q))
+                                             spec, _as_f32(q),
+                                             r_split=r_split)
     return _ref.coded_project_ref(x, r, spec, q)
 
 
 def encode_fused(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec, q=None,
-                 impl: str = "auto") -> torch.Tensor:
+                 impl: str = "auto", *, r_split=None) -> torch.Tensor:
     """pack(encode(x @ r)): float32 [M, D] x float32 or bf16 [D, K] ->
-    int32 words [M, ceil(K*b/32)], the one-kernel ingest path."""
+    int32 words [M, ceil(K*b/32)], the one-kernel ingest path;
+    ``r_split`` as for ``coded_project``."""
     _kstats.record("encode_fused", m=x.shape[0], d=x.shape[1], k=r.shape[1],
                    w=_packed_width(r.shape[1], spec.bits))
     if _use_kernel(impl, x):
         return _encode_fused.encode_fused_cuda(x.contiguous(),
                                                r.contiguous(), spec,
-                                               _as_f32(q))
+                                               _as_f32(q), r_split=r_split)
     return _ref.encode_fused_ref(x, r, spec, q)
 
 

@@ -19,7 +19,8 @@ from repro_torch.core import packing as _packing
 from repro_torch.core import schemes as _schemes
 from repro_torch.core.schemes import CodeSpec
 
-__all__ = ["coded_project_ref", "pack_codes_ref", "encode_fused_ref",
+__all__ = ["coded_project_ref", "tf32_split", "pack_codes_ref",
+           "encode_fused_ref",
            "code_pack_ref", "csr_unit_step_ref", "collision_counts_ref",
            "packed_collision_ref", "topk_stable_ref", "packed_topk_ref",
            "packed_topk_masked_ref",
@@ -38,6 +39,25 @@ def coded_project_ref(x: torch.Tensor, r: torch.Tensor, spec: CodeSpec,
     """x [M, D] @ r [D, K] in float32 -> int32 codes [M, K] (a bf16 r
     widens exactly, as the reference's float32-preferred dot does)."""
     return _schemes.encode(torch.matmul(x, r.to(torch.float32)), spec, q)
+
+
+def _rna_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value, ties away from zero, as float32
+    (``cvt.rna.tf32.f32``): the low 13 mantissa bits rounded off on the
+    int32 view of a finite value."""
+    b = t.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor):
+    """float32 or bf16 t -> (hi, lo), float32 with TF32 values: hi =
+    rna_tf32(t), lo = rna_tf32(t - hi), ``t - hi`` exact. The GEMM
+    kernels take x @ r as lo_x @ hi_r + hi_x @ lo_r + hi_x @ hi_r; a
+    bf16 t is exact in TF32, so its lo is zero. Preparation of an
+    operand, not a kernel."""
+    t = t.to(torch.float32)
+    hi = _rna_tf32(t)
+    return hi, _rna_tf32(t - hi)
 
 
 def pack_codes_ref(codes: torch.Tensor, bits: int) -> torch.Tensor:

@@ -44,22 +44,44 @@ def _near_edge(z, spec, q):
     return d <= 1e-5
 
 
+# bits 1, 2, 4, 4, 8 and 16 for encode_fused
 @pytest.mark.parametrize("scheme,w", [("sign", 1.0), ("2bit", 0.75),
-                                      ("uniform", 0.75), ("offset", 1.0)])
+                                      ("uniform", 0.75), ("offset", 1.0),
+                                      ("uniform", 0.1), ("uniform", 0.01)])
 def test_gemm_kernels_match_plain(gen, scheme, w):
+    """The 3xTF32 GEMM kernels against the float32 plain version at the
+    shapes their tiles and loads must survive: M across one and many
+    row blocks, D % 4 != 0 (the cp.async load) and D % 4 == 0 (TMA), K
+    across column blocks; float32 and bf16 R, the prepared R passed and
+    absent; two launches bit-identical, and coded_project equal to the
+    unpacked words of encode_fused."""
     spec = CodeSpec(scheme, w)
-    x = torch.randn((300, 96), generator=gen, device="cuda")
-    x = x / x.norm(dim=1, keepdim=True)
-    r = torch.randn((96, 100), generator=gen, device="cuda")
-    q = torch.rand((100,), generator=gen, device="cuda") * w \
-        if scheme == "offset" else None
-    want = ref.coded_project_ref(x, r, spec, q)
-    near = _near_edge(torch.matmul(x, r), spec, q)
-    got = ops.coded_project(x, r, spec, q, impl="kernel")
-    assert not bool(((got != want) & ~near).any())
-    words = ops.encode_fused(x, r, spec, q, impl="kernel")
-    got = packing.unpack_codes(words, spec.bits, 100)
-    assert not bool(((got != want) & ~near).any())
+    for m in (1, 7, 64, 129, 300, 1024):
+        for d in (33, 96, 1024):
+            for k in (17, 100, 256):
+                x = torch.randn((m, d), generator=gen, device="cuda")
+                x = x / x.norm(dim=1, keepdim=True)
+                r32 = torch.randn((d, k), generator=gen, device="cuda")
+                q = torch.rand((k,), generator=gen, device="cuda") * w \
+                    if scheme == "offset" else None
+                for r in (r32, r32.to(torch.bfloat16)):
+                    z = torch.matmul(x, r.float())
+                    want = ref.coded_project_ref(x, r, spec, q)
+                    near = _near_edge(z, spec, q)
+                    split = ops.split_r(r)
+                    got = ops.coded_project(x, r, spec, q, impl="kernel")
+                    assert not bool(((got != want) & ~near).any())
+                    assert torch.equal(got, ops.coded_project(
+                        x, r, spec, q, impl="kernel", r_split=split))
+                    words = ops.encode_fused(x, r, spec, q, impl="kernel",
+                                             r_split=split)
+                    assert words.shape == (m, packing.packed_width(
+                        k, spec.bits))
+                    assert torch.equal(words, ops.encode_fused(
+                        x, r, spec, q, impl="kernel"))
+                    # fields past k are zero and every row codes alike
+                    assert torch.equal(words, packing.pack_codes(got,
+                                                                 spec.bits))
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8, 16])
