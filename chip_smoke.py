@@ -21,7 +21,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the backward's partials folded in groups; for the LUT top-k
    kernels bits 1/2/4/8/16 with float32 and bf16 tables at N = 0, 1,
    31, 33 and 3,000, top_k above the live rows, the same masks, all rows
-   tied; the unpacked count kernel on int32 codes of any value at every
+   tied, and the grid of the fields kernel (Q around its query blocks, N
+   ragged against its tiles, every S and QB given, 4-bit tables at the
+   largest k it takes and one past it; every default launch twice);
+   the unpacked count kernel on int32 codes of any value at every
    tile; top_k and rerank_m above 2048 in every top-k kernel; the bf16
    draw against the CPU's prng on whole units and all 128 uniforms, bf16
    R through the GEMMs and bf16 z through code_pack), then the main path's
@@ -163,8 +166,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     cache hit rate, padding waste, classify rows/s, the sweep's seconds
     and each winner against the default. TPU kernels 15-17 are also
     timed at the main path's shapes in phase 2 (256 queries, tables
-    [256, 1,024], 4,194,304 rows, top_k 10, 10 % dead for the masked
-    one; 256 x 4,194,304 codes at k = 256 for the count kernel, beside
+    [256, 1,024] in float32 and in bf16, each QB of the fields kernel
+    with its S, grid, resident blocks an SM and waves, 4,194,304 rows,
+    top_k 10, 10 % dead for the masked one, against one float add a
+    query, live row and field at 128 adds a clock an SM; 256 x 4,194,304
+    codes at k = 256 for the count kernel, beside
     ``k - torch.cdist(q, db, p=0)``).
 12. A ``kernels`` JSON line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -175,6 +181,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -184,10 +191,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet; CUDA C Programming
 # Guide throughput table for compute capability 9.0 at 132 SMs and the
-# 1.98 GHz boost clock: 64 int32 add/logic/shift and 16 popc results per
-# SM per clock).
+# 1.98 GHz boost clock: 128 float32 adds, 64 int32 add/logic/shift and 16
+# popc results per SM per clock). F32_FLOP_S counts a multiply-add as two
+# operations; a bound that counts float adds takes F32_ADD_S.
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+F32_ADD_S = 132 * 128 * 1.98e9
 TF32_FLOP_S = 495e12      # dense tensor-core TF32
 INT32_OP_S = 132 * 64 * 1.98e9
 POPC_OP_S = 132 * 16 * 1.98e9
@@ -1059,7 +1068,7 @@ def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
                                       impl="kernel"),
         lambda: ref.packed_lut_rerank_ref(q_tab, cand, valid, bits, TOP_K),
         ref.packed_lut_rerank_ref(q_tab, cand, valid, bits, TOP_K),
-        bound([("f32", lookups, F32_FLOP_S)],
+        bound([("f32 add", lookups, F32_ADD_S)],
               4.0 * nq * (fp + RERANK_M * w_words + 2 * TOP_K)
               + nq * RERANK_M),
         [nq, RERANK_M, w_words, TOP_K])
@@ -2202,7 +2211,7 @@ def learn_kernel_phase(rows, words, device) -> None:
             lib_ms = time_ms(fn_lib)
             ms = time_ms(fn_k)
             plain_ms = time_ms(fn_p, reps=3, warmup=1)
-            b_ms, b_by, pipe = bound([("f32", adds[masked], F32_FLOP_S)],
+            b_ms, b_by, pipe = bound([("f32 add", adds[masked], F32_ADD_S)],
                                      words_b[masked] + other_b)
             log(f"kernel {name}: [C={c}, N={n}, W={w}] live "
                 f"{n_live if masked else n} bit-exact ms={ms:.4f} "
@@ -2482,14 +2491,17 @@ def serve_checks(device) -> None:
     kernel against its plain version, bit for bit: the LUT top-k kernels
     over bits 1/2/4/8/16 x float32 and bf16 tables x N 0/1/31/33/3,000
     (top_k above the live rows) x all, none, 10 % and 90 % of the rows
-    dead, and all rows tied; the count kernel on int32 codes of any value
+    dead, and all rows tied; then the fields kernel's grid (Q 1, 7, 8, 9,
+    17 and 300, N 1,000 and 2,081, S 1, 3 and 64 and QB 8 and 16 given,
+    4-bit tables at k = 256 and 264, top_k 1,500; every default launch
+    twice); the count kernel on int32 codes of any value
     at every tile size; top_k and rerank_m above 2048 in every top-k
     kernel; the bf16 draw (whole units, all 128 uniforms) against the
     CPU's prng; bf16 R through the GEMMs and bf16 z through code_pack."""
     import torch
     from repro_torch.core import packing, prng
     from repro_torch.core.schemes import CodeSpec
-    from repro_torch.kernels import collision, ops, ref
+    from repro_torch.kernels import collision, lut_topk, ops, ref
     gen = torch.Generator(device=device).manual_seed(16)
 
     def words(n, k, bits):
@@ -2536,6 +2548,64 @@ def serve_checks(device) -> None:
           "all rows tied")
     if got[1][0].tolist() != list(range(20)):
         raise AssertionError("tied LUT scores did not go to the lowest ids")
+
+    # the fields kernel's grid: Q around its blocks of 8 and 16, N ragged
+    # against its 256-row tiles and 32-row offers, S and QB given, 4-bit
+    # tables at k = 256 (the largest it takes; at top_k 1,500 its lists
+    # live in device memory) and at k = 264 (the generic kernel's)
+    def lut(tab, wdb, vw, bits, top_k, **kw):
+        if vw is None:
+            return ops.packed_lut_topk(tab, wdb, bits, top_k, impl="kernel",
+                                       **kw)
+        return ops.packed_lut_topk_masked(tab, wdb, vw, bits, top_k,
+                                          impl="kernel", **kw)
+
+    t1, n_calls = time.perf_counter(), 0
+    for bits, k, top_k, ns in ((1, 40, 10, (2081,)), (2, 40, 10, (1000, 2081)),
+                               (4, 40, 10, (2081,)), (2, 256, 10, (2081,)),
+                               (4, 256, 10, (2081,)), (4, 256, 1500, (2081,)),
+                               (4, 264, 10, (2081,))):
+        w = packing.packed_width(k, bits)
+        kernel = "generic" if k == 264 else "fields"
+        for n in ns:
+            wdb, vw = words(n, k, bits), mask(n, 0.1)
+            for nq in (1, 7, 8, 9, 17, 300):
+                p = lut_topk.plan(torch.float32, nq, n, w, bits, top_k,
+                                  device=device)
+                if p["kernel"] != kernel:
+                    raise AssertionError(f"bits {bits}, k {k}: the {p['kernel']}"
+                                         f" kernel, not the {kernel} one")
+                for dtype in (torch.float32, torch.bfloat16):
+                    tab = tables(nq, k, bits, dtype)
+                    for valid in (None, vw):
+                        want = ref.packed_lut_topk_ref(
+                            tab, wdb, bits, top_k) if valid is None else \
+                            ref.packed_lut_topk_masked_ref(tab, wdb, valid,
+                                                           bits, top_k)
+                        first = lut(tab, wdb, valid, bits, top_k)
+                        what = (bits, k, nq, n, top_k, dtype, valid is None)
+                        check("packed_lut_topk", first, want, *what)
+                        check("packed_lut_topk", lut(tab, wdb, valid, bits,
+                                                     top_k), first,
+                              "a second launch", *what)
+                        for s in (None, 1, 3, 64):
+                            for qb in (None, 8, 16):
+                                if s is None and qb is None:
+                                    continue
+                                try:
+                                    got = lut(tab, wdb, valid, bits, top_k,
+                                              n_ranges=s, block_q=qb)
+                                except ValueError:
+                                    if lut_topk.fields_layout(
+                                            w, bits, top_k, qb) is None:
+                                        continue   # a QB that cannot fit
+                                    raise
+                                check("packed_lut_topk", got, want, s, qb,
+                                      *what)
+                                n_calls += 1
+    log(f"small checks, the LUT top-k's grid: {n_calls} launches at given "
+        f"S and QB bit-exact, every default launch twice "
+        f"({time.perf_counter() - t1:.1f} s)")
     vals = torch.tensor([-2, -1, 0, 1, 7, 2 ** 31 - 1, -2 ** 31],
                         device=device, dtype=torch.int32)
     for nq, n, k in ((37, 3001, 100), (1, 1, 1), (130, 257, 256), (3, 0, 5)):
@@ -2626,25 +2696,99 @@ def serve_checks(device) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def lut_kernel_rows(rows, q_tab, wdb, valid, n_live, bits) -> None:
+    """Rows 15-16 (the LUT top-k, plain and masked) at the main path's
+    shapes: bit-exact against the plain version, two launches alike, the
+    default launch timed (its plan logged: kernel, QB, S, grid, resident
+    blocks an SM, waves) beside the plain version and the float-add bound;
+    then each QB of ``lut_topk.BLOCK_Q`` with float32 tables and with
+    their bf16 rounding, each held against its plain version."""
+    import torch
+    from repro_torch.kernels import lut_topk, ops, ref
+    nq, fp = q_tab.shape
+    n, w_words = wdb.shape
+    fields = w_words * (32 // bits)
+    n_bytes = 4.0 * (n * w_words + nq * fp + 2 * nq * TOP_K)
+    tabs = {"f32": q_tab, "bf16": q_tab.to(torch.bfloat16)}
+    # the least work: one float add a (query, live row, field); each field
+    # is decoded once for all queries, and the corpus and tables read once
+    for name, vw, live in (("packed_lut_topk", None, n),
+                           ("packed_lut_topk_masked", valid, n_live)):
+        t0 = time.perf_counter()
+
+        def run(tab, vw=vw, **kw):
+            if vw is None:
+                return ops.packed_lut_topk(tab, wdb, bits, TOP_K,
+                                           impl="kernel", **kw)
+            return ops.packed_lut_topk_masked(tab, wdb, vw, bits, TOP_K,
+                                              impl="kernel", **kw)
+
+        def plain(tab, vw=vw):
+            if vw is None:
+                return ref.packed_lut_topk_ref(tab, wdb, bits, TOP_K)
+            return ref.packed_lut_topk_masked_ref(tab, wdb, vw, bits, TOP_K)
+
+        b_ms, b_by, pipe = bound(
+            [("f32 add", float(nq) * live * fields, F32_ADD_S)],
+            n_bytes + (0 if vw is None else n / 8))
+        variants = {}
+        for dt, tab in tabs.items():
+            want = plain(tab)
+            got = run(tab)
+            if not (same(got, want) and same(run(tab), got)):
+                raise AssertionError(f"{name} ({dt} tables) differs from its "
+                                     f"plain version or between launches")
+            if dt == "f32":
+                plan = lut_topk.plan(tab.dtype, nq, n, w_words, bits, TOP_K,
+                                     device=wdb.device)
+                ms = time_ms(lambda: run(tab))
+                plain_ms = time_ms(lambda: plain(tab), reps=3, warmup=1)
+            for qb in lut_topk.BLOCK_Q:
+                p = lut_topk.plan(tab.dtype, nq, n, w_words, bits, TOP_K,
+                                  block_q=qb, device=wdb.device)
+                if not same(run(tab, block_q=qb), want):
+                    raise AssertionError(f"{name} ({dt} tables, QB {qb}) "
+                                         f"differs from its plain version")
+                v_ms = time_ms(lambda: run(tab, block_q=qb))
+                variants[f"{dt} QB {qb}"] = dict(
+                    ms=v_ms, n_ranges=p["n_ranges"], grid=list(p["grid"]),
+                    blocks_per_sm=p["blocks_per_sm"], waves=p["waves"],
+                    smem=p["smem"])
+                log(f"kernel {name} {dt} tables QB={qb}: S={p['n_ranges']} "
+                    f"grid={list(p['grid'])} blocks/SM={p['blocks_per_sm']} "
+                    f"smem={p['smem']} B waves={p['waves']:.3f} bit-exact "
+                    f"ms={v_ms:.4f}")
+            del want, got
+        rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe,
+                          library_ms=None, shape=[nq, n, w_words, TOP_K],
+                          live_rows=live, plan=dict(plan, grid=list(
+                              plan["grid"])), variants=variants)
+        log(f"kernel {name}: {[nq, n, w_words, TOP_K]} live {live} "
+            f"{plan['kernel']} kernel QB={plan['block_q']} "
+            f"S={plan['n_ranges']} grid={list(plan['grid'])} "
+            f"blocks/SM={plan['blocks_per_sm']} waves={plan['waves']:.3f}; "
+            f"bit-exact, two launches alike, bf16 tables bit-exact; "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}, {pipe}); phase {time.perf_counter() - t0:.1f} s")
+
+
 def serve_kernel_phase(rows, crp, codes_q, wq, wdb, gen) -> None:
     """TPU kernels 15-17 at the main path's shapes, on the packed_topk
     phase's queries and 4,194,304-row corpus: the LUT top-k with the
-    sketcher's float32 tables [256, 1,024] (and 10 % dead for the masked
-    one), and the unpacked count kernel on 256 x 4,194,304 codes at
-    k = 256 (yardstick ``k - torch.cdist(q, db, p=0)``, exact for
-    integer codes)."""
+    sketcher's float32 tables [256, 1,024] and their bf16 rounding (and
+    10 % dead for the masked one; ``lut_kernel_rows``), and the unpacked
+    count kernel on 256 x 4,194,304 codes at k = 256 (yardstick
+    ``k - torch.cdist(q, db, p=0)``, exact for integer codes)."""
     import torch
     from repro_torch.core import packing
     from repro_torch.kernels import ops, ref
     from repro_torch.rank import build_rank_tables
     bits, nq = crp.spec.bits, CHUNK_Q
-    w_words = packing.packed_width(K, bits)
-    fields = w_words * (32 // bits)
     q_tab = build_rank_tables(crp).query_tables(codes_q)
-    fp = q_tab.shape[1]
     live = torch.rand((N_ROWS,), generator=gen, device=wdb.device) >= 0.1
-    valid = packing.pack_bitmask(live)
-    n_live = int(live.sum())
+    lut_kernel_rows(rows, q_tab, wdb, packing.pack_bitmask(live),
+                    int(live.sum()), bits)
 
     def row(name, fn_kernel, fn_plain, want, b, shape, lib=None,
             **extra):
@@ -2666,25 +2810,6 @@ def serve_kernel_phase(rows, crp, codes_q, wq, wdb, gen) -> None:
             f"plain_ms={plain_ms:.4f}{lib_txt} bound_ms={b_ms:.4f} ({b_by}, "
             f"{pipe}); phase {time.perf_counter() - t0:.1f} s")
 
-    # the least work: one float add a (query, row, field); each field is
-    # decoded once for all queries, and the corpus and tables read once
-    row("packed_lut_topk",
-        lambda: ops.packed_lut_topk(q_tab, wdb, bits, TOP_K, impl="kernel"),
-        lambda: ref.packed_lut_topk_ref(q_tab, wdb, bits, TOP_K),
-        ref.packed_lut_topk_ref(q_tab, wdb, bits, TOP_K),
-        bound([("f32", float(nq) * N_ROWS * fields, F32_FLOP_S)],
-              4.0 * (N_ROWS * w_words + nq * fp + 2 * nq * TOP_K)),
-        [nq, N_ROWS, w_words, TOP_K])
-    row("packed_lut_topk_masked",
-        lambda: ops.packed_lut_topk_masked(q_tab, wdb, valid, bits, TOP_K,
-                                           impl="kernel"),
-        lambda: ref.packed_lut_topk_masked_ref(q_tab, wdb, valid, bits,
-                                               TOP_K),
-        ref.packed_lut_topk_masked_ref(q_tab, wdb, valid, bits, TOP_K),
-        bound([("f32", float(nq) * n_live * fields, F32_FLOP_S)],
-              4.0 * (N_ROWS * w_words + nq * fp + 2 * nq * TOP_K)
-              + N_ROWS / 8),
-        [nq, N_ROWS, w_words, TOP_K], live_rows=n_live)
     torch.cuda.empty_cache()
     cq = codes_q.to(torch.int32)
     cdb = packing.unpack_codes(wdb, bits, K)
@@ -3184,9 +3309,16 @@ def main(argv) -> int:
     log(f"build: {len(_build.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
+        fn = ""
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '[^']*?_cu_[0-9a-f]{8}"
+                          r"(\d+)(\w*)'", line)
+            if m:   # the kernel's name and its template arguments
+                n = int(m.group(1))
+                args = re.match(r"I\w*?EE", m.group(2)[n:])
+                fn = m.group(2)[:n] + (args.group(0) if args else "")
+            elif "Used" in line or "spill" in line:
+                log(f"ptxas {name} {fn}: {line.strip()}")
     log(f"card: {card}")
 
     t0 = time.perf_counter()

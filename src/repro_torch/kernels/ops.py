@@ -271,17 +271,19 @@ def packed_collision_counts(words_q: torch.Tensor, words_db: torch.Tensor,
 
 def packed_lut_topk(q_tables: torch.Tensor, words_db: torch.Tensor,
                     bits: int, top_k: int, impl: str = "auto", *,
-                    n_ranges: int = None):
+                    n_ranges: int = None, block_q: int = None):
     """LUT-scored streaming top-k over the whole corpus: float32 or bf16
     tables [Q, F*P] x int32 words [N, W] -> (scores float32, ids int32)
-    [Q, top_k], ties to the lowest id, (-inf, -1) in empty slots."""
+    [Q, top_k], ties to the lowest id, (-inf, -1) in empty slots. The
+    knobs are ``lut_topk.plan``'s."""
     t = q_tables.shape[1]
     _kstats.record("packed_lut_topk", q=q_tables.shape[0],
                    n=words_db.shape[0], w=words_db.shape[1], t=t,
                    k=t >> bits, top_k=top_k)
     if _use_kernel(impl, words_db):
         kw = _tuned("packed_lut_topk", q_tables.dtype,
-                    dict(n_ranges=n_ranges), q=q_tables.shape[0],
+                    dict(n_ranges=n_ranges, block_q=block_q),
+                    q=q_tables.shape[0],
                     n=words_db.shape[0], w=words_db.shape[1], t=t,
                     top_k=top_k)
         return _lut_topk.packed_lut_topk_cuda(
@@ -291,7 +293,8 @@ def packed_lut_topk(q_tables: torch.Tensor, words_db: torch.Tensor,
 
 def packed_lut_topk_masked(q_tables: torch.Tensor, words_db: torch.Tensor,
                            valid_words: torch.Tensor, bits: int, top_k: int,
-                           impl: str = "auto", *, n_ranges: int = None):
+                           impl: str = "auto", *, n_ranges: int = None,
+                           block_q: int = None):
     """``packed_lut_topk`` over the live rows of ``valid_words`` int32
     [ceil(N/32)]: dead rows score -inf and never surface."""
     t = q_tables.shape[1]
@@ -300,7 +303,8 @@ def packed_lut_topk_masked(q_tables: torch.Tensor, words_db: torch.Tensor,
                    k=t >> bits, top_k=top_k)
     if _use_kernel(impl, words_db):
         kw = _tuned("packed_lut_topk_masked", q_tables.dtype,
-                    dict(n_ranges=n_ranges), q=q_tables.shape[0],
+                    dict(n_ranges=n_ranges, block_q=block_q),
+                    q=q_tables.shape[0],
                     n=words_db.shape[0], w=words_db.shape[1], t=t,
                     top_k=top_k)
         return _lut_topk.packed_lut_topk_masked_cuda(

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.schemes import CodeSpec
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import lut_topk, ops, ref
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -427,6 +427,59 @@ def test_lut_topk_kernels_bit_exact(gen, bits, dtype):
     got = ops.packed_lut_topk(tab, wdb, bits, 20, impl="kernel")
     assert _same(got, ref.packed_lut_topk_ref(tab, wdb, bits, 20))
     assert got[1][0].tolist() == list(range(20))
+    # the grid: Q around the fields kernel's blocks of 8 and 16, N ragged
+    # against its 256-row tiles and 32-row offers, S and QB given (a QB
+    # that cannot fit, or 16 for the generic kernel, is refused); every
+    # default launch twice
+    wdb = _words(gen, 2081, k, bits)
+    valid = _mask(gen, 2081, 0.9)
+    w = wdb.shape[1]
+    for nq in (1, 7, 8, 9, 17, 300):
+        tab, _ = _tables(gen, nq, w, bits, dtype)
+        for vw in (None, valid):
+            def run(**kw):
+                if vw is None:
+                    return ops.packed_lut_topk(tab, wdb, bits, 10,
+                                               impl="kernel", **kw)
+                return ops.packed_lut_topk_masked(tab, wdb, vw, bits, 10,
+                                                  impl="kernel", **kw)
+            want = ref.packed_lut_topk_ref(tab, wdb, bits, 10) \
+                if vw is None else \
+                ref.packed_lut_topk_masked_ref(tab, wdb, vw, bits, 10)
+            first = run()
+            assert _same(first, want) and _same(run(), first)
+            for s in (1, 3, 64):
+                for qb in (None, 8, 16):
+                    if lut_topk.fields_layout(w, bits, 10, qb or 8) is None \
+                            and qb == 16:
+                        with pytest.raises(ValueError, match="block_q|generic"):
+                            run(n_ranges=s, block_q=qb)
+                        continue
+                    assert _same(run(n_ranges=s, block_q=qb), want), \
+                        (nq, s, qb, vw is None)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k,top_k,kernel", [
+    (256, 10, "fields"), (256, 1500, "fields"), (264, 10, "generic")])
+def test_lut_topk_table_limits(gen, dtype, k, top_k, kernel):
+    """4-bit tables at k = 256, the largest the fields kernel takes (at
+    top_k 1,500 its lists live in device memory), and at k = 264, one
+    field a word past it: the generic kernel's."""
+    bits, n, nq = 4, 2081, 17
+    wdb = _words(gen, n, k, bits)
+    tab, _ = _tables(gen, nq, wdb.shape[1], bits, dtype)
+    valid = _mask(gen, n, 0.9)
+    assert lut_topk.plan(tab.dtype, nq, n, wdb.shape[1], bits, top_k,
+                         device="cuda")["kernel"] == kernel
+    got = ops.packed_lut_topk(tab, wdb, bits, top_k, impl="kernel")
+    assert _same(got, ref.packed_lut_topk_ref(tab, wdb, bits, top_k))
+    assert _same(ops.packed_lut_topk(tab, wdb, bits, top_k, impl="kernel",
+                                     n_ranges=3), got)
+    assert _same(ops.packed_lut_topk_masked(tab, wdb, valid, bits, top_k,
+                                            impl="kernel"),
+                 ref.packed_lut_topk_masked_ref(tab, wdb, valid, bits,
+                                                top_k))
 
 
 def test_collision_counts_kernel_on_any_codes(gen):

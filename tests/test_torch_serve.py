@@ -48,7 +48,7 @@ from repro_torch.core import packing, prng
 from repro_torch.core.schemes import CodeSpec
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
 from repro_torch.index import MutableAnnEngine
-from repro_torch.kernels import autotune, ops, ref
+from repro_torch.kernels import autotune, lut_topk, ops, ref
 from repro_torch.learn import PackedFeatureSpec
 from repro_torch.obs import (FlightRecorder, MetricsRegistry, Tracer,
                              set_flight_recorder, span)
@@ -126,6 +126,50 @@ def test_lut_topk_blocks_merge_stably():
     db = _i32(_words(rng, 500, 2))
     want = ref.packed_lut_topk_ref(tab, db, 2, 30)
     _eq(ref.packed_lut_topk_ref(tab, db, 2, 30, block_elems=2 * 37), want)
+
+
+@pytest.mark.parametrize("w,bits,top_k,qbs,lists", [
+    (16, 2, 10, (8, 16), True),      # the main path: k = 256, 2-bit
+    (8, 1, 10, (8, 16), True),
+    (32, 4, 10, (8,), True),         # k = 256 at 4 bits: 128 KB at QB 8
+    (32, 4, 1500, (8,), False),      # its lists beside it: device memory
+    (16, 2, 2049, (8, 16), False),   # above 2048: device memory
+    (33, 4, 10, (), None),           # k = 264: the generic kernel's
+    (64, 2, 10, (), None),           # k = 1024 at 2 bits: likewise
+    (16, 8, 10, (), None), (16, 16, 10, (), None)])
+def test_lut_topk_kernel_choice(w, bits, top_k, qbs, lists):
+    """The fields kernel takes bits 1-4 where a block's tables fit 128 KB
+    and its layout 227 KB; which QB fit, and where the lists live."""
+    for qb in lut_topk.BLOCK_Q:
+        got = lut_topk.fields_layout(w, bits, top_k, qb)
+        assert (got is not None) == (qb in qbs)
+        if got is not None:
+            assert got[0] <= lut_topk.SMEM_BLOCK_MAX and got[1] == lists
+            assert qb * (w * (32 // bits) << bits) * 4 <= 128 * 1024
+
+
+def test_lut_topk_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="block_q"):
+        lut_topk.plan(torch.float32, 9, 3000, 16, 2, 10, block_q=12,
+                      n_ranges=4)
+    with pytest.raises(ValueError, match="generic"):
+        lut_topk.plan(torch.float32, 9, 3000, 16, 8, 10, block_q=16,
+                      n_ranges=4)
+    p = lut_topk.plan(torch.bfloat16, 9, 3000, 16, 16, 10, block_q=8,
+                      n_ranges=4)
+    assert (p["kernel"], p["grid"], p["n_ranges"]) == ("generic", (2, 4), 4)
+
+
+@pytest.mark.parametrize("q_blocks,n,resident,want,waves", [
+    (16, 4_194_304, 264, 33, 2),   # QB 16 at Q = 256, 2 blocks an SM
+    (32, 4_194_304, 264, 33, 4),   # QB 8, 2 blocks an SM
+    (16, 4_194_304, 396, 99, 4),   # 3 blocks an SM
+    (1, 2081, 264, 9, 9 / 264),    # a range holds a tile: 9 ranges at most
+    (600, 4_194_304, 264, 3, 1800 / 264)])  # more blocks than the card holds
+def test_whole_waves(q_blocks, n, resident, want, waves):
+    """The smallest S whose grid fills its last wave the most."""
+    s = lut_topk.whole_waves(q_blocks, n, resident)
+    assert s == want and q_blocks * s / resident == waves
 
 
 @pytest.mark.parametrize("q,n,k", [(3, 0, 5), (4, 70, 33), (1, 9, 1)])
