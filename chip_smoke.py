@@ -86,29 +86,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    ms of the compaction, MB/s of the snapshot's save and restore.
 6. Encode kernels at the URL path's shapes, on chunk 0 of the URL
    corpus: ``code_pack`` (B8) on its [262,144 x 256] projections, the R
-   draw of one [4,096 x 256] unit, the CSR step on one unit's bucket
-   (with ``torch.addmm`` of the bucket as a sparse CSR tensor as the
-   library yardstick); each bit-exact against its plain version, timed
-   beside its bound. The small checks (phase 2) hold B8 to its plain
-   version over every scheme at ragged shapes, the draw to the CPU's
-   ``prng`` on all 2^23 mantissas, on whole units and on URL units 0, 1
-   and 789, and the CSR step to its plain version on empty rows, no
-   entries, repeated columns and rows in the ragged last unit only.
+   draw of one [4,096 x 256] unit and of a group of G = 8 units in one
+   launch, and the grouped CSR step over the whole chunk (30,146,560
+   entries, all 790 units, R drawn beforehand): at G = 8 and G = 1, its
+   launches counted (99 and 790), bit-exact against its plain version,
+   the step of one unit a launch and the encoder's projection, timed per
+   chunk beside its bound (the CSR arrays, the accumulator written once
+   and all of R read once, against 2 float operations an entry and
+   column), one ``torch.addmm`` of the chunk as a sparse CSR tensor (the
+   library yardstick) and the sum of ``torch.addmm`` over the units'
+   buckets; the others each bit-exact against its plain
+   version, timed beside its bound. The small checks (phase 2) hold B8
+   to its plain version over every scheme at ragged shapes, the draw to
+   the CPU's ``prng`` on all 2^23 mantissas, on whole units and on URL
+   units 0, 1 and 789, the grouped draw to one unit a launch (units 0-7
+   and a run ending at 789, bf16 too), the CSR step of one unit to its
+   plain version on empty rows, no entries, repeated columns and rows in
+   the ragged last unit only, and the grouped step at G = 1, 3 and 8,
+   k = 7, 256 and 300, float32 and bf16 R, a unit without entries and
+   rows of up to 300 entries to its plain version and the step of one
+   unit.
 7. URL path, at the URL corpus's published width: D = 3,231,961 (790
    units of R, the last 217 rows; R, 3.3 GB, is never built), k = 256,
    2-bit codes, 2,396,130 CSR rows of 115 distinct columns made on the
    host chunk by chunk, through ``IngestPipeline`` (262,144-row chunks)
    into a ``CodeStore``; ``AnnEngine`` searches 1,024 CSR queries (512
    planted at cosine about 0.9) count-ranked and scored; then
-   ``MutableAnnEngine.ingest`` takes the first 524,288 rows. Launches
-   counted over the path. Gates: R never built; each chunk's peak device
-   memory beyond the store within its CSR arrays, accumulator and words
-   plus 64 MB; 512/512 planted at rank 0 in both modes; 16 rows
-   bit-exact against ``impl="ref"`` and against a float64 oracle but at
-   counted bin-edge fields; the mutable engine's words equal the store's.
+   ``MutableAnnEngine.ingest`` takes the first 524,288 rows. A chunk
+   draws its occupied units 8 at a time (the encoder's ``csr_group``)
+   and runs one grouped CSR step a group. Launches counted over the
+   path. Gates: R never built; each chunk's peak device memory beyond
+   the store within its CSR arrays, accumulator and words plus 64 MB;
+   512/512 planted at rank 0 in both modes; 16 rows bit-exact against
+   ``impl="ref"`` and against a float64 oracle but at counted bin-edge
+   fields; the mutable engine's words equal the store's. Printed: ms
+   and launches a chunk, ingest rows/s, query coding's ms and launches.
 8. Dense cross-check above the cap: 8,192 unit rows at D = 131,072
    (about 1 % nonzero) encoded fused with R resident (cap raised),
    streamed at the default cap and as CSR agree but at bin edges.
+   Launches counted over the three encodes: the draw of one unit a
+   launch reports its count from here.
 9. Learn path (``repro_torch.learn``), SVM training on packed codes at
    the URL corpus's published shape: 2,396,130 CSR rows (D = 3,231,961,
    115 nonzeros) made on the host outside every window, each one of 64
@@ -255,10 +272,13 @@ KERNELS = {
     "code_pack": ("url", "src/repro_torch/kernels/csrc/code_pack.cu",
                   "src/repro/kernels/encode_fused.py:128"),
     # no Pallas counterpart: the JAX code they stand in for
-    "normal_unit": ("url", "src/repro_torch/kernels/csrc/normal_unit.cu",
+    "normal_unit": ("dense", "src/repro_torch/kernels/csrc/normal_unit.cu",
                     "src/repro/core/sketch.py:104"),
-    "csr_unit_step": ("url", "src/repro_torch/kernels/csrc/csr_step.cu",
-                      "src/repro/encode/encoder.py:100"),
+    "normal_unit_group": ("url",
+                          "src/repro_torch/kernels/csrc/normal_unit.cu",
+                          "src/repro/core/sketch.py:104"),
+    "csr_group_step": ("url", "src/repro_torch/kernels/csrc/csr_step.cu",
+                       "src/repro/encode/encoder.py:100"),
     "packed_linear_fwd": ("learn",
                           "src/repro_torch/kernels/csrc/packed_linear.cu",
                           "src/repro/kernels/packed_linear.py:110"),
@@ -288,10 +308,12 @@ PATH_KERNELS = {
     "mutable": ("encode_fused", "coded_project", "pack_codes",
                 "packed_topk_masked", "fused_scored_topk_masked",
                 "packed_collision_counts", "packed_lut_rerank"),
-    "url": ("code_pack", "normal_unit", "csr_unit_step", "pack_codes",
+    "url": ("code_pack", "normal_unit_group", "csr_group_step", "pack_codes",
             "packed_topk", "fused_scored_topk"),
-    "learn": ("code_pack", "normal_unit", "csr_unit_step", "pack_codes",
-              "packed_linear_fwd", "packed_linear_fwd_masked",
+    "dense": ("encode_fused", "normal_unit", "code_pack",
+              "normal_unit_group", "csr_group_step"),
+    "learn": ("code_pack", "normal_unit_group", "csr_group_step",
+              "pack_codes", "packed_linear_fwd", "packed_linear_fwd_masked",
               "packed_linear_bwd", "packed_linear_bwd_masked"),
     "serve": ("encode_fused", "coded_project", "pack_codes", "code_pack",
               "packed_topk", "packed_topk_masked", "fused_scored_topk",
@@ -348,6 +370,14 @@ def bound(ops_s: list, n_bytes: float):
     t = max(s for _, s in terms)
     pipes = "=".join(p for p, s in terms if s >= t * (1 - 1e-9))
     return 1e3 * t, ("bytes" if pipes == "bytes" else "operations"), pipes
+
+
+def launch_diff(before: dict) -> dict:
+    """Launches of each wrapper since ``before`` (``ops.launch_counts()``),
+    without resetting the counts; the wrappers that launched."""
+    from repro_torch.kernels import ops
+    now = ops.launch_counts()
+    return {k: v - before[k] for k, v in now.items() if v != before[k]}
 
 
 def require_launched(counts: dict, path: str) -> None:
@@ -677,9 +707,11 @@ def encode_checks(device) -> None:
     """Ragged shapes for the encode kernels: code_pack against its plain
     version over every scheme; the R draw against the CPU's plain
     ``prng`` on all 2^23 mantissas, on whole units and on units 0, 1 and
-    789 of the URL sketch; the CSR step against its plain version on
-    empty rows, no entries, repeated columns, a row wholly in the ragged
-    last unit and rows across many units. All bit-exact."""
+    789 of the URL sketch, and the grouped draw against one unit a
+    launch; the CSR step of one unit against its plain version on empty
+    rows, no entries, repeated columns, a row wholly in the ragged last
+    unit and rows across many units; the grouped step at G = 1, 3 and 8
+    against its plain version and the step of one unit. All bit-exact."""
     import torch
     from repro_torch.core import packing, prng
     from repro_torch.core.schemes import CodeSpec
@@ -733,6 +765,26 @@ def encode_checks(device) -> None:
     log(f"check normal_unit: widths 1/217/4096 x k 1/7/256 and URL units 0, "
         f"1 and {url.n_units - 1} ({url.unit_width(url.n_units - 1)} rows): "
         f"bit-identical to the CPU's prng")
+    # the grouped draw against one unit a launch: a run of 8 from unit 0,
+    # one ending at unit 789 (217 rows) with unit 785 not drawn, bf16 too
+    for dtype, units in ((torch.float32, list(range(8))),
+                         (torch.float32, [782, 783, 784, 786, 787, 788, 789]),
+                         (torch.bfloat16, [782, 783, 789])):
+        crp_t = url if dtype == torch.float32 else CodedRandomProjection(
+            SketchConfig(k=K, seed=0, dtype="bfloat16"), URL_D)
+        out = torch.full((8, crp_t.cfg.r_unit, K), 3.0, device=device,
+                         dtype=dtype)
+        crp_t._draw_units(units, out, impl="kernel")
+        for u in units:
+            want = crp_t._block_r(u, crp_t.unit_width(u), impl="kernel")
+            if not same_bits(out[u - units[0], :want.shape[0]], want):
+                raise AssertionError(f"grouped draw: unit {u} ({dtype})")
+        for g in set(range(8)) - {u - units[0] for u in units}:
+            if not bool((out[g] == 3.0).all()):
+                raise AssertionError(f"grouped draw wrote slot {g}")
+    log("check normal_unit_group: units 0-7, 782-789 (785 not given, 789 "
+        "of 217 rows) and bf16 782, 783, 789 in one launch each: "
+        "bit-identical to one unit a launch; slots not given untouched")
 
     d, ru = 10_000, 1024                  # 10 units, the last 784 columns
     for k in (7, 256, 300):
@@ -769,6 +821,48 @@ def encode_checks(device) -> None:
     log("check csr_unit_step k 7/256/300 over 10 units (ragged last), empty "
         "rows, no entries, repeated columns, a row in the last unit only, "
         "3,000-entry rows: bit-exact")
+
+    # the grouped step at G = 1, 3 and 8 against its plain version and the
+    # step of one unit a launch; unit 4 without entries (its slot NaN);
+    # rows of up to 300 entries, past the 128 a warp holds in registers
+    for k in (7, 256, 300):
+        for dtype in (torch.float32, torch.bfloat16):
+            lens = torch.randint(0, 301, (300,), generator=gen,
+                                 device=device)
+            lens[::7] = 0
+            indptr = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                            device=device),
+                                torch.cumsum(lens, 0)])
+            cols = torch.randint(0, d, (int(indptr[-1]),), generator=gen,
+                                 device=device, dtype=torch.int32)
+            cols[cols // ru == 4] += ru
+            data = torch.randn(cols.shape, generator=gen, device=device)
+            units = [torch.randn((min(ru, d - u * ru), k), generator=gen,
+                                 device=device).to(dtype) for u in range(10)]
+            acc0 = torch.randn((300, k), generator=gen, device=device)
+            acc_u = acc0.clone()
+            for u, r in enumerate(units):
+                ops.csr_unit_step(acc_u, indptr, cols, data, r, u * ru,
+                                  impl="kernel")
+            for group in (1, 3, 8):
+                acc_k, acc_r = acc0.clone(), acc0.clone()
+                for u0 in range(0, 10, group):
+                    span = min(group * ru, d - u0 * ru)
+                    r = torch.full((-(-span // ru), ru, k), float("nan"),
+                                   device=device, dtype=dtype)
+                    for g in range(r.shape[0]):
+                        if u0 + g != 4:
+                            r[g, :units[u0 + g].shape[0]] = units[u0 + g]
+                    for acc, impl in ((acc_k, "kernel"), (acc_r, "ref")):
+                        ops.csr_group_step(acc, indptr, cols, data, r,
+                                           u0 * ru, span, impl=impl)
+                if not (same_bits(acc_k, acc_r) and same_bits(acc_k, acc_u)):
+                    raise AssertionError(f"csr_group_step G={group} k={k} "
+                                         f"{dtype}")
+    log("check csr_group_step G 1/3/8 x k 7/256/300 x float32/bf16 R over 10 "
+        "units (ragged last, unit 4 empty, its slot NaN), rows of 0-300 "
+        "entries: bit-exact against the plain version and the step of one "
+        "unit a launch")
     torch.cuda.synchronize()
 
 
@@ -1748,9 +1842,9 @@ def url_queries(src_cols, src_vals, rng):
 def encode_kernel_phase(rows, crp, cols, vals, device) -> None:
     """The encode kernels at the URL path's shapes, on chunk 0 of the URL
     corpus: code_pack on its [262,144 x 256] projections, the draw of one
-    full unit [4,096 x 256], the CSR step on one unit's bucket of the
-    chunk (torch.addmm of that bucket as a sparse CSR tensor is the
-    library yardstick); each bit-exact against its plain version."""
+    full unit [4,096 x 256] and of a group of G units in one launch, the
+    grouped CSR step over the whole chunk (``csr_chunk_rows``); each
+    bit-exact against its plain version."""
     import torch
     from repro_torch.core import packing, prng
     from repro_torch.kernels import ops, ref
@@ -1802,46 +1896,154 @@ def encode_kernel_phase(rows, crp, cols, vals, device) -> None:
                ("f32", 60.0 * elems, F32_FLOP_S)], 4.0 * elems),
         [ru, K])
 
-    # the CSR step on the bucket of a middle unit
-    u = crp.n_units // 2
-    r = crp._block_r(u, crp.unit_width(u))
+    # the grouped draw: the first G units in one launch
+    group = crp.stream_encoder().csr_group
+    buf = torch.empty((group, ru, K), device=device)
+    units = list(range(group))
+    plain = torch.empty_like(buf)
+    row("normal_unit_group",
+        same_bits(crp._draw_units(units, buf, impl="kernel"),
+                  crp._draw_units(units, plain, impl="ref")),
+        time_ms(lambda: crp._draw_units(units, buf, impl="kernel")),
+        time_ms(lambda: crp._draw_units(units, plain, impl="ref"),
+                reps=3, warmup=1), None,
+        bound([("int32", 80.0 * elems * group, INT32_OP_S),
+               ("f32", 60.0 * elems * group, F32_FLOP_S)],
+              4.0 * elems * group),
+        [group, ru, K])
+    del buf, plain
+
+    csr_chunk_rows(rows, crp, csr, z, device)
+    del z
+    torch.cuda.empty_cache()
+
+
+def csr_chunk_rows(rows, crp, csr, z, device) -> None:
+    """The grouped CSR step over the whole chunk: all of its units (R
+    drawn beforehand, outside the windows), at the encoder's G and at
+    G = 1, each launch counted, held bit for bit against the plain
+    version, against the step of one unit a launch and against the
+    encoder's projection z; timed per chunk beside one torch.addmm of
+    the chunk as a sparse CSR tensor (the library yardstick) and the sum
+    of torch.addmm over the units' buckets."""
+    import torch
+    from repro_torch.encode.encoder import _unit_counts
+    from repro_torch.kernels import ops
+    ru, n_units, n = crp.cfg.r_unit, crp.n_units, csr.n
+    group = crp.stream_encoder().csr_group
     indptr = torch.from_numpy(csr.indptr).to(device)
     indices = torch.from_numpy(csr.indices).to(device)
     data = torch.from_numpy(csr.data).to(device)
-    lcol = indices.to(torch.int64) - u * ru
-    sel = torch.nonzero((lcol >= 0) & (lcol < r.shape[0])).flatten()
-    b_rows = torch.searchsorted(indptr, sel, right=True) - 1
-    nnz_u, touched = sel.numel(), int(torch.unique(b_rows).numel())
-    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
-                      torch.cumsum(torch.bincount(b_rows, minlength=n), 0)])
-    bucket = torch.sparse_csr_tensor(crow, lcol[sel], data[sel],
-                                     (n, r.shape[0]), check_invariants=True)
-    acc0 = z.clone()
-    got = ops.csr_unit_step(acc0.clone(), indptr, indices, data, r, u * ru,
-                            impl="kernel")
-    want = ops.csr_unit_step(acc0.clone(), indptr, indices, data, r, u * ru,
-                             impl="ref")
-    lib = torch.addmm(acc0, bucket, r)
-    lib_err = float((lib - want).abs().max())
-    scratch = acc0.clone()
-    row("csr_unit_step",
-        torch.equal(got.view(torch.int32), want.view(torch.int32)),
-        time_ms(lambda: ops.csr_unit_step(scratch, indptr, indices, data, r,
-                                          u * ru, impl="kernel")),
-        time_ms(lambda: ops.csr_unit_step(scratch, indptr, indices, data, r,
-                                          u * ru, impl="ref"),
-                reps=3, warmup=1),
-        time_ms(lambda: torch.addmm(acc0, bucket, r)),
-        # the bucket's entries (row, column, value) and R_u read once, the
-        # touched rows of acc read and written; a multiply and an add a
-        # (entry, column)
-        bound([("f32", 2.0 * nnz_u * K, F32_FLOP_S)],
-              12.0 * nnz_u + 4.0 * r.numel() + 8.0 * touched * K),
-        [n, nnz_u, touched, int(r.shape[0]), K],
-        f"; unit {u}: {nnz_u} entries on {touched} rows; addmm max abs "
-        f"difference {lib_err:.3e}")
-    rows["csr_unit_step"]["library_max_abs_diff"] = lib_err
-    del z, acc0, scratch, got, want, lib, bucket
+    r_all = torch.empty((n_units, ru, K), device=device)      # 3.3 GB
+    for u0 in range(0, n_units, 16):
+        crp._draw_units(list(range(u0, min(u0 + 16, n_units))),
+                        r_all[u0:u0 + 16])
+    counts = _unit_counts(indices, ru, n_units)
+
+    def steps(g, impl="kernel"):
+        acc = torch.zeros((n, K), device=device)
+        for u0 in range(0, n_units, g):
+            span = min(g * ru, URL_D - u0 * ru)
+            ops.csr_group_step(acc, indptr, indices, data,
+                               r_all[u0:u0 - (-span // ru)], u0 * ru, span,
+                               impl=impl, nnz=sum(counts[u0:u0 + g]))
+        return acc
+
+    def unit_steps():
+        acc = torch.zeros((n, K), device=device)
+        for u in range(n_units):
+            ops.csr_unit_step(acc, indptr, indices, data,
+                              r_all[u, :crp.unit_width(u)], u * ru,
+                              impl="kernel", nnz=counts[u])
+        return acc
+
+    want = steps(group, impl="ref")
+    launched = {}
+    for g in (group, 1):
+        before = ops.launch_counts()
+        got = steps(g)
+        launched[g] = launch_diff(before)
+        if launched[g] != {"csr_group_step": -(-n_units // g)}:
+            raise AssertionError(f"csr_group_step at G = {g} over the chunk "
+                                 f"launched {launched[g]}, not "
+                                 f"{-(-n_units // g)} grouped steps")
+    got, got1, got_u = steps(group), steps(1), unit_steps()
+    if not (same_bits(got, want) and same_bits(got1, want)
+            and same_bits(got_u, want) and same_bits(z, want)):
+        raise AssertionError("csr_group_step over the chunk differs from its "
+                             "plain version, the unit step or the encoder")
+    # the yardstick: each unit's bucket as a sparse CSR tensor, addmm'd
+    # onto the accumulator in unit order
+    unit = (indices // ru).to(torch.int64)
+    order = torch.sort(unit, stable=True).indices
+    e_rows = torch.repeat_interleave(torch.arange(n, device=device),
+                                     torch.diff(indptr))[order]
+    starts = [0]
+    for c in counts:
+        starts.append(starts[-1] + c)
+    buckets = []
+    for u in range(n_units):
+        if counts[u]:
+            sel = order[starts[u]:starts[u + 1]]
+            crow = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                          device=device),
+                              torch.cumsum(torch.bincount(
+                                  e_rows[starts[u]:starts[u + 1]],
+                                  minlength=n), 0)])
+            buckets.append((u, torch.sparse_csr_tensor(
+                crow, (indices[sel] - u * ru).to(torch.int64), data[sel],
+                (n, crp.unit_width(u)))))
+    del unit, order, e_rows
+    # and the whole chunk as one sparse CSR tensor, addmm'd in one call
+    # onto the units' rows of R laid end to end
+    chunk = torch.sparse_csr_tensor(indptr, indices.to(torch.int64), data,
+                                    (n, URL_D))
+    r_rows = r_all.view(-1, K)[:URL_D]
+
+    def library_buckets():
+        acc = torch.zeros((n, K), device=device)
+        for u, b in buckets:
+            acc = torch.addmm(acc, b, r_all[u, :crp.unit_width(u)])
+        return acc
+
+    def library():
+        return torch.addmm(torch.zeros((n, K), device=device), chunk, r_rows)
+
+    lib_err = float((library() - want).abs().max())
+    lib_b_err = float((library_buckets() - want).abs().max())
+    ms = time_ms(lambda: steps(group))
+    ms1 = time_ms(lambda: steps(1))
+    ms_u = time_ms(unit_steps)
+    plain_ms = time_ms(lambda: steps(group, impl="ref"), reps=3, warmup=1)
+    lib_ms = time_ms(library, reps=3, warmup=1)
+    lib_b_ms = time_ms(library_buckets, reps=3, warmup=1)
+    nnz = csr.nnz
+    rows["csr_group_step"] = dict(
+        max_abs_err=0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        shape=[n, nnz, n_units, K, group], g1_ms=ms1, unit_step_ms=ms_u,
+        launches_a_chunk=launched[group]["csr_group_step"],
+        g1_launches_a_chunk=launched[1]["csr_group_step"],
+        library_max_abs_diff=lib_err, library_buckets_ms=lib_b_ms,
+        library_buckets_max_abs_diff=lib_b_err)
+    # the chunk's work: the CSR arrays once (column id and value 8 B an
+    # entry, indptr 8 B a row), the accumulator written once and every
+    # unit of R read once; a multiply and an add a (entry, column)
+    b_ms, b_by, pipe = bound([("f32 add", 2.0 * nnz * K, F32_ADD_S)],
+                             8.0 * nnz + 8.0 * (n + 1) + 4.0 * n * K
+                             + 4.0 * URL_D * K)
+    rows["csr_group_step"].update(bound_ms=b_ms, bound_by=b_by,
+                                  bound_pipe=pipe)
+    log(f"kernel csr_group_step: chunk 0 [{n} rows, {nnz} entries, "
+        f"{n_units} units, k {K}] at G = {group} "
+        f"({launched[group]['csr_group_step']} launches, counted) bit-exact "
+        f"against the plain version, G = 1, the step of one unit and the "
+        f"encoder; ms a chunk={ms:.4f} (G = 1 {ms1:.4f} in "
+        f"{launched[1]['csr_group_step']} launches, the unit step "
+        f"{ms_u:.4f}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (one "
+        f"addmm of the chunk, max abs difference {lib_err:.3e}; addmm of "
+        f"{len(buckets)} buckets {lib_b_ms:.4f}, {lib_b_err:.3e}) "
+        f"bound_ms={b_ms:.5f} ({b_by}, {pipe})")
+    del r_all, r_rows, chunk, buckets, want, got, got1, got_u
     torch.cuda.empty_cache()
 
 
@@ -1890,10 +2092,13 @@ def url_path(device, profile: bool = False) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
+        launched = ops.launch_counts()
         t0 = time.perf_counter()
         pipe.ingest(csr)
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
+        if c == 0:
+            chunk_launches = launch_diff(launched)
         # beyond what was allocated before and the store it appends to:
         # the chunk's CSR arrays, its accumulator and words, and 64 MB
         n = csr.n
@@ -1909,12 +2114,15 @@ def url_path(device, profile: bool = False) -> tuple:
             log(f"url chunk 0: peak device memory {extra} bytes beyond the "
                 f"store, budget {budget} (CSR {8 * (n + 1) + 8 * csr.nnz}, "
                 f"accumulator {4 * n * K}, words {4 * n * w_words}, "
-                f"64 MB)")
+                f"64 MB); {sum(chunk_launches.values())} launches "
+                f"{json.dumps(chunk_launches)} at G = {enc.csr_group}")
         del csr, cols, vals
     store = pipe.store
     t_ingest = sum(chunk_s)
     rates["ingest_rows_s"] = URL_ROWS / t_ingest
+    rates["chunk_launches"] = sum(chunk_launches.values())
     chunk_ms = sorted(1e3 * x for x in chunk_s)
+    rates["chunk_ms_median"] = statistics.median(chunk_ms)
     log(f"url ingest: {URL_ROWS} rows in {t_ingest:.4f} s = "
         f"{URL_ROWS / t_ingest:.1f} rows/s (row generation on the host, "
         f"{t_gen:.1f} s, outside); ms a chunk: min {chunk_ms[0]:.3f} median "
@@ -1936,20 +2144,28 @@ def url_path(device, profile: bool = False) -> tuple:
     first = queries.row_slice(0, CHUNK_Q)
     engine.encode_queries(first)                          # warm-up
     torch.cuda.synchronize()
+    launched = ops.launch_counts()
     t0 = time.perf_counter()
     engine.encode_queries(first)
     torch.cuda.synchronize()
     t_code = time.perf_counter() - t0
+    code_launches = launch_diff(launched)
+    group = enc.csr_group
+    buf = torch.empty((group, crp.cfg.r_unit, K), device=device)
     t0 = time.perf_counter()
-    for u in range(crp.n_units):
-        crp._block_r(u, crp.unit_width(u))
+    for u0 in range(0, crp.n_units, group):
+        crp._draw_units(list(range(u0, min(u0 + group, crp.n_units))), buf)
     torch.cuda.synchronize()
     t_draw = time.perf_counter() - t0
+    del buf
     rates["query_coding_ms_256"] = 1e3 * t_code
+    rates["query_coding_launches"] = sum(code_launches.values())
     rates["redraw_all_units_ms"] = 1e3 * t_draw
     log(f"url query coding: {1e3 * t_code:.3f} ms for {CHUNK_Q} CSR queries "
-        f"({first.nnz} nonzeros); drawing all {crp.n_units} units alone "
-        f"{1e3 * t_draw:.3f} ms")
+        f"({first.nnz} nonzeros), {sum(code_launches.values())} launches "
+        f"{json.dumps(code_launches)}; drawing all {crp.n_units} units alone "
+        f"{1e3 * t_draw:.3f} ms ({-(-crp.n_units // group)} launches of "
+        f"{group})")
     src_t = torch.from_numpy(src_ids.astype(np.int32)).to(device)
     out = {}
     for name, kw in (("count", {}), ("scored_f32", dict(scored=True))):
@@ -2022,22 +2238,31 @@ def url_path(device, profile: bool = False) -> tuple:
         f"within {EDGE_TOL} of a bin edge")
     if profile:
         chunk1 = as_csr(*url_chunk(1))
-        profile_window(f"url ingest of chunk 1 ({URL_CHUNK} rows)",
-                       lambda: enc.encode_packed(chunk1), top=6)
+        wall, busy, copies = profile_window(
+            f"url ingest of chunk 1 ({URL_CHUNK} rows)",
+            lambda: enc.encode_packed(chunk1), top=6)
+        log(f"profile url ingest of chunk 1 ({URL_CHUNK} rows): idle share "
+            f"with the copy engine's transfers counted busy "
+            f"{1 - (busy + copies) / wall:.3f}; the copy of its CSR arrays "
+            f"to the card alone {csr_copy_ms(chunk1, device):.3f} ms (host "
+            f"clock, synced, median of 3)")
         profile_window(f"url count-ranked search of {CHUNK_Q} CSR queries",
                        lambda: engine.search(first, top_k=TOP_K,
                                              chunk_q=CHUNK_Q), top=6)
     return counts, rates
 
 
-def dense_cross_check(device) -> dict:
+def dense_cross_check(device) -> tuple:
     """Dense rows above the cap (D = 131,072, 32 units): fused with R
     resident (cap raised), streamed at the default cap, and the same rows
-    as CSR, agreeing but at bin edges."""
+    as CSR, agreeing but at bin edges. Launches counted over the three
+    encodes (the per-unit draw runs here: R's units for residency and the
+    dense stream)."""
     import torch
     from repro_torch.core import packing
     from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
     from repro_torch.encode import CsrMatrix, StreamingEncoder
+    from repro_torch.kernels import ops
     d, n = 131_072, 8192
     crp = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,
                                              seed=0), d)
@@ -2050,6 +2275,8 @@ def dense_cross_check(device) -> dict:
     t0 = time.perf_counter()
     csr = CsrMatrix.from_dense(x.cpu().numpy())
     t_csr = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
     fused = resident.encode_packed(x)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2057,6 +2284,9 @@ def dense_cross_check(device) -> dict:
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     sparse = streamed.encode_packed(csr)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require_launched(counts, "dense")
     z = streamed.project(x)
     base = packing.unpack_codes(words, crp.spec.bits, K)
     flips = {}
@@ -2072,8 +2302,8 @@ def dense_cross_check(device) -> dict:
         f"{n / t_stream:.1f} rows/s; fields differing from streamed: fused "
         f"{flips['fused']}, csr {flips['csr']} of {n * K}, each within "
         f"{EDGE_TOL} of a bin edge (CSR made in {t_csr:.1f} s)")
-    return dict(dense_stream_rows_s=n / t_stream, fused_edge=flips["fused"],
-                csr_edge=flips["csr"])
+    return counts, dict(dense_stream_rows_s=n / t_stream,
+                        fused_edge=flips["fused"], csr_edge=flips["csr"])
 
 
 def learn_protos():
@@ -3254,9 +3484,28 @@ def profile_main_path(engine, queries, device) -> None:
         profile_window(f"{what} (N={n})", fn)
 
 
-def profile_window(what: str, fn, top: int = 8) -> None:
-    """Device time by kernel of one synchronised call of ``fn``, and the
-    device's idle share of its wall time (torch.profiler)."""
+def csr_copy_ms(csr, device) -> float:
+    """Host-clock ms of the encoder's copy of a chunk's CSR arrays to the
+    card (the same ``torch.as_tensor`` calls), synced; median of 3."""
+    import numpy as np
+    import torch
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(np.asarray(csr.indptr, np.int64), device=device)
+        torch.as_tensor(np.asarray(csr.indices, np.int32), device=device)
+        torch.as_tensor(np.asarray(csr.data, np.float32), device=device)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[1]
+
+
+def profile_window(what: str, fn, top: int = 8) -> tuple:
+    """Device time by kernel of one synchronised call of ``fn``, the
+    device's idle share of its wall time (no kernel running), and the
+    copy engine's transfers apart (torch.profiler) -> (wall ms, kernel
+    ms, copy ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3267,8 +3516,13 @@ def profile_window(what: str, fn, top: int = 8) -> None:
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    rows = []
+    rows, copies = [], []
     for ev in prof.key_averages():
+        # the copy engine's transfers, listed apart from the kernels
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copies.append((getattr(ev, "device_time_total", 0) / 1e3,
+                           ev.key, ev.count))
+            continue
         # device-side events only: a host op's device time is that of
         # the kernels it launched, which are listed on their own
         if getattr(ev, "device_type", None) != DeviceType.CUDA or \
@@ -3282,9 +3536,14 @@ def profile_window(what: str, fn, top: int = 8) -> None:
         raise AssertionError(f"profile {what}: no device kernels traced")
     busy = sum(r[0] for r in rows)
     log(f"profile {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
-        f"idle share {1 - busy / wall:.3f}")
+        f"idle share {1 - busy / wall:.3f} (kernels only; copies "
+        f"{sum(c[0] for c in copies):.3f} ms)")
     for ms, key, count in sorted(rows, reverse=True)[:top]:
         log(f"profile {what}:   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    for ms, key, count in sorted(copies, reverse=True):
+        if ms > 0:
+            log(f"profile {what}:   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    return wall, busy, sum(c[0] for c in copies)
 
 
 def main(argv) -> int:
@@ -3390,7 +3649,7 @@ def main(argv) -> int:
     log(f"url path: {json.dumps(rates_url)}")
     log(f"phase url path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rates_dense = dense_cross_check(device)
+    counts_dense, rates_dense = dense_cross_check(device)
     log(f"dense cross-check: {json.dumps(rates_dense)}")
     log(f"phase dense cross-check: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3400,6 +3659,7 @@ def main(argv) -> int:
     log(f"phase learn path: {time.perf_counter() - t0:.1f} s")
     path_counts = {"main": counts, "scored": counts_scored,
                    "mutable": counts_mutable, "url": counts_url,
+                   "dense": counts_dense,
                    "learn": counts_learn, "serve": counts_serve}
     kernels = []
     for name, (path, src, rep) in KERNELS.items():

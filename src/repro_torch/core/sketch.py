@@ -110,6 +110,16 @@ class CodedRandomProjection:
                                 self.cfg.k, self.device, impl=impl,
                                 dtype=self.dtype)
 
+    def _draw_units(self, units: list, out: torch.Tensor,
+                    impl: str = "auto") -> torch.Tensor:
+        """Units ``units`` (ascending, within ``out.shape[0]`` of the
+        first) drawn in one launch into out [G, r_unit, k], unit u at
+        slot u - units[0], each bit-identical to ``_block_r(u)``."""
+        return _ops.normal_unit_group(
+            [prng.fold_in(self._key, u) for u in units],
+            [self.unit_width(u) for u in units], out,
+            [u - units[0] for u in units], impl=impl)
+
     def as_input(self, x) -> torch.Tensor:
         """Dense rows (tensor or array) as float32 on the sketcher's device
         (CSR input is routed by the streaming encoder)."""

@@ -12,12 +12,14 @@ Counterpart of ``repro/encode/encoder.py:52-174``, in three regimes:
   the device where it is used (``CodedRandomProjection.project``), into
   one [n, k] accumulator in the sketch's dtype.
 * CSR (``encode.CsrMatrix``, at any D): the chunk's arrays go to the
-  device once; for each occupied unit, in ascending order, the unit is
-  drawn and the CSR step kernel adds each row's products in CSR order.
-  Units no entry touches are skipped. The accumulator is float32 for a
-  bf16 sketch too, with each bf16 unit widened exactly: the reference's
-  first step promotes its bf16 zeros to float32 (``acc + segment_sum``
-  of float32 products).
+  device once; the occupied units, in ascending order, go in runs of up
+  to ``csr_group`` consecutive unit ids: one launch draws a run's
+  occupied units into a buffer of G units, and one launch of the grouped
+  CSR step adds each row's products, unit by unit and within a unit in
+  CSR order. Units no entry touches are neither drawn nor read. The
+  accumulator is float32 for a bf16 sketch too, with each bf16 unit
+  widened exactly: the reference's first step promotes its bf16 zeros
+  to float32 (``acc + segment_sum`` of float32 products).
 
 The streamed and CSR regimes finalize with the code-and-pack kernel
 (``ops.code_pack``). They sum in the unit order of the ``core.sketch``
@@ -34,23 +36,40 @@ import torch
 
 from repro_torch.core.packing import packed_width
 from repro_torch.encode.sparse import CsrMatrix
+from repro_torch.kernels import normal_unit as _normal_unit
 from repro_torch.kernels import ops as _ops
 
-__all__ = ["StreamingEncoder", "R_CAP_ELEMS"]
+__all__ = ["StreamingEncoder", "R_CAP_ELEMS", "CSR_GROUP_MAX"]
 
 R_CAP_ELEMS = 1 << 24   # d * k float32 elements (64 MB)
+CSR_GROUP_MAX = _normal_unit.MAX_UNITS   # units of one grouped draw
 
 # column ids counted per slice, so the unit ids never take nnz * 4 bytes
 _COUNT_SLICE = 1 << 22
 
 
-def _occupied_units(indices: torch.Tensor, r_unit: int, n_units: int) -> list:
-    """Ascending ids of the units that the column ids ``indices`` touch."""
+def _unit_counts(indices: torch.Tensor, r_unit: int, n_units: int) -> list:
+    """Entries a unit of the column ids ``indices`` -> list [n_units]."""
     hist = torch.zeros(n_units, dtype=torch.int64, device=indices.device)
     for a in range(0, indices.numel(), _COUNT_SLICE):
         hist += torch.bincount(indices[a:a + _COUNT_SLICE] // r_unit,
                                minlength=n_units)
-    return torch.nonzero(hist).flatten().tolist()
+    return hist.tolist()
+
+
+def _runs(counts: list, group: int):
+    """The occupied units in runs of at most ``group`` consecutive unit
+    ids, ascending -> (first unit id, occupied unit ids, their entries)
+    a run."""
+    occupied = [u for u, c in enumerate(counts) if c]
+    i = 0
+    while i < len(occupied):
+        u0, j = occupied[i], i
+        while j < len(occupied) and occupied[j] < u0 + group:
+            j += 1
+        units = occupied[i:j]
+        yield u0, units, sum(counts[u] for u in units)
+        i = j
 
 
 class StreamingEncoder:
@@ -75,6 +94,16 @@ class StreamingEncoder:
         """Peak R elements held by the matrix-free path: one unit."""
         s = self.sketcher
         return s.cfg.r_unit * s.cfg.k
+
+    @property
+    def csr_group(self) -> int:
+        """Units G of R drawn and stepped together on the CSR path: the
+        most whose buffer (G * r_unit * k elements) takes at most half of
+        ``r_cap_elems``, at least 1 and at most ``CSR_GROUP_MAX`` and the
+        sketch's units."""
+        s = self.sketcher
+        g = (self.r_cap_elems // 2) // (s.cfg.r_unit * s.cfg.k)
+        return max(1, min(g, CSR_GROUP_MAX, s.n_units))
 
     def r_matrix(self) -> torch.Tensor:
         """R [D, k] in the sketch's dtype on the sketcher's device,
@@ -118,17 +147,21 @@ class StreamingEncoder:
                           device=s.device)
         if x.nnz == 0:
             return acc
-        ru = s.cfg.r_unit
+        ru, group = s.cfg.r_unit, self.csr_group
         indptr = torch.as_tensor(np.asarray(x.indptr, np.int64),
                                  device=s.device)
         indices = torch.as_tensor(np.asarray(x.indices, np.int32),
                                   device=s.device)
         data = torch.as_tensor(np.asarray(x.data, np.float32),
                                device=s.device)
-        for u in _occupied_units(indices, ru, s.n_units):
-            r = s._block_r(u, s.unit_width(u), impl=impl)
-            _ops.csr_unit_step(acc, indptr, indices, data,
-                               r.to(torch.float32), u * ru, impl=impl)
+        r = torch.empty((group, ru, s.cfg.k), dtype=s.dtype, device=s.device)
+        for u0, units, nnz in _runs(_unit_counts(indices, ru, s.n_units),
+                                    group):
+            s._draw_units(units, r, impl=impl)
+            span = min(group * ru, s.d - u0 * ru)   # the sketch's end
+            _ops.csr_group_step(acc, indptr, indices, data,
+                                r[:-(-span // ru)], u0 * ru, span,
+                                impl=impl, nnz=nnz)
         return acc
 
     # -- encoding ------------------------------------------------------------

@@ -26,6 +26,13 @@
 // rounded to bf16 (nearest, ties to even), times bf16(sqrt 2) = 1.4140625
 // (an exact float32 product) rounded to bf16.
 //
+// normal_units_launch draws up to 16 units in one launch (the CSR
+// path's group of units): their keys, buffer slots and widths go by value
+// in the kernel's parameters, blockIdx.y picks the unit, and the draw of
+// each element is the one above, so that a unit's bits do not depend on
+// its group. normal_unit_launch and normal_unit_bf16_launch are its
+// launch of one unit.
+//
 // Bound on this card: integer operations. threefry's 20 rounds (an add,
 // a rotate and a xor each) and its key injections are about 100 int32
 // operations an element against some 40 float32 ones for erfinv; the
@@ -146,21 +153,34 @@ __device__ __forceinline__ uint16_t bf16_normal_of_bits(uint32_t bits) {
   return bf16_rne(__fmul_rn(e, 0x1.6ap+0f));  // bf16(sqrt 2), exact product
 }
 
-__global__ void normal_unit_bf16_kernel(uint32_t k0, uint32_t k1,
-                                        uint16_t* __restrict__ out,
-                                        uint64_t n) {
-  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < n;
-       i += (uint64_t)gridDim.x * blockDim.x)
-    out[i] = bf16_normal_of_bits(
-        threefry_bits(k0, k1, (uint32_t)(i >> 32), (uint32_t)i));
+constexpr int MAX_UNITS = 16;
+
+// the units of one launch, passed by value: no copy to the card
+struct Units {
+  uint32_t k0[MAX_UNITS], k1[MAX_UNITS];  // fold_in(PRNGKey(seed), u)
+  uint32_t slot[MAX_UNITS];               // unit j goes to out + slot * stride
+  uint32_t width[MAX_UNITS];              // rows of unit j
+};
+
+__device__ __forceinline__ void store_normal(float* o, uint32_t bits) {
+  *o = normal_of_bits(bits);
+}
+__device__ __forceinline__ void store_normal(uint16_t* o, uint32_t bits) {
+  *o = bf16_normal_of_bits(bits);
 }
 
-__global__ void normal_unit_kernel(uint32_t k0, uint32_t k1,
-                                   float* __restrict__ out, uint64_t n) {
+// T float32, or uint16_t for bf16 bits
+template <typename T>
+__global__ void normal_units_kernel(Units units, T* __restrict__ out,
+                                    uint64_t stride, int k) {
+  const int j = blockIdx.y;
+  const uint32_t k0 = units.k0[j], k1 = units.k1[j];
+  const uint64_t n = (uint64_t)units.width[j] * k;
+  T* o = out + units.slot[j] * stride;
   for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < n;
        i += (uint64_t)gridDim.x * blockDim.x)
-    out[i] = normal_of_bits(
-        threefry_bits(k0, k1, (uint32_t)(i >> 32), (uint32_t)i));
+    store_normal(o + i, threefry_bits(k0, k1, (uint32_t)(i >> 32),
+                                      (uint32_t)i));
 }
 
 __global__ void normal_bits_kernel(const uint32_t* __restrict__ bits,
@@ -175,24 +195,67 @@ unsigned grid_for(uint64_t n, int threads) {
   return (unsigned)(blocks > 132 * 32 ? 132 * 32 : blocks);  // grid-stride
 }
 
-}  // namespace
-
-extern "C" int normal_unit_launch(uint32_t k0, uint32_t k1, float* out,
-                                  uint64_t n, void* stream) {
-  if (n == 0) return 0;
-  normal_unit_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      k0, k1, out, n);
+int launch_units(const Units& units, int n_units, uint32_t max_width,
+                 int k, int bf16, void* out, uint64_t stride,
+                 void* stream) {
+  const uint64_t n = (uint64_t)max_width * k;
+  if (n == 0 || n_units == 0) return 0;
+  if (n_units < 0 || n_units > MAX_UNITS) return (int)cudaErrorInvalidValue;
+  // the grid-stride cap of one unit, shared by the group's units
+  unsigned x = grid_for(n, 256) / n_units;
+  const dim3 grid(x ? x : 1, n_units);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    normal_units_kernel<uint16_t><<<grid, 256, 0, st>>>(
+        units, static_cast<uint16_t*>(out), stride, k);
+  else
+    normal_units_kernel<float><<<grid, 256, 0, st>>>(
+        units, static_cast<float*>(out), stride, k);
   return (int)cudaGetLastError();
 }
 
-// out: bf16 bits [n].
+}  // namespace
+
+// keys: 2 * n_units uint32 (k0, k1 of each unit), slots and widths:
+// n_units each, host arrays; out: [slots, stride] float32 or bf16 bits
+// (bf16 = 1), unit j written to out + slots[j] * stride as [widths[j], k].
+extern "C" int normal_units_launch(const uint32_t* keys, const int32_t* slots,
+                                   const int32_t* widths, int n_units, int k,
+                                   int bf16, void* out, uint64_t stride,
+                                   void* stream) {
+  if (n_units < 0 || n_units > MAX_UNITS) return (int)cudaErrorInvalidValue;
+  Units units = {};
+  uint32_t max_width = 0;
+  for (int j = 0; j < n_units; ++j) {
+    units.k0[j] = keys[2 * j];
+    units.k1[j] = keys[2 * j + 1];
+    units.slot[j] = (uint32_t)slots[j];
+    units.width[j] = (uint32_t)widths[j];
+    if (units.width[j] > max_width) max_width = units.width[j];
+  }
+  return launch_units(units, n_units, max_width, k, bf16, out, stride,
+                      stream);
+}
+
+// one unit: out [n] float32 under the key (k0, k1)
+extern "C" int normal_unit_launch(uint32_t k0, uint32_t k1, float* out,
+                                  uint64_t n, void* stream) {
+  Units units = {};
+  units.k0[0] = k0, units.k1[0] = k1, units.width[0] = (uint32_t)n;
+  return n > 0xFFFFFFFFull ? (int)cudaErrorInvalidValue
+                           : launch_units(units, 1, (uint32_t)n, 1, 0, out,
+                                          0, stream);
+}
+
+// one unit: out bf16 bits [n]
 extern "C" int normal_unit_bf16_launch(uint32_t k0, uint32_t k1,
                                        uint16_t* out, uint64_t n,
                                        void* stream) {
-  if (n == 0) return 0;
-  normal_unit_bf16_kernel<<<grid_for(n, 256), 256, 0,
-                            (cudaStream_t)stream>>>(k0, k1, out, n);
-  return (int)cudaGetLastError();
+  Units units = {};
+  units.k0[0] = k0, units.k1[0] = k1, units.width[0] = (uint32_t)n;
+  return n > 0xFFFFFFFFull ? (int)cudaErrorInvalidValue
+                           : launch_units(units, 1, (uint32_t)n, 1, 1, out,
+                                          0, stream);
 }
 
 extern "C" int normal_bits_launch(const uint32_t* bits, float* out,

@@ -42,8 +42,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.obs import kernelstats as _kstats
 
 __all__ = ["coded_project", "encode_fused", "split_r", "code_pack",
-           "normal_unit",
-           "normal_from_bits", "csr_unit_step", "pack_codes",
+           "normal_unit", "normal_unit_group",
+           "normal_from_bits", "csr_unit_step", "csr_group_step", "pack_codes",
            "collision_counts", "packed_topk", "packed_topk_masked",
            "packed_collision_counts", "packed_lut_topk",
            "packed_lut_topk_masked", "packed_lut_rerank", "fused_scored_topk",
@@ -59,8 +59,10 @@ _WRAPPERS = {"coded_project": (_proj_code, "launches"),
              "encode_fused": (_encode_fused, "launches"),
              "code_pack": (_encode_fused, "code_pack_launches"),
              "normal_unit": (_normal_unit, "launches"),
+             "normal_unit_group": (_normal_unit, "group_launches"),
              "normal_from_bits": (_normal_unit, "bits_launches"),
              "csr_unit_step": (_csr_step, "launches"),
+             "csr_group_step": (_csr_step, "group_launches"),
              "pack_codes": (_pack_codes, "launches"),
              "collision_counts": (_collision, "launches"),
              "packed_topk": (_packed_collision, "launches"),
@@ -167,6 +169,22 @@ def normal_unit(key: tuple, width: int, k: int, device,
     return _prng.normal(key, (width, k), device, dtype=dtype)
 
 
+def normal_unit_group(keys: list, widths: list, out: torch.Tensor,
+                      slots: list, impl: str = "auto") -> torch.Tensor:
+    """Units of R under their keys, in one launch: unit j
+    ([widths[j], k] standard normals, bit-identical to ``normal_unit``
+    under ``keys[j]``) into ``out[slots[j], :widths[j]]`` of the float32
+    or bf16 buffer out [G, r_unit, k] (at most 16 units); the rest of
+    out is left as it is -> out."""
+    _kstats.record("normal_unit_group", m=sum(widths), k=out.shape[2])
+    if _use_kernel(impl, out):
+        return _normal_unit.normal_unit_group_cuda(keys, widths, slots, out)
+    for key, width, slot in zip(keys, widths, slots):
+        out[slot, :width] = _prng.normal(key, (width, out.shape[2]),
+                                         out.device, dtype=out.dtype)
+    return out
+
+
 def normal_from_bits(bits: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """int32 bit-views of uint32 bits -> the float32 normals that
     ``jax.random.normal`` makes of them (the draw's last stage)."""
@@ -178,16 +196,39 @@ def normal_from_bits(bits: torch.Tensor, impl: str = "auto") -> torch.Tensor:
 
 def csr_unit_step(acc: torch.Tensor, indptr: torch.Tensor,
                   indices: torch.Tensor, data: torch.Tensor, r: torch.Tensor,
-                  lo: int, impl: str = "auto") -> torch.Tensor:
+                  lo: int, impl: str = "auto", *, nnz: int = None
+                  ) -> torch.Tensor:
     """One unit's CSR step, in place: acc[row] += val * r[col - lo] for
     each entry with its column in [lo, lo + r.shape[0]), a row's entries
-    in CSR order (rows without such an entry untouched) -> acc."""
+    in CSR order (rows without such an entry untouched) -> acc. r is
+    float32 or bf16. ``nnz``, the unit's entries, is for the kernel
+    stats (default: every entry, all of which the kernel scans)."""
     _kstats.record("csr_unit_step", m=acc.shape[0], k=acc.shape[1],
-                   nnz=indices.numel(), width=r.shape[0])
+                   nnz=indices.numel() if nnz is None else nnz,
+                   span=r.shape[0], rb=r.element_size())
     if _use_kernel(impl, acc):
         return _csr_step.csr_unit_step_cuda(acc, indptr, indices, data,
                                             r.contiguous(), lo)
     return _ref.csr_unit_step_ref(acc, indptr, indices, data, r, lo)
+
+
+def csr_group_step(acc: torch.Tensor, indptr: torch.Tensor,
+                   indices: torch.Tensor, data: torch.Tensor,
+                   r: torch.Tensor, lo: int, span: int, impl: str = "auto",
+                   *, nnz: int = None) -> torch.Tensor:
+    """The CSR step of a group of units in one launch, in place: unit g
+    of r float32 or bf16 [G, r_unit, k] covers the columns [lo + g *
+    r_unit, lo + (g + 1) * r_unit) of [lo, lo + span), and acc equals
+    ``csr_unit_step`` over the units in ascending order, bit for bit ->
+    acc. ``nnz``, the group's entries, is for the kernel stats
+    (default: every entry)."""
+    _kstats.record("csr_group_step", m=acc.shape[0], k=acc.shape[1],
+                   nnz=indices.numel() if nnz is None else nnz, span=span,
+                   rb=r.element_size())
+    if _use_kernel(impl, acc):
+        return _csr_step.csr_group_step_cuda(acc, indptr, indices, data,
+                                             r.contiguous(), lo, span)
+    return _ref.csr_group_step_ref(acc, indptr, indices, data, r, lo, span)
 
 
 def pack_codes(codes: torch.Tensor, bits: int, impl: str = "auto", *,

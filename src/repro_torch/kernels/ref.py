@@ -21,7 +21,8 @@ from repro_torch.core.schemes import CodeSpec
 
 __all__ = ["coded_project_ref", "tf32_split", "pack_codes_ref",
            "encode_fused_ref",
-           "code_pack_ref", "csr_unit_step_ref", "collision_counts_ref",
+           "code_pack_ref", "csr_unit_step_ref", "csr_group_step_ref",
+           "collision_counts_ref",
            "packed_collision_ref", "topk_stable_ref", "packed_topk_ref",
            "packed_topk_masked_ref",
            "lut_scores_rowwise_ref", "lut_scores_rowwise_int8_ref",
@@ -83,9 +84,9 @@ def csr_unit_step_ref(acc: torch.Tensor, indptr: torch.Tensor,
                       r: torch.Tensor, lo: int) -> torch.Tensor:
     """One unit's CSR step, in place on acc float32 [n, k]: each entry
     whose column lies in [lo, lo + r.shape[0]) adds its rounded product
-    val * r[col - lo] to acc[row], a row's entries in CSR order (the
-    order of XLA's scatter-add in the reference). Rows without such an
-    entry are left as they are.
+    val * r[col - lo] (r float32 or bf16, widened exactly) to acc[row],
+    a row's entries in CSR order (the order of XLA's scatter-add in the
+    reference). Rows without such an entry are left as they are.
 
     Selecting the unit's entries keeps CSR order, so each row's entries
     form one run; the loop over the position j within a run adds one
@@ -96,7 +97,7 @@ def csr_unit_step_ref(acc: torch.Tensor, indptr: torch.Tensor,
     if sel.numel() == 0:
         return acc
     rows = torch.searchsorted(indptr, sel, right=True) - 1
-    prods = data[sel, None] * r[lcol[sel].long()]
+    prods = data[sel, None] * r[lcol[sel].long()].to(torch.float32)
     first = torch.ones_like(rows, dtype=torch.bool)
     first[1:] = rows[1:] != rows[:-1]
     starts = torch.nonzero(first).flatten()
@@ -105,6 +106,24 @@ def csr_unit_step_ref(acc: torch.Tensor, indptr: torch.Tensor,
     for j in range(int(pos.max()) + 1):
         at = pos == j
         acc[rows[at]] = acc[rows[at]] + prods[at]
+    return acc
+
+
+def csr_group_step_ref(acc: torch.Tensor, indptr: torch.Tensor,
+                       indices: torch.Tensor, data: torch.Tensor,
+                       r: torch.Tensor, lo: int, span: int) -> torch.Tensor:
+    """The CSR step of a group of units, in place on acc float32 [n, k]:
+    unit g of r [G, r_unit, k] (float32 or bf16, widened exactly) covers
+    the columns [lo + g * r_unit, lo + (g + 1) * r_unit) of [lo, lo +
+    span), and the units take ``csr_unit_step_ref`` in ascending order,
+    so a row's entries of a lower unit are added before those of a
+    higher one, whatever their CSR positions."""
+    ru = r.shape[1]
+    for g in range(r.shape[0]):
+        width = min(ru, span - g * ru)
+        if width > 0:
+            csr_unit_step_ref(acc, indptr, indices, data, r[g, :width],
+                              lo + g * ru)
     return acc
 
 

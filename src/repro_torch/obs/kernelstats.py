@@ -6,7 +6,8 @@ through; this module is its flight recorder. Each dispatch records, per
 kernel family: invocation count, output-element counts, and analytically
 modeled FLOPs and device-memory bytes from the call's shapes, with the
 reference's models for its 17 families and models of the port's own
-three (the R draw, the draw's last stage, the CSR step). The port runs
+five (the R draw of one unit and of a group, the draw's last stage,
+the CSR step of one unit and of a group). The port runs
 eagerly, so every dispatch is a call and ``traced_calls`` stays 0.
 
 ``roofline_table`` folds the accumulated totals against a hardware model
@@ -131,10 +132,13 @@ def _m_normal_from_bits(m, k, **_):
     return m * k, 60 * m * k, 8 * m * k
 
 
-def _m_csr_unit_step(m, k, nnz, width, **_):
-    # one multiply-add per (entry, projection); the unit read once, the
-    # touched accumulator rows read and written
-    return m * k, 2 * nnz * k, 4 * (3 * nnz + width * k + 2 * m * k)
+def _m_csr_step(m, k, nnz, span, rb, **_):
+    # one multiply and one add a (entry, projection); the entries' column
+    # ids and values, and the units (span columns of rb bytes a value)
+    # read once; the touched accumulator rows (at most one an entry) read
+    # and written once
+    rows = min(m, nnz)
+    return rows * k, 2 * nnz * k, 8 * nnz + rb * span * k + 8 * rows * k
 
 
 # family -> fn(**dims) -> (elements, flops, hbm_bytes); dims are the
@@ -158,8 +162,10 @@ MODELS = {
     "packed_linear_bwd": _m_packed_linear_bwd,
     "packed_linear_bwd_masked": _m_packed_linear_bwd_masked,
     "normal_unit": _m_normal_unit,
+    "normal_unit_group": _m_normal_unit,
     "normal_from_bits": _m_normal_from_bits,
-    "csr_unit_step": _m_csr_unit_step,
+    "csr_unit_step": _m_csr_step,
+    "csr_group_step": _m_csr_step,
 }
 
 

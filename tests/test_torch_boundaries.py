@@ -138,6 +138,12 @@ def test_mutable_index_on_cpu_on_request(no_cuda, tmp_path):
         torch.zeros(4, 32), torch.zeros(5, dtype=torch.int64),
         torch.zeros(0, dtype=torch.int32), torch.zeros(0), r, 0,
         impl="kernel"),
+    lambda x, r, c, w: ops.normal_unit_group(
+        [(0, 1)], [8], torch.zeros(1, 8, 32), [0], impl="kernel"),
+    lambda x, r, c, w: ops.csr_group_step(
+        torch.zeros(4, 32), torch.zeros(5, dtype=torch.int64),
+        torch.zeros(0, dtype=torch.int32), torch.zeros(0), r[None], 0, 8,
+        impl="kernel"),
     lambda x, r, c, w: ops.packed_linear_fwd(torch.zeros(1, 128), w, 2,
                                              impl="kernel"),
     lambda x, r, c, w: ops.packed_linear_fwd_masked(
@@ -158,7 +164,8 @@ def test_mutable_index_on_cpu_on_request(no_cuda, tmp_path):
         "packed_collision_counts", "packed_lut_rerank", "fused_scored_topk",
         "packed_topk_masked", "fused_scored_topk_masked", "code_pack",
         "normal_unit", "normal_from_bits", "csr_unit_step",
-        "packed_linear_fwd", "packed_linear_fwd_masked", "packed_linear_bwd",
+        "normal_unit_group", "csr_group_step", "packed_linear_fwd",
+        "packed_linear_fwd_masked", "packed_linear_bwd",
         "packed_linear_bwd_masked", "collision_counts", "packed_lut_topk",
         "packed_lut_topk_masked"])
 def test_kernel_impl_on_cpu_raises(call):

@@ -330,6 +330,77 @@ def test_csr_unit_step_kernel_bit_exact(gen, k):
         assert torch.equal(acc_k.view(torch.int32), acc_r.view(torch.int32))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [7, 256, 300])
+@pytest.mark.parametrize("group", [1, 2, 8])
+def test_csr_group_step_kernel_bit_exact(gen, group, k, dtype):
+    """Groups of G units from unit 0 (10 units, the last 784 columns; a
+    row of 300 entries, past the 128 a warp holds in registers) against
+    the plain version and against the kernel of one unit a launch; the
+    slot of unit 4, which no entry touches, holds NaN."""
+    d, ru = 10_000, 1024
+    indptr, cols, data = _csr_cases(gen, 200, d)
+    cols[cols // ru == 4] += ru
+    units = [torch.randn((min(ru, d - u * ru), k), generator=gen,
+                         device="cuda").to(dtype) for u in range(10)]
+    acc0 = torch.randn((200, k), generator=gen, device="cuda")
+    acc_k, acc_r, acc_u = acc0.clone(), acc0.clone(), acc0.clone()
+    for u0 in range(0, 10, group):
+        span = min(group * ru, d - u0 * ru)
+        r = torch.full((-(-span // ru), ru, k), float("nan"), device="cuda",
+                       dtype=dtype)
+        for g in range(r.shape[0]):
+            if u0 + g != 4:
+                r[g, :units[u0 + g].shape[0]] = units[u0 + g]
+        ops.csr_group_step(acc_k, indptr, cols, data, r, u0 * ru, span,
+                           impl="kernel")
+        ops.csr_group_step(acc_r, indptr, cols, data, r, u0 * ru, span,
+                           impl="ref")
+    for u, r in enumerate(units):
+        ops.csr_unit_step(acc_u, indptr, cols, data, r, u * ru,
+                          impl="kernel")
+    assert torch.equal(acc_k.view(torch.int32), acc_r.view(torch.int32))
+    assert torch.equal(acc_k.view(torch.int32), acc_u.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normal_unit_group_kernel_bit_exact(gen, dtype):
+    """The last 8 units of the URL sketch (the last one 217 rows) in one
+    launch, unit 785 not given: each slot equal to the draw of one unit
+    a launch; the slot not given keeps its values."""
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    crp = CodedRandomProjection(SketchConfig(
+        k=256, dtype="bfloat16" if dtype == torch.bfloat16 else "float32"),
+        3_231_961)
+    units = [782, 783, 784, 786, 787, 788, 789]
+    out = torch.full((8, 4096, 256), 3.0, device="cuda", dtype=dtype)
+    crp._draw_units(units, out, impl="kernel")
+    iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for u in units:
+        want = crp._block_r(u, crp.unit_width(u), impl="kernel")
+        assert torch.equal(out[u - 782, :want.shape[0]].view(iv),
+                           want.view(iv))
+    assert crp.unit_width(789) == 217
+    assert bool((out[3] == 3.0).all()) and bool((out[7, 217:] == 3.0).all())
+
+
+def test_grouped_csr_encode_matches_plain_versions(gen):
+    """The CSR regime at G = 3 (f32) and G = 4 (bf16) on the card against
+    the same calls through the plain versions."""
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.encode import CsrMatrix, StreamingEncoder
+    indptr, cols, data = _csr_cases(gen, 200, 10_000)
+    csr = CsrMatrix(indptr.cpu().numpy(), cols.cpu().numpy(),
+                    data.cpu().numpy(), (200, 10_000))
+    for dtype, group in (("float32", 3), ("bfloat16", 4)):
+        crp = CodedRandomProjection(SketchConfig(k=100, r_unit=1024,
+                                                 dtype=dtype), 10_000)
+        enc = StreamingEncoder(crp, r_cap_elems=2 * group * 1024 * 100)
+        assert enc.csr_group == group
+        assert torch.equal(enc.encode_packed(csr),
+                           enc.encode_packed(csr, impl="ref"))
+
+
 def test_sparse_and_streamed_encode_match_plain_versions(gen):
     """The whole streamed and CSR regimes on the card (draw, step,
     code_pack) against the same calls through the plain versions."""

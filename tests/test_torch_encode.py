@@ -1,5 +1,6 @@
 """Port parity for ``repro_torch.encode``: CSR input, unit streaming above
-the residency cap, the code-and-pack epilogue and the CSR unit step.
+the residency cap, the code-and-pack epilogue and the CSR step of one
+unit and of a group of units.
 
 The same seeded numpy inputs go through ``repro`` and ``repro_torch``
 (``device="cpu"``, so ``ops`` runs the plain versions). The CSR regime
@@ -12,6 +13,8 @@ projection lies within ``EDGE_TOL`` of a bin edge.
 Sketches are small (D * k at most 160,000 elements): the plain draw of R
 costs about 1.5 us an element on the CPU.
 """
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -194,6 +197,132 @@ def test_csr_projection_bit_identical_to_jax():
     got = StreamingEncoder(tc).project(CsrMatrix(indptr, cols, vals, (40, D)))
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.view(np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_csr_projection(r_unit):
+    """JAX's projection of ``_messy_csr`` rows at ``r_unit`` (computed
+    once a width: every case of a width holds the same reference)."""
+    jc = JaxCRP(JaxCfg(k=K, seed=3, r_unit=r_unit), D)
+    indptr, cols, vals = _messy_csr(np.random.default_rng(5), 40)
+    z = JaxEncoder(jc).project(JaxCsr(indptr, cols, vals, (40, D)))
+    return (indptr, cols, vals), np.asarray(z), JaxEncoder(jc).r_slab_elems
+
+
+@pytest.mark.parametrize("cap,group", [(4096, 1), (8192, 2), (20480, 5)])
+def test_csr_projection_matches_jax_in_groups(cap, group):
+    """At r_unit 64 (79 units, the last 8 columns) the cap sets the CSR
+    path's group of units to 1, 2 or 5, none of which divides 79; r_slab_
+    elems stays JAX's. Each projection is JAX's bit for bit on every row
+    but those with an entry alone in its unit's bucket: for a bucket of
+    one entry XLA contracts acc + val * R[col] into one FMA (the port
+    rounds the product, then adds, as for every other bucket), so those
+    rows may differ by one ulp. The seeded rows hold two such rows, and
+    one of them differs."""
+    (indptr, cols, vals), want, slab = _jax_csr_projection(64)
+    tc = CodedRandomProjection(SketchConfig(k=K, seed=3, r_unit=64), D,
+                               device="cpu")
+    enc = StreamingEncoder(tc, r_cap_elems=cap)
+    assert enc.csr_group == group and tc.n_units == 79
+    assert enc.r_slab_elems == slab == 64 * K
+    got = enc.project(CsrMatrix(indptr, cols, vals, (40, D))).numpy()
+    units, counts = np.unique(cols // 64, return_counts=True)
+    alone = np.isin(cols, cols[np.isin(cols // 64, units[counts == 1])])
+    fma_rows = np.unique(np.repeat(np.arange(40), np.diff(indptr))[alone])
+    exact = np.setdiff1d(np.arange(40), fma_rows)
+    assert fma_rows.size == 2
+    np.testing.assert_array_equal(got[exact].view(np.int32),
+                                  want[exact].view(np.int32))
+    ulps = np.abs(got[fma_rows].view(np.int32).astype(np.int64)
+                  - want[fma_rows].view(np.int32))
+    assert ulps.max() == 1
+
+
+def _group_csr(rng, k):
+    """``_messy_csr`` rows at D = 300, r_unit 16 (19 units, the last 12
+    columns), then: no entry in units 3, 4 and 10; a row whose CSR order
+    runs from unit 5 to unit 2 to unit 5 to unit 0; entries in the ragged
+    last unit. -> (indptr, indices, data, R units [19 of [width, k]])."""
+    indptr, cols, vals = _messy_csr(rng, 30, d=300)
+    for u in (3, 4, 10):
+        at = cols // 16 == u
+        cols[at] += 32
+    a = int(indptr[np.argmax(np.diff(indptr) >= 6)])
+    cols[a:a + 6] = [5 * 16 + 3, 2 * 16 + 7, 5 * 16 + 3, 1, 299, 290]
+    units = [torch.from_numpy(rng.standard_normal(
+        (min(16, 300 - 16 * u), k)).astype(np.float32)) for u in range(19)]
+    return (torch.from_numpy(indptr), torch.from_numpy(cols),
+            torch.from_numpy(vals), units)
+
+
+@pytest.mark.parametrize("group", [1, 3, 8])
+def test_csr_group_step_ref_matches_unit_loop(group):
+    """Groups of G units from unit 0 (the last one ragged) through
+    ``ops.csr_group_step`` equal ``csr_unit_step_ref`` over every unit in
+    ascending order, bit for bit; the slots of units without an entry
+    hold NaN and are never read."""
+    rng = np.random.default_rng(19)
+    indptr, indices, data, units = _group_csr(rng, 7)
+    acc0 = torch.from_numpy(rng.standard_normal((30, 7)).astype(np.float32))
+    want = acc0.clone()
+    for u, r in enumerate(units):
+        ref.csr_unit_step_ref(want, indptr, indices, data, r, 16 * u)
+    got = acc0.clone()
+    for u0 in range(0, 19, group):
+        span = min(16 * group, 300 - 16 * u0)
+        r = torch.full((-(-span // 16), 16, 7), float("nan"))
+        for g in range(r.shape[0]):
+            if u0 + g not in (3, 4, 10):
+                r[g, :units[u0 + g].shape[0]] = units[u0 + g]
+        ops.csr_group_step(got, indptr, indices, data, r, 16 * u0, span)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
+
+
+def test_csr_kernel_stats_count_each_entry_once():
+    """One kernel-stats record a grouped draw and a grouped step, the
+    step's FLOPs 2 x entries x k over the whole projection (each entry in
+    exactly one group), not the chunk's entries once a group."""
+    from repro_torch.obs import kernelstats
+    indptr, cols, vals = _messy_csr(np.random.default_rng(5), 40)
+    tc = CodedRandomProjection(SketchConfig(k=K, seed=3, r_unit=64), D,
+                               device="cpu")
+    enc = StreamingEncoder(tc, r_cap_elems=20480)            # G = 5
+    prev = kernelstats.set_kernel_stats(kernelstats.KernelStats())
+    try:
+        enc.project(CsrMatrix(indptr, cols, vals, (40, D)))
+        snap = kernelstats.get_kernel_stats().snapshot()
+    finally:
+        kernelstats.set_kernel_stats(prev)
+    occupied = np.unique(cols // 64)
+    runs, i = 0, 0
+    while i < occupied.size:
+        runs += 1
+        i += int(np.sum((occupied >= occupied[i])
+                        & (occupied < occupied[i] + 5)))
+    assert snap["csr_group_step"]["calls"] == runs
+    assert snap["normal_unit_group"]["calls"] == runs
+    assert snap["csr_group_step"]["flops"] == 2 * cols.size * K
+    assert snap["normal_unit_group"]["elements"] == K * sum(
+        tc.unit_width(int(u)) for u in occupied)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normal_unit_group_plain_matches_unit_draws(dtype):
+    """The grouped draw's plain version: each unit in its slot equal to
+    ``prng.normal`` under its key (the ragged unit too); the slots it is
+    not given keep their values."""
+    key = prng.PRNGKey(9)
+    units = [3, 4, 6]
+    widths = [16, 16, 12]
+    out = torch.full((4, 16, 5), 7.0, dtype=dtype)
+    ops.normal_unit_group([prng.fold_in(key, u) for u in units], widths, out,
+                          [u - 3 for u in units])
+    iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for u, w in zip(units, widths):
+        want = prng.normal(prng.fold_in(key, u), (w, 5), dtype=dtype)
+        assert torch.equal(out[u - 3, :w].view(iv), want.view(iv))
+    assert bool((out[2] == 7.0).all()) and bool((out[3, 12:] == 7.0).all())
 
 
 def test_csr_unit_step_ref_order_and_untouched_rows():
