@@ -41,7 +41,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    the GEMMs' bound is three TF32 tensor-core products a multiply-add at
    495 TFLOP/s, printed beside the CUDA cores' float32 bound and
    ``torch.matmul``, and ``coded_project`` is also timed at the serving
-   buckets M = 64 and 256.
+   buckets M = 64 and 256. The count sweep of rows 4-7 runs on the int8
+   tensor cores for 1- and 2-bit codes (``csrc/topk_tc.cuh``,
+   the ``packed_topk_tc`` row, launches counted apart): rows 4-7 are held
+   bit-exact at the default S and at every S the autotune sweep tries
+   (and at 1), their bound is 2 Q N_live K int8 operations at 1,979
+   TOPS against the bytes, printed beside the popcount bound
+   (``popc_bound_ms``), and ``torch._int_mm`` of the one-hot operands at
+   a segment's shape ([256 x 1,024] by [1,024 x 262,144], the product
+   alone, held to the counts) is their ``gemm_library_ms``; the sweep's
+   partial lists are held to their plain version and timed apart from
+   the merge at top_k 10 and at m 64, with the plan and the registers
+   and spills of each instance.
 3. Main path at N = 4,194,304 rows, D = 1024, k = 256, 2-bit codes at
    w = 0.75: seeded Gaussian rows made on the card in 65,536-row chunks
    go through ``CodedRandomProjection.sketch`` into a ``CodeStore``;
@@ -215,6 +226,7 @@ HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 F32_ADD_S = 132 * 128 * 1.98e9
 TF32_FLOP_S = 495e12      # dense tensor-core TF32
+TENSOR_I8_OP_S = 1979e12  # dense tensor-core int8
 INT32_OP_S = 132 * 64 * 1.98e9
 POPC_OP_S = 132 * 16 * 1.98e9
 SPIN_CYCLES = int(2e-3 * 1.98e9)   # 2 ms at the boost clock
@@ -254,6 +266,10 @@ KERNELS = {
                    "src/repro/kernels/pack_codes.py:32"),
     "packed_topk": ("main", "src/repro_torch/kernels/csrc/packed_topk.cu",
                     "src/repro/kernels/packed_collision.py:170"),
+    # the count sweep under rows 4-7 (packed_topk, fused_scored_topk and
+    # their masked forms) for 1- and 2-bit codes
+    "packed_topk_tc": ("main", "src/repro_torch/kernels/csrc/topk_tc.cuh",
+                       "src/repro/kernels/packed_collision.py:170"),
     "fused_scored_topk": ("scored",
                           "src/repro_torch/kernels/csrc/fused_scored.cu",
                           "src/repro/kernels/fused_scored.py:265"),
@@ -301,15 +317,17 @@ KERNELS = {
 }
 # path -> every kernel it must launch
 PATH_KERNELS = {
-    "main": ("encode_fused", "coded_project", "pack_codes", "packed_topk"),
+    "main": ("encode_fused", "coded_project", "pack_codes", "packed_topk",
+             "packed_topk_tc"),
     "scored": ("coded_project", "pack_codes", "packed_topk",
                "packed_collision_counts", "packed_lut_rerank",
-               "fused_scored_topk"),
+               "fused_scored_topk", "packed_topk_tc"),
     "mutable": ("encode_fused", "coded_project", "pack_codes",
                 "packed_topk_masked", "fused_scored_topk_masked",
-                "packed_collision_counts", "packed_lut_rerank"),
+                "packed_collision_counts", "packed_lut_rerank",
+                "packed_topk_tc"),
     "url": ("code_pack", "normal_unit_group", "csr_group_step", "pack_codes",
-            "packed_topk", "fused_scored_topk"),
+            "packed_topk", "fused_scored_topk", "packed_topk_tc"),
     "dense": ("encode_fused", "normal_unit", "code_pack",
               "normal_unit_group", "csr_group_step"),
     "learn": ("code_pack", "normal_unit_group", "csr_group_step",
@@ -320,8 +338,11 @@ PATH_KERNELS = {
               "fused_scored_topk_masked", "packed_lut_rerank",
               "packed_collision_counts", "packed_lut_topk",
               "packed_lut_topk_masked", "collision_counts",
-              "packed_linear_fwd", "packed_linear_bwd"),
+              "packed_linear_fwd", "packed_linear_bwd", "packed_topk_tc"),
 }
+# registers and spill bytes of each instance of the tensor-core count
+# sweep, "bits,QB" -> (registers, spill stores), from the build's report
+TC_PTXAS = {}
 
 
 def log(msg: str) -> None:
@@ -370,6 +391,31 @@ def bound(ops_s: list, n_bytes: float):
     t = max(s for _, s in terms)
     pipes = "=".join(p for p, s in terms if s >= t * (1 - 1e-9))
     return 1e3 * t, ("bytes" if pipes == "bytes" else "operations"), pipes
+
+
+def count_bounds(nq: int, n_live: int, w_words: int, int_word: int,
+                 n_bytes: float):
+    """The bounds of a count sweep over ``n_live`` rows: (the int8 tensor
+    cores' least time for its one-hot product, 2 Q N_live K operations
+    at K = 64 W bytes, against ``n_bytes`` -> bound()'s triple; the
+    popcount bound, the least time of any fold on the CUDA cores: a popc
+    and ``int_word`` int32 operations a (query, row, word))."""
+    pairs = float(nq) * n_live * w_words
+    tensor = bound([("int8 tensor", 2.0 * nq * n_live * 64 * w_words,
+                     TENSOR_I8_OP_S)], n_bytes)
+    popc = bound([("popc", pairs, POPC_OP_S),
+                  ("int32", pairs * int_word, INT32_OP_S)], n_bytes)[0]
+    return tensor, popc
+
+
+def sweep_equal(name: str, fn_s, want) -> None:
+    """``fn_s(n_ranges)`` at every S the autotune sweep tries for the count
+    ops, and at 1, bit-exact against ``want``."""
+    from repro_torch.kernels import autotune
+    for s in (1,) + autotune.SWEEPS["packed_topk"]["n_ranges"]:
+        if not same(fn_s(s), want):
+            raise AssertionError(f"{name} at n_ranges={s} differs from its "
+                                 f"plain version")
 
 
 def launch_diff(before: dict) -> dict:
@@ -1073,35 +1119,127 @@ def kernel_phase(crp, device) -> dict:
     want = ref.packed_topk_ref(wq, wdb, bits, K, TOP_K)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError("packed_topk differs from its plain version")
-    # per (query, row, word): one popcount, and besides it an xor,
-    # log2(b) shifts and ors (the last or merges with the field mask into
-    # one LOP3) and the add into the count
+    sweep_equal("packed_topk", lambda s: ops.packed_topk(
+        wq, wdb, bits, K, TOP_K, impl="kernel", n_ranges=s), want)
+    # per (query, row, word) on the CUDA cores: one popcount, and besides
+    # it an xor, log2(b) shifts and ors (the last or merges with the field
+    # mask into one LOP3) and the add into the count
     int_word = 2 + 2 * int(math.log2(bits))
-    pairs = float(CHUNK_Q) * N_ROWS * w_words
-    b_ms, b_by, pipe = bound([("popc", pairs, POPC_OP_S),
-                              ("int32", pairs * int_word, INT32_OP_S)],
-                             4.0 * (N_ROWS * w_words + CHUNK_Q * w_words
-                                    + 2 * CHUNK_Q * TOP_K))
+    gemm_lib = int_mm_yardstick(wq, wdb, bits)
+    (b_ms, b_by, pipe), popc_ms = count_bounds(
+        CHUNK_Q, N_ROWS, w_words, int_word,
+        4.0 * (N_ROWS * w_words + CHUNK_Q * w_words + 2 * CHUNK_Q * TOP_K))
     rows["packed_topk"] = dict(
         max_abs_err=0,
         ms=time_ms(lambda: ops.packed_topk(wq, wdb, bits, K, TOP_K, impl="kernel")),
         plain_ms=time_ms(lambda: ref.packed_topk_ref(wq, wdb, bits, K, TOP_K),
                          reps=10, warmup=1),
         bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe, library_ms=None,
+        popc_bound_ms=popc_ms, gemm_library_ms=gemm_lib["ms"],
         shape=[CHUNK_Q, N_ROWS, w_words, TOP_K])
     log(f"kernel packed_topk: Q={CHUNK_Q} N={N_ROWS} W={w_words} "
-        f"top_k={TOP_K} bit-exact ms={rows['packed_topk']['ms']:.4f} "
+        f"top_k={TOP_K} bit-exact at every S the sweep tries "
+        f"ms={rows['packed_topk']['ms']:.4f} "
         f"plain_ms={rows['packed_topk']['plain_ms']:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by}, {pipe})")
-    scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word)
-    masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word)
+        f"bound_ms={b_ms:.4f} ({b_by}, {pipe}) popc_bound_ms={popc_ms:.4f}")
+    count_sweep_phase(rows, wq, wdb, bits, int_word, gemm_lib)
+    scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word, gemm_lib)
+    masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word, gemm_lib)
     serve_kernel_phase(rows, crp, codes_q, wq, wdb, gen)
     del wdb
     torch.cuda.empty_cache()
     return rows
 
 
-def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
+def int_mm_yardstick(wq, wdb, bits: int) -> dict:
+    """``torch._int_mm`` of the one-hot operands at a mutable segment's
+    shape, [256 x 1,024] by [1,024 x 262,144] int8: the product alone of
+    the tensor-core sweep (no top-k), held to k - F + product = the
+    collision counts, and timed (ms)."""
+    import torch
+    from repro_torch.kernels import ref
+    w_words = wq.shape[1]
+    a = ref.onehot_rows(wq, bits, torch.int8)
+    b = ref.onehot_rows(wdb[:TAIL_ROWS], bits, torch.int8)
+    bt = b.t()                      # [K, N], column-major as cuBLASLt takes it
+    got = torch._int_mm(a, bt) + (K - w_words * (32 // bits))
+    if not torch.equal(got, ref.packed_collision_ref(wq, wdb[:TAIL_ROWS],
+                                                     bits, K)):
+        raise AssertionError("k - F + onehot(q) . onehot(db) differs from the "
+                             "collision counts")
+    del got
+    ms = time_ms(lambda: torch._int_mm(a, bt))
+    shape = [a.shape[0], a.shape[1], b.shape[0]]
+    log(f"yardstick torch._int_mm of the one-hot operands {shape} (int8, "
+        f"the product alone; k - F + it equals the counts): ms={ms:.4f}")
+    del a, b, bt
+    torch.cuda.empty_cache()
+    return dict(ms=ms, shape=shape)
+
+
+def count_sweep_phase(rows, wq, wdb, bits: int, int_word: int,
+                      gemm_lib: dict) -> None:
+    """The tensor-core count sweep alone (csrc/topk_tc.cuh; the row of the
+    kernels line) at the main path's shapes: the partial lists at the
+    default S against their plain version, timed apart from the merge,
+    at top_k 10 (row 4) and at m 64 (row 5's survivors, QB 64), with the
+    plan, registers and spills."""
+    import torch
+    from repro_torch.kernels import packed_collision as pc
+    from repro_torch.kernels import ref
+    nq, w_words = wq.shape
+    out = {}
+    for top_k in (TOP_K, RERANK_M):
+        t0 = time.perf_counter()
+        p = pc.plan(nq, N_ROWS, w_words, bits, top_k, device=wq.device)
+        if p["kernel"] != "tensor":
+            raise AssertionError(f"the main path's sweep plans {p}")
+        got = pc.packed_topk_partial_cuda(wq, wdb, None, bits, K, top_k)
+        want = ref.packed_topk_partial_ref(wq, wdb, None, bits, K, top_k,
+                                           p["n_ranges"])
+        if not same(got, want):
+            raise AssertionError(f"the tensor-core sweep's partial lists at "
+                                 f"top_k {top_k} differ from their plain "
+                                 f"version")
+        del want
+        ms = time_ms(lambda: pc.packed_topk_partial_cuda(wq, wdb, None, bits,
+                                                         K, top_k))
+        merge_ms = time_ms(lambda: pc.merge_ranges_cuda(*got))
+        plain_ms = time_ms(lambda: ref.packed_topk_partial_ref(
+            wq, wdb, None, bits, K, top_k, p["n_ranges"]), reps=3, warmup=0)
+        n_bytes = 4.0 * (N_ROWS * w_words + nq * w_words
+                         + 2 * p["n_ranges"] * nq * top_k)
+        (b_ms, b_by, pipe), popc_ms = count_bounds(nq, N_ROWS, w_words,
+                                                   int_word, n_bytes)
+        out[top_k] = dict(ms=ms, merge_ms=merge_ms, plain_ms=plain_ms,
+                          bound=(b_ms, b_by, pipe), popc_ms=popc_ms, plan=p)
+        log(f"kernel packed_topk_tc: Q={nq} N={N_ROWS} W={w_words} "
+            f"top_k={top_k} partial lists bit-exact; plan {json.dumps(p)}; "
+            f"sweep ms={ms:.4f} merge ms={merge_ms:.4f} (S={p['n_ranges']}) "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, {pipe}) "
+            f"popc_bound_ms={popc_ms:.4f}; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        del got
+        torch.cuda.empty_cache()
+    main, m = out[TOP_K], out[RERANK_M]
+    b_ms, b_by, pipe = main["bound"]
+    rows["packed_topk_tc"] = dict(
+        max_abs_err=0, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe, library_ms=None,
+        popc_bound_ms=main["popc_ms"], gemm_library_ms=gemm_lib["ms"],
+        gemm_library_shape=gemm_lib["shape"], merge_ms=main["merge_ms"],
+        plan=main["plan"], m64=dict(ms=m["ms"], merge_ms=m["merge_ms"],
+                                    plain_ms=m["plain_ms"],
+                                    bound_ms=m["bound"][0], plan=m["plan"]),
+        registers={k: dict(registers=r, spill_bytes=sp)
+                   for k, (r, sp) in TC_PTXAS.items()},
+        shape=[nq, N_ROWS, w_words, TOP_K])
+    log(f"kernel packed_topk_tc registers and spill stores by (bits, QB): "
+        f"{json.dumps(rows['packed_topk_tc']['registers'])}")
+
+
+def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word,
+                        gemm_lib) -> None:
     """The scored-search and LSH kernels at the main path's shapes, on the
     packed_topk phase's queries and corpus, with the sketcher's tables."""
     import torch
@@ -1116,7 +1254,8 @@ def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
     count_ops = [("popc", pairs, POPC_OP_S),
                  ("int32", pairs * int_word, INT32_OP_S)]
 
-    def row(name, fn_kernel, fn_plain, want, b, shape, plain_reps=10):
+    def row(name, fn_kernel, fn_plain, want, b, shape, plain_reps=10,
+            **extra):
         t0 = time.perf_counter()
         got = fn_kernel()
         if not same(got if isinstance(got, tuple) else (got,),
@@ -1128,10 +1267,12 @@ def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
         b_ms, b_by, pipe = b
         rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe,
-                          library_ms=None, shape=shape)
+                          library_ms=None, shape=shape, **extra)
+        popc = (f" popc_bound_ms={extra['popc_bound_ms']:.4f}"
+                if "popc_bound_ms" in extra else "")
         log(f"kernel {name}: {shape} bit-exact ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, {pipe}); "
-            f"phase {time.perf_counter() - t0:.1f} s")
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, {pipe})"
+            f"{popc}; phase {time.perf_counter() - t0:.1f} s")
 
     row("packed_collision_counts",
         lambda: ops.packed_collision_counts(wq, wdb, bits, K, impl="kernel"),
@@ -1141,16 +1282,21 @@ def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
                                 + nq * N_ROWS)),
         [nq, N_ROWS, w_words], plain_reps=3)
     torch.cuda.empty_cache()
-    # the least work is one count sweep: the popcounts of B4, no more
+    # the least work is one count sweep: B4's one-hot product, no more
+    want = ref.fused_scored_topk_ref(wq, q_tab, wdb, bits, K, RERANK_M, TOP_K)
+    sweep_equal("fused_scored_topk", lambda s: ops.fused_scored_topk(
+        wq, q_tab, wdb, bits, K, RERANK_M, TOP_K, impl="kernel",
+        n_ranges=s), want)
+    tensor, popc_ms = count_bounds(
+        nq, N_ROWS, w_words, int_word,
+        4.0 * (N_ROWS * w_words + nq * (w_words + fp) + 2 * nq * TOP_K))
     row("fused_scored_topk",
         lambda: ops.fused_scored_topk(wq, q_tab, wdb, bits, K, RERANK_M,
                                       TOP_K, impl="kernel"),
         lambda: ref.fused_scored_topk_ref(wq, q_tab, wdb, bits, K, RERANK_M,
                                           TOP_K),
-        ref.fused_scored_topk_ref(wq, q_tab, wdb, bits, K, RERANK_M, TOP_K),
-        bound(count_ops, 4.0 * (N_ROWS * w_words + nq * (w_words + fp)
-                                + 2 * nq * TOP_K)),
-        [nq, N_ROWS, w_words, RERANK_M, TOP_K], plain_reps=3)
+        want, tensor, [nq, N_ROWS, w_words, RERANK_M, TOP_K], plain_reps=3,
+        popc_bound_ms=popc_ms, gemm_library_ms=gemm_lib["ms"])
     torch.cuda.empty_cache()
     cand_ids = torch.randint(0, N_ROWS, (nq, RERANK_M), generator=gen,
                              device=wdb.device)
@@ -1168,7 +1314,8 @@ def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
         [nq, RERANK_M, w_words, TOP_K])
 
 
-def masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
+def masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word,
+                        gemm_lib) -> None:
     """The masked kernels at the mutable path's shapes: one 262,144-row
     segment, and the whole 4,194,304-row corpus with 10 % of its rows
     dead (the row of the kernels line), on the packed_topk phase's
@@ -1187,24 +1334,22 @@ def masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
         live = torch.rand((n,), generator=gen, device=db.device) >= 0.1
         valid = packing.pack_bitmask(live)
         n_live = int(live.sum())
-        # dead rows skip their popcounts: the least work counts live rows;
-        # every row's words and the mask are read once
-        pairs = float(nq) * n_live * w_words
-        count_ops = [("popc", pairs, POPC_OP_S),
-                     ("int32", pairs * int_word, INT32_OP_S)]
+        # the least work counts live rows only (a dead row's products are
+        # not needed); every row's words and the mask are read once
         db_bytes = 4.0 * n * w_words + n / 8
         cases = {
             "packed_topk_masked": (
-                lambda: ops.packed_topk_masked(wq, db, valid, bits, K, TOP_K,
-                                               impl="kernel"),
+                lambda n_ranges=None: ops.packed_topk_masked(
+                    wq, db, valid, bits, K, TOP_K, impl="kernel",
+                    n_ranges=n_ranges),
                 lambda: ref.packed_topk_masked_ref(wq, db, valid, bits, K,
                                                    TOP_K),
                 db_bytes + 4.0 * (nq * w_words + 2 * nq * TOP_K),
                 [nq, n, w_words, TOP_K]),
             "fused_scored_topk_masked": (
-                lambda: ops.fused_scored_topk_masked(
+                lambda n_ranges=None: ops.fused_scored_topk_masked(
                     wq, q_tab, db, valid, bits, K, RERANK_M, TOP_K,
-                    impl="kernel"),
+                    impl="kernel", n_ranges=n_ranges),
                 lambda: ref.fused_scored_topk_masked_ref(
                     wq, q_tab, db, valid, bits, K, RERANK_M, TOP_K),
                 db_bytes + 4.0 * (nq * (w_words + fp) + 2 * nq * TOP_K),
@@ -1212,23 +1357,35 @@ def masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word) -> None:
         }
         for name, (fn_kernel, fn_plain, n_bytes, shape) in cases.items():
             t0 = time.perf_counter()
-            if not same(fn_kernel(), fn_plain()):
+            want = fn_plain()
+            if not same(fn_kernel(), want):
                 raise AssertionError(f"{name} differs from its plain version "
                                      f"at N={n}")
+            sweep_equal(f"{name} at N={n}",
+                        lambda s: fn_kernel(n_ranges=s), want)
+            del want
             ms = time_ms(fn_kernel)
             plain_ms = time_ms(fn_plain, reps=3, warmup=1)
-            b_ms, b_by, pipe = bound(count_ops, n_bytes)
-            log(f"kernel {name}: {shape} live {n_live} bit-exact "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-                f"({b_by}, {pipe}); phase {time.perf_counter() - t0:.1f} s")
+            (b_ms, b_by, pipe), popc_ms = count_bounds(nq, n_live, w_words,
+                                                       int_word, n_bytes)
+            log(f"kernel {name}: {shape} live {n_live} bit-exact at every S "
+                f"the sweep tries ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}, {pipe}) "
+                f"popc_bound_ms={popc_ms:.4f}; phase "
+                f"{time.perf_counter() - t0:.1f} s")
             if n == N_ROWS:
                 rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by,
                                   bound_pipe=pipe, library_ms=None,
+                                  popc_bound_ms=popc_ms,
+                                  gemm_library_ms=gemm_lib["ms"],
                                   shape=shape, live_rows=n_live,
-                                  segment_ms=segment_ms[name])
+                                  segment_ms=segment_ms[name],
+                                  segment_bound_ms=segment_ms[
+                                      name + " bound"])
             else:
                 segment_ms[name] = ms
+                segment_ms[name + " bound"] = b_ms
         torch.cuda.empty_cache()
 
 
@@ -3413,8 +3570,10 @@ def serve_phase(engine, queries, device, profile: bool = False) -> tuple:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     stats = kernelstats.get_kernel_stats().snapshot()
+    # kernelstats counts families; the tensor-core sweep runs inside four
     off = {f: (stats.get(f, {}).get("calls", 0), c) for f, c in counts.items()
-           if stats.get(f, {}).get("calls", 0) != c}
+           if f in kernelstats.MODELS
+           and stats.get(f, {}).get("calls", 0) != c}
     if off:
         raise AssertionError(f"kernelstats calls != launches: {off}")
     require_launched(counts, "serve")
@@ -3568,16 +3727,23 @@ def main(argv) -> int:
     log(f"build: {len(_build.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
-        fn = ""
+        fn, spill = "", 0
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '[^']*?_cu_[0-9a-f]{8}"
                           r"(\d+)(\w*)'", line)
             if m:   # the kernel's name and its template arguments
                 n = int(m.group(1))
                 args = re.match(r"I\w*?EE", m.group(2)[n:])
-                fn = m.group(2)[:n] + (args.group(0) if args else "")
-            elif "Used" in line or "spill" in line:
+                fn, spill = m.group(2)[:n] + (args.group(0) if args else ""), 0
+            elif "Used" in line or "spill" in line or "C75" in line:
                 log(f"ptxas {name} {fn}: {line.strip()}")
+                st = re.search(r"(\d+) bytes spill stores", line)
+                spill = int(st.group(1)) if st else spill
+                used = re.search(r"Used (\d+) registers", line)
+                tc = re.fullmatch(r"packed_topk_tcILi(\d+)ELi(\d+)EE", fn)
+                if used and tc:
+                    TC_PTXAS[f"{tc.group(1)},{tc.group(2)}"] = (
+                        int(used.group(1)), spill)
     log(f"card: {card}")
 
     t0 = time.perf_counter()

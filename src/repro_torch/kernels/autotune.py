@@ -45,20 +45,24 @@ __all__ = ["SWEEPS", "BACKEND", "shape_bucket", "AutotuneCache",
 
 BACKEND = "cuda"
 
-# op -> {knob: candidate values}; ONLY knobs that cannot change a bit
+# op -> {knob: candidate values}; ONLY knobs that cannot change a bit.
+# The count-ranked ops' tensor-core sweep runs two ranges a block at about
+# one block an SM, so its S is about twice the blocks of a wave
+# (``packed_collision.plan``); the LUT kernels hold several blocks an SM.
 _RANGES = (8, 16, 32, 64)
+_COUNT_RANGES = (16, 32, 64, 128, 256)
 SWEEPS = {
     "pack_codes": {"threads": (128, 256, 512, 1024)},
     "code_pack": {"threads": (128, 256, 512, 1024)},
     "collision_counts": {"block_q": (32, 64, 128),
                          "block_n": (32, 64, 128)},
     "packed_collision_counts": {"block_q": (8, 16, 32, 64)},
-    "packed_topk": {"n_ranges": _RANGES},
-    "packed_topk_masked": {"n_ranges": _RANGES},
+    "packed_topk": {"n_ranges": _COUNT_RANGES},
+    "packed_topk_masked": {"n_ranges": _COUNT_RANGES},
     "packed_lut_topk": {"n_ranges": _RANGES},
     "packed_lut_topk_masked": {"n_ranges": _RANGES},
-    "fused_scored_topk": {"n_ranges": _RANGES},
-    "fused_scored_topk_masked": {"n_ranges": _RANGES},
+    "fused_scored_topk": {"n_ranges": _COUNT_RANGES},
+    "fused_scored_topk_masked": {"n_ranges": _COUNT_RANGES},
 }
 
 _ENV_PATH = "REPRO_AUTOTUNE_CACHE"
@@ -229,8 +233,11 @@ def tune(op: str, run: Callable[[dict], object], dtype, dims: dict, *,
     """Sweep ``op``'s knob grid by timing ``run(config)``, cache the winner
     under (backend, op, bucket(dims), dtype) and return it.
 
-    ``run`` executes the op once with the given knobs (adapters close
-    over real tensors). A candidate the wrapper refuses before launch (a
+    The kernel's own defaults (``{}``) are timed first and win ties, so a
+    sweep never records a config slower than no config; a winning ``{}``
+    is cached as such (a lookup then gives the defaults). ``run``
+    executes the op once with the given knobs (adapters close over real
+    tensors). A candidate the wrapper refuses before launch (a
     ``ValueError``) is skipped; a CUDA error propagates. Without a CUDA
     device, ``force`` or an injected ``measure(run, config)`` this is a
     no-op returning ``{}``, safe to call at service warm-up."""
@@ -239,7 +246,7 @@ def tune(op: str, run: Callable[[dict], object], dtype, dims: dict, *,
     if measure is None:
         measure = lambda r, c: _default_measure(r, c, repeats)  # noqa: E731
     best, best_t = None, None
-    for config in candidate_configs(op):
+    for config in [{}] + candidate_configs(op):
         try:
             t = measure(run, config)
         except ValueError:

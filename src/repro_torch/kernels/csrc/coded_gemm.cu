@@ -58,7 +58,7 @@
 //   blocks of a row block launched next to each other so that x comes
 //   from device memory once and from L2 the second time.
 // * Register A. wgmma reads the A fragments until its wait, but the
-//   compiler counts them dead once the instruction is issued: keep_a
+//   compiler counts them dead once the instruction is issued: keep_regs
 //   uses them after the wait, so their registers are not reused while
 //   the tensor cores read them. (A version that loaded the next slab's
 //   fragments while the products ran gave other bits from launch to
@@ -92,6 +92,7 @@
 #include <dlfcn.h>
 
 #include "code_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -104,43 +105,11 @@ constexpr int EF_WG = 2, EF_BN = 128, EF_STAGES = 4;
 constexpr int SLAB = 32;            // D-depth of a stage: 128 bytes of float32
 constexpr int ROW_BYTES = SLAB * 4;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Byte offset of element (row, col < 32) in a tile of 128-byte rows under
 // the 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B on a
 // 1024-byte-aligned tile): the 16-byte chunk index XOR row % 8.
 __device__ __forceinline__ uint32_t swz(int row, int col) {
   return row * ROW_BYTES + ((((col >> 2) ^ (row & 7)) << 4) | ((col & 3) << 2));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
 }
 
 __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
@@ -161,58 +130,10 @@ __device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// 4 bytes global -> shared, zero-filled when !valid (src-size 0)
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src,
-                                           bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_sync_consumers(int threads) {
-  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major tile of 128-byte rows
-// under the 128-byte swizzle: 8-row groups 1024 bytes apart (SBO), the
-// leading offset unused (1). An 8-deep step is 32 bytes further.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
-         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
-
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
   const float rest = v - __uint_as_float(hi);  // exact
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator
-// register across the asynchronous wgmma issue and its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma reads its register A operand until the wait: used after the
-// wait, the fragments keep their registers to that point (the compiler
-// would otherwise count them dead at the issue and reuse the registers).
-__device__ __forceinline__ void keep_a(const uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) asm volatile("" ::"r"(a[kk][v]) : "memory");
 }
 
 // D[64 x 16] (+)= A[64 x 8] (registers) * B[16 x 8]^T (shared memory)
@@ -427,8 +348,11 @@ coded_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<BN / 2>(acc);
-    keep_a(ahi);
-    keep_a(alo);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      keep_regs<4>(ahi[kk]);
+      keep_regs<4>(alo[kk]);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * st);
 #pragma unroll
@@ -451,7 +375,7 @@ coded_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
     // the 8 rows of a quad's store in 8 banks
     constexpr int CLD = BN + 2;
     uint16_t* codes = reinterpret_cast<uint16_t*>(smem);
-    bar_sync_consumers(CONSUMERS);  // every warpgroup is past the ring
+    bar_sync(1, CONSUMERS);  // every warpgroup is past the ring
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -463,7 +387,7 @@ coded_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
                                         scheme, w, n_side)
                     : 0;
       }
-    bar_sync_consumers(CONSUMERS);
+    bar_sync(1, CONSUMERS);
     const int cpw = 32 / bits, wpr = BN / cpw;
     const int n_words = (k + cpw - 1) / cpw, w0 = n0 / cpw;
     uint32_t* words = static_cast<uint32_t*>(out);

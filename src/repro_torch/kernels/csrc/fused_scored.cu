@@ -45,7 +45,12 @@
 // rows: the reference's survivor rule with tombstones at -1. Bound: the
 // unmasked kernel's count sweep over the live rows only, and N/8 more
 // bytes for the mask.
-#include "topk_common.cuh"
+//
+// The sweep is chosen by the wrappers' plan (packed_collision.plan) with
+// m in place of top_k: the int8 tensor-core kernel of topk_tc.cuh for 1-
+// and 2-bit codes whose one-hot queries fit shared memory, else
+// packed_topk_partial; both give the same partial lists.
+#include "topk_tc.cuh"
 #include "lut_common.cuh"
 
 namespace {
@@ -121,9 +126,11 @@ cudaError_t launch_fused(const uint32_t* q, const uint32_t* db,
                          int32_t* merged, float* scratch, float* out_s,
                          int32_t* out_ids,
                          int nq, int n, int w, int bits, int k, int m,
-                         int top_k, int n_ranges, cudaStream_t st) {
-  cudaError_t err = launch_partial_ranges(q, db, valid, part_vals, part_ids,
-                                          nq, n, w, bits, k, m, n_ranges, st);
+                         int top_k, int n_ranges, int qb, int smem,
+                         int in_smem, cudaStream_t st) {
+  cudaError_t err = launch_sweep(q, db, valid, part_vals, part_ids, nq, n, w,
+                                 bits, k, m, n_ranges, qb, (size_t)smem,
+                                 in_smem, st);
   if (err != cudaSuccess) return err;
   if (tab_dtype == 0)
     return launch_score<float>(part_vals, part_ids, tables, nullptr, db,
@@ -143,7 +150,7 @@ cudaError_t launch_fused(const uint32_t* q, const uint32_t* db,
 // tab_dtype: 0 float32, 1 bf16, 2 int8 (scales [nq, w], else null).
 // part_vals/part_ids: scratch [n_ranges, nq, m]; merged: scratch
 // [nq, 2, m] int32 when m > SMEM_LIST_MAX (2048), else unused; scratch:
-// [nq, m] float32.
+// [nq, m] float32. qb, smem, in_smem: the plan's sweep (packed_topk.cu).
 extern "C" int fused_scored_launch(const uint32_t* q, const uint32_t* db,
                                    const void* tables, int tab_dtype,
                                    const float* scales, int32_t* part_vals,
@@ -151,11 +158,12 @@ extern "C" int fused_scored_launch(const uint32_t* q, const uint32_t* db,
                                    float* scratch, float* out_s,
                                    int32_t* out_ids, int nq, int n, int w,
                                    int bits, int k, int m, int top_k,
-                                   int n_ranges, void* stream) {
+                                   int n_ranges, int qb, int smem,
+                                   int in_smem, void* stream) {
   return (int)launch_fused(q, db, nullptr, tables, tab_dtype, scales,
                            part_vals, part_ids, merged, scratch, out_s,
                            out_ids, nq, n, w, bits, k, m, top_k, n_ranges,
-                           (cudaStream_t)stream);
+                           qb, smem, in_smem, (cudaStream_t)stream);
 }
 
 // valid: the rows' bitmask, uint32 [ceil(n/32)].
@@ -164,9 +172,10 @@ extern "C" int fused_scored_topk_masked_launch(
     const void* tables, int tab_dtype, const float* scales,
     int32_t* part_vals, int32_t* part_ids, int32_t* merged, float* scratch,
     float* out_s, int32_t* out_ids, int nq, int n, int w, int bits, int k,
-    int m, int top_k, int n_ranges, void* stream) {
+    int m, int top_k, int n_ranges, int qb, int smem, int in_smem,
+    void* stream) {
   return (int)launch_fused(q, db, valid, tables, tab_dtype, scales,
                            part_vals, part_ids, merged, scratch, out_s,
                            out_ids, nq, n, w, bits, k, m, top_k, n_ranges,
-                           (cudaStream_t)stream);
+                           qb, smem, in_smem, (cudaStream_t)stream);
 }

@@ -41,7 +41,15 @@
 // gives them. Bound: the unmasked kernel's operations over the live rows
 // only (a dead row's popcounts are skipped; its words are still read),
 // and N/8 more bytes for the mask.
-#include "topk_common.cuh"
+//
+// Since the tensor-core sweep (topk_tc.cuh), the partial kernel is chosen
+// by the wrappers' plan (packed_collision.plan), by shape and before the
+// launch: for 1- and 2-bit codes whose one-hot queries fit shared memory
+// the count sweep runs on the int8 tensor cores; for 4-, 8- and 16-bit
+// codes and wider words it is packed_topk_partial above, its fold
+// templated on the code width. Both write the same partial lists, so the
+// merge and every result bit are the same.
+#include "topk_tc.cuh"
 
 namespace {
 
@@ -67,37 +75,49 @@ packed_topk_merge(const int32_t* __restrict__ part_vals,
   }
 }
 
-cudaError_t launch_topk(const uint32_t* q, const uint32_t* db,
-                        const uint32_t* valid, int32_t* part_vals,
-                        int32_t* part_ids, int32_t* out_vals, int32_t* out_ids,
-                        int nq, int n, int w, int bits, int k, int top_k,
-                        int n_ranges, cudaStream_t st) {
-  cudaError_t err = launch_partial_ranges(q, db, valid, part_vals, part_ids,
-                                          nq, n, w, bits, k, top_k, n_ranges,
-                                          st);
-  if (err != cudaSuccess) return err;
+cudaError_t launch_merge(const int32_t* part_vals, const int32_t* part_ids,
+                         int32_t* out_vals, int32_t* out_ids, int nq,
+                         int top_k, int n_ranges, cudaStream_t st) {
   const size_t msmem =
       top_k <= SMEM_LIST_MAX ? 2 * (size_t)WARPS * top_k * 4 : 0;
-  err = cudaFuncSetAttribute(packed_topk_merge,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)msmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)msmem);
   if (err != cudaSuccess) return err;
   packed_topk_merge<<<(nq + WARPS - 1) / WARPS, THREADS, msmem, st>>>(
       part_vals, part_ids, out_vals, out_ids, nq, top_k, n_ranges);
   return cudaGetLastError();
 }
 
+cudaError_t launch_topk(const uint32_t* q, const uint32_t* db,
+                        const uint32_t* valid, int32_t* part_vals,
+                        int32_t* part_ids, int32_t* out_vals, int32_t* out_ids,
+                        int nq, int n, int w, int bits, int k, int top_k,
+                        int n_ranges, int qb, int smem, int in_smem,
+                        cudaStream_t st) {
+  cudaError_t err = launch_sweep(q, db, valid, part_vals, part_ids, nq, n, w,
+                                 bits, k, top_k, n_ranges, qb, (size_t)smem,
+                                 in_smem, st);
+  if (err != cudaSuccess) return err;
+  return launch_merge(part_vals, part_ids, out_vals, out_ids, nq, top_k,
+                      n_ranges, st);
+}
+
 }  // namespace
 
 // part_vals/part_ids: scratch [n_ranges, nq, top_k]; out: [nq, top_k].
+// qb, smem, in_smem: the plan's sweep (qb 0: packed_topk_partial; else the
+// tensor-core kernel at QB = qb, smem bytes, lists in shared memory when
+// in_smem).
 extern "C" int packed_topk_launch(const uint32_t* q, const uint32_t* db,
                                   int32_t* part_vals, int32_t* part_ids,
                                   int32_t* out_vals, int32_t* out_ids, int nq,
                                   int n, int w, int bits, int k, int top_k,
-                                  int n_ranges, void* stream) {
+                                  int n_ranges, int qb, int smem, int in_smem,
+                                  void* stream) {
   return (int)launch_topk(q, db, nullptr, part_vals, part_ids, out_vals,
-                          out_ids, nq, n, w, bits, k, top_k, n_ranges,
-                          (cudaStream_t)stream);
+                          out_ids, nq, n, w, bits, k, top_k, n_ranges, qb,
+                          smem, in_smem, (cudaStream_t)stream);
 }
 
 // valid: the rows' bitmask, uint32 [ceil(n/32)].
@@ -106,9 +126,41 @@ extern "C" int packed_topk_masked_launch(const uint32_t* q, const uint32_t* db,
                                          int32_t* part_vals, int32_t* part_ids,
                                          int32_t* out_vals, int32_t* out_ids,
                                          int nq, int n, int w, int bits, int k,
-                                         int top_k, int n_ranges,
-                                         void* stream) {
+                                         int top_k, int n_ranges, int qb,
+                                         int smem, int in_smem, void* stream) {
   return (int)launch_topk(q, db, valid, part_vals, part_ids, out_vals,
-                          out_ids, nq, n, w, bits, k, top_k, n_ranges,
-                          (cudaStream_t)stream);
+                          out_ids, nq, n, w, bits, k, top_k, n_ranges, qb,
+                          smem, in_smem, (cudaStream_t)stream);
+}
+
+// The count sweep alone (the partial lists [n_ranges, nq, top_k]); valid
+// may be null.
+extern "C" int packed_topk_partial_launch(const uint32_t* q,
+                                          const uint32_t* db,
+                                          const uint32_t* valid,
+                                          int32_t* part_vals,
+                                          int32_t* part_ids, int nq, int n,
+                                          int w, int bits, int k, int top_k,
+                                          int n_ranges, int qb, int smem,
+                                          int in_smem, void* stream) {
+  return (int)launch_sweep(q, db, valid, part_vals, part_ids, nq, n, w, bits,
+                           k, top_k, n_ranges, qb, (size_t)smem, in_smem,
+                           (cudaStream_t)stream);
+}
+
+// The merge alone: partial lists [n_ranges, nq, top_k] -> out [nq, top_k].
+extern "C" int packed_topk_merge_launch(const int32_t* part_vals,
+                                        const int32_t* part_ids,
+                                        int32_t* out_vals, int32_t* out_ids,
+                                        int nq, int top_k, int n_ranges,
+                                        void* stream) {
+  return (int)launch_merge(part_vals, part_ids, out_vals, out_ids, nq, top_k,
+                           n_ranges, (cudaStream_t)stream);
+}
+
+// Blocks of the tensor-core sweep (bits 1 or 2, QB = qb) an SM holds at
+// `smem` bytes of dynamic shared memory, into *blocks.
+extern "C" int packed_topk_tc_occupancy(int bits, int qb, int smem,
+                                        int* blocks) {
+  return (int)tc_occupancy(bits, qb, (size_t)smem, blocks);
 }

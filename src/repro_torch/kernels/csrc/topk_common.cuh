@@ -40,6 +40,22 @@ __device__ __forceinline__ int field_mismatches(uint32_t x, int bits,
   return __popc(x & lsb);
 }
 
+// field_mismatches at a width fixed when compiled: the fold's shifts and
+// the field mask are constants
+template <int BITS>
+__device__ __forceinline__ int field_mismatches_t(uint32_t x) {
+  constexpr uint32_t lsb = BITS == 1   ? 0xffffffffu
+                           : BITS == 2 ? 0x55555555u
+                           : BITS == 4 ? 0x11111111u
+                           : BITS == 8 ? 0x01010101u
+                                       : 0x00010001u;
+  if constexpr (BITS > 1) x |= x >> 1;
+  if constexpr (BITS > 2) x |= x >> 2;
+  if constexpr (BITS > 4) x |= x >> 4;
+  if constexpr (BITS > 8) x |= x >> 8;
+  return __popc(x & lsb);
+}
+
 // Inserts (c, id) into the warp's list, sorted by value descending and,
 // within a value, by arrival: it goes after every entry with value >= c.
 template <typename V>
@@ -80,16 +96,15 @@ __device__ __forceinline__ void offer_batch(V* lv, int* li, int top_k, V cnt,
 }
 
 // WQ > 0: the query's words live in WQ registers (w <= WQ); WQ == 0: they
-// are read from shared memory (any w).
-template <int WQ>
+// are read from shared memory (any w). BITS: the code width.
+template <int WQ, int BITS>
 __global__ void __launch_bounds__(THREADS)
 packed_topk_partial(const uint32_t* __restrict__ q,
                     const uint32_t* __restrict__ db,
                     const uint32_t* __restrict__ valid,
                     int32_t* __restrict__ part_vals,
                     int32_t* __restrict__ part_ids, int nq, int n, int w,
-                    int bits, int k, int top_k, int rows_per_range, int tn,
-                    uint32_t lsb) {
+                    int k, int top_k, int rows_per_range, int tn) {
   extern __shared__ uint32_t smem[];
   const int wp = w | 1;
   uint32_t* tile = smem;                    // [tn][wp]
@@ -136,10 +151,10 @@ packed_topk_partial(const uint32_t* __restrict__ q,
         if constexpr (WQ > 0) {
 #pragma unroll
           for (int j = 0; j < WQ; ++j)
-            if (j < w) mism += field_mismatches(qr[j] ^ drow[j], bits, lsb);
+            if (j < w) mism += field_mismatches_t<BITS>(qr[j] ^ drow[j]);
         } else {
           for (int j = 0; j < w; ++j)
-            mism += field_mismatches(qw[j] ^ drow[j], bits, lsb);
+            mism += field_mismatches_t<BITS>(qw[j] ^ drow[j]);
         }
         cnt = k - mism;
       }
@@ -178,20 +193,35 @@ __device__ inline void warp_merge_ranges(const V* __restrict__ part_vals,
   }
 }
 
-template <int WQ>
+template <int WQ, int BITS>
 cudaError_t launch_partial(dim3 grid, size_t smem, cudaStream_t stream,
                            const uint32_t* q, const uint32_t* db,
                            const uint32_t* valid, int32_t* pv, int32_t* pi,
-                           int nq, int n, int w,
-                           int bits, int k, int top_k, int rpr, int tn,
-                           uint32_t lsb) {
+                           int nq, int n, int w, int k, int top_k, int rpr,
+                           int tn) {
   cudaError_t err = cudaFuncSetAttribute(
-      packed_topk_partial<WQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      packed_topk_partial<WQ, BITS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  packed_topk_partial<WQ><<<grid, THREADS, smem, stream>>>(
-      q, db, valid, pv, pi, nq, n, w, bits, k, top_k, rpr, tn, lsb);
+  packed_topk_partial<WQ, BITS><<<grid, THREADS, smem, stream>>>(
+      q, db, valid, pv, pi, nq, n, w, k, top_k, rpr, tn);
   return cudaGetLastError();
+}
+
+template <int BITS>
+cudaError_t launch_partial_bits(dim3 grid, size_t smem, cudaStream_t st,
+                                const uint32_t* q, const uint32_t* db,
+                                const uint32_t* valid, int32_t* pv,
+                                int32_t* pi, int nq, int n, int w, int k,
+                                int top_k, int rpr, int tn) {
+  if (w <= 16)
+    return launch_partial<16, BITS>(grid, smem, st, q, db, valid, pv, pi, nq,
+                                    n, w, k, top_k, rpr, tn);
+  if (w <= 64)
+    return launch_partial<64, BITS>(grid, smem, st, q, db, valid, pv, pi, nq,
+                                    n, w, k, top_k, rpr, tn);
+  return launch_partial<0, BITS>(grid, smem, st, q, db, valid, pv, pi, nq, n,
+                                 w, k, top_k, rpr, tn);
 }
 
 // Launches the partial kernel: per query, the stable top_k by count of
@@ -206,22 +236,20 @@ inline cudaError_t launch_partial_ranges(const uint32_t* q, const uint32_t* db,
   const int wp = w | 1;
   int tn = (8192 / wp) / 32 * 32;  // corpus tile of at most 32 KB
   tn = tn < 32 ? 32 : (tn > 256 ? 256 : tn);
-  uint32_t lsb = 0;
-  for (int i = 0; i < 32 / bits; ++i) lsb |= 1u << (i * bits);
   const int rpr = (n + n_ranges - 1) / n_ranges;
   const dim3 grid((nq + WARPS - 1) / WARPS, n_ranges);
   const size_t lists = top_k <= SMEM_LIST_MAX ? 2 * (size_t)WARPS * top_k : 0;
   const size_t smem = ((size_t)tn * wp + (size_t)WARPS * w + lists) * 4;
-  if (w <= 16)
-    return launch_partial<16>(grid, smem, st, q, db, valid, part_vals,
-                              part_ids, nq, n, w, bits, k, top_k, rpr, tn,
-                              lsb);
-  if (w <= 64)
-    return launch_partial<64>(grid, smem, st, q, db, valid, part_vals,
-                              part_ids, nq, n, w, bits, k, top_k, rpr, tn,
-                              lsb);
-  return launch_partial<0>(grid, smem, st, q, db, valid, part_vals, part_ids,
-                           nq, n, w, bits, k, top_k, rpr, tn, lsb);
+#define PARTIAL_ARGS grid, smem, st, q, db, valid, part_vals, part_ids, nq, n, w, k, top_k, rpr, tn
+  switch (bits) {
+    case 1: return launch_partial_bits<1>(PARTIAL_ARGS);
+    case 2: return launch_partial_bits<2>(PARTIAL_ARGS);
+    case 4: return launch_partial_bits<4>(PARTIAL_ARGS);
+    case 8: return launch_partial_bits<8>(PARTIAL_ARGS);
+    case 16: return launch_partial_bits<16>(PARTIAL_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef PARTIAL_ARGS
 }
 
 }  // namespace

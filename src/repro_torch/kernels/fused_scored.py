@@ -9,10 +9,14 @@ slots. ``fused_scored_topk_masked_cuda``
 (``fused_scored_topk_masked_pallas``) does the same over the rows whose
 bit is set in a validity bitmask int32 [ceil(N/32)].
 
-Any rerank_m and top_k are answered: survivor lists longer than 2048
-live in device memory (a merged scratch [Q, 2, m]), and the final
-selection keeps only per-thread state. ``n_ranges`` (S) is the launch
-knob; it changes no bit.
+The count sweep is the one ``packed_collision.plan`` picks for m in
+place of top_k (the int8 tensor-core kernel for 1- and 2-bit codes
+whose one-hot queries fit shared memory, else the popcount kernel);
+``packed_collision.tc_launches`` counts the tensor-core kernel's
+launches. Any rerank_m and top_k are answered: survivor lists longer
+than 2048 live in device memory (a merged scratch [Q, 2, m]), and the
+final selection keeps only per-thread state. ``n_ranges`` (S) is the
+launch knob; it changes no bit.
 """
 from __future__ import annotations
 
@@ -20,8 +24,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.packed_collision import (check_valid, check_words,
-                                                  resolve_ranges)
+from repro_torch.kernels import packed_collision as _pc
+from repro_torch.kernels.packed_collision import check_valid, check_words
 from repro_torch.kernels.packed_lut import check_tables
 
 __all__ = ["fused_scored_topk_cuda", "fused_scored_topk_masked_cuda",
@@ -69,7 +73,8 @@ def _fused(words_q, tables, words_db, valid_words, bits: int, k: int,
         return (torch.full((nq, top_k), float("-inf"), dtype=torch.float32,
                            device=dev),
                 torch.full((nq, top_k), -1, dtype=torch.int32, device=dev))
-    s = resolve_ranges(s, nq, n, dev)
+    p = _pc.plan(nq, n, w, bits, rerank_m, s, dev)
+    s = p["n_ranges"]
     part_v = torch.empty((s, nq, rerank_m), dtype=torch.int32, device=dev)
     part_i = torch.empty((s, nq, rerank_m), dtype=torch.int32, device=dev)
     merged = (torch.empty((nq, 2, rerank_m), dtype=torch.int32, device=dev)
@@ -82,9 +87,8 @@ def _fused(words_q, tables, words_db, valid_words, bits: int, k: int,
             part_i.data_ptr(), None if merged is None else merged.data_ptr(),
             scratch.data_ptr(), scores.data_ptr(),
             ids.data_ptr(), nq, n, w, bits, k, rerank_m, top_k, s,
-            torch.cuda.current_stream(dev).cuda_stream]
-    types = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _I, _P]
+            *_pc._sweep_args(p), torch.cuda.current_stream(dev).cuda_stream]
+    types = [_P, _I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 11 + [_P]
     if valid_words is None:
         fn = _build.function("fused_scored", "fused_scored_launch",
                              [_P, _P] + types)
@@ -96,12 +100,14 @@ def _fused(words_q, tables, words_db, valid_words, bits: int, k: int,
         err = fn(words_q.data_ptr(), words_db.data_ptr(),
                  valid_words.data_ptr(), *tail)
     if err:
-        raise RuntimeError(f"fused_scored_topk kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"fused_scored_topk kernel launch failed "
+                           f"({p['kernel']} sweep): CUDA error {err}")
     if valid_words is None:
         launches += 1
     else:
         masked_launches += 1
+    if p["kernel"] == "tensor":
+        _pc.tc_launches += 1
     return scores, ids
 
 
@@ -109,8 +115,9 @@ def fused_scored_topk_cuda(words_q: torch.Tensor, tables: torch.Tensor,
                            words_db: torch.Tensor, bits: int, k: int,
                            rerank_m: int, top_k: int, scales=None,
                            n_ranges=None):
-    """Launches the partial top-``rerank_m`` kernel over S corpus ranges
-    and the merge, score and select kernel -> (scores float32, ids
+    """Launches the count sweep for the top-``rerank_m`` over S corpus
+    ranges (``packed_collision.plan``) and the merge, score and select
+    kernel -> (scores float32, ids
     int32) [Q, top_k]."""
     return _fused(words_q, tables, words_db, None, bits, k, rerank_m, top_k,
                   scales, n_ranges)

@@ -78,12 +78,13 @@ def fields_layout(w: int, bits: int, top_k: int, block_q: int):
     return base + (lists if in_smem else 0), in_smem
 
 
-def whole_waves(q_blocks: int, n: int, resident: int) -> int:
+def whole_waves(q_blocks: int, n: int, resident: int,
+                rows: int = FIELD_THREADS) -> int:
     """S for ``q_blocks`` query blocks over ``n`` rows when the card holds
-    ``resident`` blocks at once: the smallest S (at least a tile of rows a
-    range, at most 4 waves' worth) whose q_blocks * S blocks fill their
-    last wave the most."""
-    cap = max(1, -(-n // FIELD_THREADS))
+    ``resident`` blocks at once: the smallest S (at least ``rows``, a
+    tile of rows, a range; at most 4 waves' worth) whose q_blocks * S
+    blocks fill their last wave the most."""
+    cap = max(1, -(-n // rows))
     top = min(cap, 4 * -(-resident // q_blocks))
     best, best_fill = 1, 0.0
     for s in range(1, top + 1):

@@ -68,6 +68,8 @@ _WRAPPERS = {"coded_project": (_proj_code, "launches"),
              "packed_topk": (_packed_collision, "launches"),
              "packed_topk_masked": (_packed_collision, "masked_launches"),
              "packed_collision_counts": (_packed_collision, "counts_launches"),
+             # the tensor-core count sweep inside the four top-k families
+             "packed_topk_tc": (_packed_collision, "tc_launches"),
              "packed_lut_topk": (_lut_topk, "launches"),
              "packed_lut_topk_masked": (_lut_topk, "masked_launches"),
              "packed_lut_rerank": (_packed_lut, "launches"),

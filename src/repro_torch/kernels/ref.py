@@ -24,8 +24,8 @@ __all__ = ["coded_project_ref", "tf32_split", "pack_codes_ref",
            "code_pack_ref", "csr_unit_step_ref", "csr_group_step_ref",
            "collision_counts_ref",
            "packed_collision_ref", "topk_stable_ref", "packed_topk_ref",
-           "packed_topk_masked_ref",
-           "lut_scores_rowwise_ref", "lut_scores_rowwise_int8_ref",
+           "packed_topk_masked_ref", "onehot_counts_ref",
+           "packed_topk_partial_ref", "lut_scores_rowwise_ref", "lut_scores_rowwise_int8_ref",
            "topk_scored_ref", "packed_lut_topk_ref",
            "packed_lut_topk_masked_ref", "packed_lut_rerank_ref",
            "coarse_survivor_mask_ref", "fused_scored_topk_ref",
@@ -186,6 +186,40 @@ def packed_topk_ref(words_q: torch.Tensor, words_db: torch.Tensor, bits: int,
     then the stable top-k."""
     return topk_stable_ref(packed_collision_ref(words_q, words_db, bits, k),
                            top_k)
+
+
+def onehot_counts_ref(words_q: torch.Tensor, words_db: torch.Tensor,
+                      bits: int, k: int) -> torch.Tensor:
+    """``packed_collision_ref`` by the tensor-core sweep's arithmetic
+    (``csrc/topk_tc.cuh``): count = k - F + onehot(q) . onehot(db), over
+    every one of the F = 32W/b field slots (padding included), as an
+    exact float64 product -> int32 [Q, N]."""
+    f = words_q.shape[1] * (32 // bits)
+    hits = onehot_rows(words_q, bits, torch.float64) @ \
+        onehot_rows(words_db, bits, torch.float64).T
+    return (k - f + hits).to(torch.int32)
+
+
+def packed_topk_partial_ref(words_q: torch.Tensor, words_db: torch.Tensor,
+                            valid_words, bits: int, k: int, top_k: int,
+                            n_ranges: int):
+    """The count sweep's partial lists (the kernels' scratch before the
+    merge): per query, the stable top-k of each of ``n_ranges``
+    contiguous ranges of ceil(N / n_ranges) rows -> (counts, ids) int32
+    [n_ranges, Q, top_k]. An entry must beat -1: dead rows (when
+    ``valid_words`` is given) and negative counts come back (-1, -1)."""
+    counts = packed_collision_ref(words_q, words_db, bits, k)
+    if valid_words is not None:
+        counts = _kill_dead(counts, valid_words)
+    counts = counts.clamp(min=-1)
+    n, rows = counts.shape[1], -(-counts.shape[1] // n_ranges)
+    vals, ids = [], []
+    for s in range(n_ranges):
+        lo = min(n, s * rows)
+        v, i = topk_stable_ref(counts[:, lo:min(n, lo + rows)], top_k)
+        vals.append(v)
+        ids.append(torch.where(i >= 0, i + lo, i))
+    return torch.stack(vals), torch.stack(ids)
 
 
 def _kill_dead(counts: torch.Tensor, valid_words: torch.Tensor) -> torch.Tensor:

@@ -616,8 +616,84 @@ def test_autotune_grid_is_bit_identical(gen):
     cache = autotune.AutotuneCache()
     best = autotune.tune("packed_topk", calls["packed_topk"], torch.int32,
                          dict(q=20, n=5000, w=4, top_k=10), cache=cache)
-    assert best in autotune.candidate_configs("packed_topk")
+    assert best in [{}] + autotune.candidate_configs("packed_topk")
     assert len(cache) == 1
+
+
+def _tied_words(gen, nq, n, k, bits):
+    """Queries and a corpus with query 0's words at rows spread over the
+    ranges (ties across S) and a run of equal rows."""
+    wq, wdb = _words(gen, nq, k, bits), _words(gen, n, k, bits)
+    for r in (n // 7, n // 3, n // 2, n - 1):
+        wdb[r] = wq[0]
+    wdb[n // 5:n // 5 + 40] = wdb[n // 4]
+    return wq, wdb
+
+
+# (queries, rows, k, top_k): QB 64 (few queries, or lists of 64), QB 128,
+# N not a multiple of the 64-row tile, N under one tile, k with padding
+# fields, lists in device memory (top_k 128 at 2 bits, 2049 at both)
+_TC_CASES = ((5, 3001, 100, 10), (70, 9000, 256, 10), (130, 4097, 256, 64),
+             (9, 63, 33, 7), (3, 700, 256, 128), (2, 3000, 64, 2049))
+
+
+@pytest.mark.parametrize("live_frac", [None, 0.0, 0.5])
+@pytest.mark.parametrize("bits", [1, 2])
+def test_tc_sweep_partial_lists_bit_exact(gen, bits, live_frac):
+    """The tensor-core count sweep's partial lists [S, Q, top_k] against
+    their plain version, at the default S and others (ties across
+    ranges, ragged tiles, all rows dead)."""
+    from repro_torch.kernels import packed_collision as pc
+    for nq, n, k, top_k in _TC_CASES:
+        wq, wdb = _tied_words(gen, nq, n, k, bits)
+        valid = None if live_frac is None else _mask(gen, n, live_frac)
+        for s in (None, 1, 2, 3, 7, 64):
+            p = pc.plan(nq, n, wq.shape[1], bits, top_k, s, wq.device)
+            assert p["kernel"] == "tensor"
+            before = pc.tc_launches
+            got = pc.packed_topk_partial_cuda(wq, wdb, valid, bits, k, top_k,
+                                              n_ranges=s)
+            assert pc.tc_launches == before + 1
+            want = ref.packed_topk_partial_ref(wq, wdb, valid, bits, k,
+                                               top_k, p["n_ranges"])
+            assert _same(got, want), (nq, n, k, top_k, s, p)
+            assert _same(pc.merge_ranges_cuda(*got),
+                         ref.packed_topk_masked_ref(wq, wdb, valid, bits, k,
+                                                    top_k)
+                         if valid is not None else
+                         ref.packed_topk_ref(wq, wdb, bits, k, top_k))
+
+
+@pytest.mark.parametrize("bits", [1, 2])
+def test_tc_sweep_ops_bit_exact(gen, bits):
+    """The four top-k ops through the tensor-core sweep: bit-exact against
+    their plain versions at every S, each launch counted."""
+    from repro_torch.kernels import packed_collision as pc
+    for nq, n, k, top_k in _TC_CASES[:4]:
+        wq, wdb = _tied_words(gen, nq, n, k, bits)
+        valid = _mask(gen, n, 0.8)
+        tab, _ = _tables(gen, nq, wq.shape[1], bits, "f32")
+        m = max(top_k, 16)
+        for s in (None, 3, 64):
+            before = pc.tc_launches
+            assert _same(ops.packed_topk(wq, wdb, bits, k, top_k,
+                                         impl="kernel", n_ranges=s),
+                         ref.packed_topk_ref(wq, wdb, bits, k, top_k))
+            assert _same(ops.packed_topk_masked(wq, wdb, valid, bits, k,
+                                                top_k, impl="kernel",
+                                                n_ranges=s),
+                         ref.packed_topk_masked_ref(wq, wdb, valid, bits, k,
+                                                    top_k))
+            assert _same(ops.fused_scored_topk(wq, tab, wdb, bits, k, m, 10,
+                                               impl="kernel", n_ranges=s),
+                         ref.fused_scored_topk_ref(wq, tab, wdb, bits, k, m,
+                                                   10))
+            assert _same(ops.fused_scored_topk_masked(
+                wq, tab, wdb, valid, bits, k, m, 10, impl="kernel",
+                n_ranges=s),
+                ref.fused_scored_topk_masked_ref(wq, tab, wdb, valid, bits, k,
+                                                 m, 10))
+            assert pc.tc_launches == before + 4
 
 
 def test_topk_above_2048_on_the_card(gen):

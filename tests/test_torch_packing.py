@@ -132,6 +132,124 @@ def test_topk_stable_ref_ties_and_negatives(top_k):
     np.testing.assert_array_equal(got[1].numpy(), want[1])
 
 
+@pytest.mark.parametrize("k", [256, 100, 33])     # 100, 33: padding fields
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_onehot_counts_identity_matches_jax(bits, k):
+    """The tensor-core sweep's arithmetic: k - F + onehot(q) . onehot(db)
+    equals the reference's collision counts, with every field slot of the
+    words random (padding fields nonzero) and rows tied."""
+    rng = np.random.default_rng(bits * 1000 + k)
+    w = tpk.packed_width(k, bits)
+    wq = rng.integers(0, 2 ** 32, size=(6, w), dtype=np.uint64).astype(np.uint32)
+    wdb = rng.integers(0, 2 ** 32, size=(50, w),
+                       dtype=np.uint64).astype(np.uint32)
+    wdb[[4, 17, 33]] = wq[0]                 # exact hits, tied
+    wdb[[8, 9]] = wdb[40]                    # tied rows
+    wdb[11] = wq[1] ^ 0xFFFFFFFF             # every field differs
+    want = np.asarray(J_COUNTS(jnp.asarray(wq), jnp.asarray(wdb), bits, k))
+    got = tref.onehot_counts_ref(_t(wq), _t(wdb), bits, k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # row 11 differs from query 1 in every field slot, padding included
+    assert want[1, 11] == k - 32 * w // bits
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bits", [1, 2])
+def test_partial_lists_merge_to_the_stable_topk(bits, masked):
+    """The count sweep's plain partial lists at any S, merged in range
+    order by the strictly-beats rule, are the reference's stable top-k:
+    what the kernels' partial lists are held to on the card."""
+    rng = np.random.default_rng(7 + bits + 2 * masked)
+    k, n, top_k = 100, 301, 9
+    wq = np.asarray(J_PACK(jnp.asarray(_codes(rng, (5, k), bits)), bits))
+    wdb = np.array(J_PACK(jnp.asarray(_codes(rng, (n, k), bits)), bits))
+    wdb[[3, 150, 299]] = wq[0]               # ties across ranges
+    live = rng.random(n) >= 0.3
+    valid = tpk.pack_bitmask(torch.from_numpy(live)) if masked else None
+    if masked:
+        want = jref.packed_topk_masked_ref(
+            jnp.asarray(wq), jnp.asarray(wdb),
+            jnp.asarray(valid.numpy().view(np.uint32)), bits, k, top_k)
+    else:
+        want = jref.packed_topk_ref(jnp.asarray(wq), jnp.asarray(wdb), bits,
+                                    k, top_k)
+    want = [np.asarray(a) for a in want]
+    for s in (1, 2, 3, 7, 64, n):
+        pv, pi = tref.packed_topk_partial_ref(_t(wq), _t(wdb), valid, bits, k,
+                                              top_k, s)
+        assert pv.shape == (s, 5, top_k) == pi.shape
+        rows = -(-n // s)
+        inside = (pi < 0) | ((pi >= torch.arange(s)[:, None, None] * rows)
+                             & (pi < torch.arange(1, s + 1)[:, None, None]
+                                * rows))
+        assert bool(inside.all()) and bool(((pv < 0) == (pi < 0)).all())
+        # the merge: the lists in range order, a stable sort by count
+        vals = pv.permute(1, 0, 2).reshape(5, -1)
+        ids = pi.permute(1, 0, 2).reshape(5, -1)
+        order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+        np.testing.assert_array_equal(
+            vals.gather(1, order)[:, :top_k].numpy(), want[0])
+        np.testing.assert_array_equal(
+            ids.gather(1, order)[:, :top_k].numpy(), want[1])
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("nq,w,bits,top_k,kernel,qb,in_smem", [
+    (256, 16, 2, 10, "tensor", 128, True),    # the main path: k = 256
+    (256, 8, 1, 10, "tensor", 128, True),     # k = 256 at 1 bit
+    (64, 16, 2, 10, "tensor", 64, True),      # a serving bucket
+    (256, 16, 2, 64, "tensor", 64, True),     # rerank_m 64: lists at QB 64
+    (256, 16, 2, 21, "tensor", 128, True),    # the longest lists at QB 128
+    (256, 16, 2, 22, "tensor", 64, True),
+    (256, 16, 2, 126, "tensor", 64, True),    # the longest at QB 64
+    (256, 16, 2, 127, "tensor", 64, False),   # device memory
+    (5, 16, 2, 2049, "tensor", 64, False),    # above 2048
+    (256, 20, 2, 10, "tensor", 64, True),     # QB 128's lists no longer fit
+    (256, 40, 2, 10, "tensor", 64, False),    # the widest one-hot: 160 KB
+    (256, 41, 2, 10, "popcount", None, None),
+    (256, 32, 4, 10, "popcount", None, None),  # 4, 8, 16 bits: popcount
+    (256, 64, 8, 10, "popcount", None, None),
+    (256, 128, 16, 10, "popcount", None, None)])
+def test_count_sweep_plan(nq, w, bits, top_k, kernel, qb, in_smem):
+    """Which count sweep a top-k call launches, by shape alone: the
+    tensor-core kernel for 1 and 2 bits where its one-hot queries fit
+    shared memory, QB and where its lists live."""
+    from repro_torch.kernels import packed_collision as pc
+    p = pc.plan(nq, 4_194_304, w, bits, top_k, sms=H100_SMS,
+                blocks_per_sm=1)
+    assert p["kernel"] == kernel
+    if kernel == "popcount":
+        assert p["grid"] == (-(-nq // 8), p["n_ranges"])
+        assert pc.tc_layout(w, bits, top_k, 64) is None
+        return
+    assert (p["block_q"], p["lists_in_smem"]) == (qb, in_smem)
+    assert p["smem"] <= pc.SMEM_BLOCK_MAX
+    assert p["grid"] == (-(-nq // qb), -(-p["n_ranges"] // 2))
+    # the one-hot queries: QB * 64 W bytes, in whole 128-byte chunks
+    assert p["smem"] >= qb * 64 * w
+
+
+@pytest.mark.parametrize("nq,qb,s,grid", [
+    (256, 128, 132, (2, 66)),     # one whole wave of 132 blocks
+    (64, 64, 264, (1, 132)),
+    (1024, 128, 66, (8, 33)),     # 264 blocks: two whole waves
+    (300, 128, 88, (3, 44))])
+def test_count_sweep_default_ranges(nq, qb, s, grid):
+    """The tensor-core sweep's default S: two ranges a block, the block
+    rows whose grid fills its last wave the most (``whole_waves``)."""
+    from repro_torch.kernels import packed_collision as pc
+    p = pc.plan(nq, 4_194_304, 16, 2, 10, sms=H100_SMS, blocks_per_sm=1)
+    assert (p["block_q"], p["n_ranges"], p["grid"]) == (qb, s, grid)
+    # a knob: S as given, clamped to N, two ranges a block
+    p = pc.plan(nq, 4_194_304, 16, 2, 10, n_ranges=7, sms=H100_SMS,
+                blocks_per_sm=1)
+    assert (p["n_ranges"], p["grid"][1]) == (7, 4)
+    assert pc.plan(nq, 5, 16, 2, 10, n_ranges=64, sms=H100_SMS,
+                   blocks_per_sm=1)["n_ranges"] == 5
+
+
 def test_pack_codes_pallas_interpret_matches_port():
     codes = _codes(np.random.default_rng(5), (32, 100), 2)
     want = np.asarray(pack_codes_pallas(jnp.asarray(codes), 2, block_m=32,

@@ -504,23 +504,32 @@ def test_autotune_tune_with_injected_measure():
 
     def measure(run, config):
         seen.append(config)
+        if not config:               # the kernel's defaults, timed first
+            return 10 ** 6
         if config["block_q"] == 128:
             raise ValueError("refused before launch")
         return config["block_q"] * 1000 + config["block_n"]
 
     best = autotune.tune("collision_counts", lambda c: None, torch.int32,
                          dict(q=256, n=4096), measure=measure, cache=cache)
-    assert best == {"block_q": 32, "block_n": 32} and len(seen) == 9
-    assert seen == autotune.candidate_configs("collision_counts")
+    assert best == {"block_q": 32, "block_n": 32} and len(seen) == 10
+    assert seen == [{}] + autotune.candidate_configs("collision_counts")
     assert cache.get("cuda", "collision_counts", "n4096-q256",
                      "int32") == best
+    # the defaults win a tie, and a winning default is cached as such
+    assert autotune.tune("packed_collision_counts", lambda c: None,
+                         torch.int32, dict(q=4, n=10, w=2), cache=cache,
+                         measure=lambda run, c: 1.0) == {}
+    assert cache.get("cuda", "packed_collision_counts", "n16-q4-w2",
+                     "int32") is None
     got = autotune.tune_search_ops(
         n=100, w=2, bits=2, k=32, q=4, cache=cache,
-        measure=lambda run, c: (run(c), -c["n_ranges"])[1])
+        measure=lambda run, c: (run(c), -c.get("n_ranges", 0))[1])
     assert set(got) == {"packed_topk", "packed_topk_masked",
                         "fused_scored_topk", "fused_scored_topk_masked",
                         "packed_lut_topk"}
-    assert all(v == {"n_ranges": 64} for v in got.values())
+    assert got == {op: {"n_ranges": max(autotune.SWEEPS[op]["n_ranges"])}
+                   for op in got}
 
 
 def test_autotune_is_a_noop_on_the_cpu(monkeypatch):
