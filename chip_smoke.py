@@ -18,12 +18,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels bits 1/2/4/8 at k = 33, 100 and 256, C = 1, 3, 8, 9 and one C
    above the forward's shared-memory class tile, N = 0, 1, 31, 33 and
    3,000, block_n = 32 and 512, the same masks, 16-bit fields at k = 33,
-   and the backward's partials folded in groups; for the LUT top-k
-   kernels bits 1/2/4/8/16 with float32 and bf16 tables at N = 0, 1,
-   31, 33 and 3,000, top_k above the live rows, the same masks, all rows
-   tied, and the grid of the fields kernel (Q around its query blocks, N
-   ragged against its tiles, every S and QB given, 4-bit tables at the
-   largest k it takes and one past it; every default launch twice);
+   and the backward's partials folded in groups; the backward also over
+   block_n 1, 100, 512 and 1,000 (a chunk walked in several row tiles of
+   the tiled partial kernel), C 1/3/8/9, N 0-1,000 across chunk and
+   mask-word edges, the four masks, bits 1/2/4/8 and 16, partials in
+   groups of three chunks, the device-memory form at bits 1/2/4 (which
+   rows too wide for shared memory take), and its two halves apart; for
+   the LUT top-k kernels bits 1/2/4/8/16 with float32 and bf16 tables at
+   N = 0, 1, 31, 33 and 3,000, top_k above the live rows, the same masks,
+   all rows tied, and the grid of the fields kernel (Q around its query
+   blocks, N ragged against its tiles, every S and QB given, 4-bit tables
+   at the largest k it takes and one past it; every default launch
+   twice);
    the unpacked count kernel on int32 codes of any value at every
    tile; top_k and rerank_m above 2048 in every top-k kernel; the bf16
    draw against the CPU's prng on whole units and all 128 uniforms, bf16
@@ -164,8 +170,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    version, timed beside it, its bound and its library yardstick
    (``F.embedding_bag``; ``torch.bincount`` at C = 1 and a matmul of g
    with the 9.5 GB one-hot at C = 8, built outside the window for that
-   yardstick alone), and a float64 one-hot
-   oracle over 4,096 rows (within 1e-5 of the terms' magnitudes).
+   yardstick alone), the backward's partial kernel and fold timed apart
+   beside their bounds with the plan, registers and spills, and a float64
+   one-hot oracle over 4,096 rows (within 1e-5 of the terms' magnitudes).
    ``--profile`` adds one full-batch step and one ``fit_log`` gradient.
 10. Repairs (phases 10 and 11 run between phases 5 and 6, while the
     main path's engine is resident), on the engine after ``add``: 16
@@ -343,6 +350,9 @@ PATH_KERNELS = {
 # registers and spill bytes of each instance of the tensor-core count
 # sweep, "bits,QB" -> (registers, spill stores), from the build's report
 TC_PTXAS = {}
+# the same for every kernel of csrc/packed_linear.cu, by name and template
+# arguments (linear_bwd_partial_tiledILi2ELi1ELb0EE: 2-bit, CT 1, unmasked)
+LINEAR_PTXAS = {}
 
 
 def log(msg: str) -> None:
@@ -1009,7 +1019,151 @@ def linear_checks(device) -> None:
         f"0/1/31/33/3000 x block_n 32/512 x dead all/none/10 %/90 %; 16-bit "
         f"at k=33 (two groups of partials); 2-bit backward in groups of 3 "
         f"chunks: bit-exact")
+    linear_bwd_grid(device)
     torch.cuda.synchronize()
+
+
+def linear_bwd_grid(device) -> None:
+    """The backward's ragged grid, both forms, bit for bit against the plain
+    versions: block_n 1, 100, 512 and 1,000 (a chunk the tiled partial
+    kernel walks in several row tiles: checked from its plan) x C 1/3/8/9 x
+    N 0/1/31/33/99/100/101/1,000 (chunk and mask-word edges) x all, none,
+    10 % and 90 % of the rows dead, at 1-, 2-, 4- and 8-bit fields (16-bit
+    at C 1 and 3, N up to 101); then ``PART_BYTES_MAX`` shrunk to three
+    chunks' partials, so that the chunks fold in several groups; the
+    device-memory form at 1-, 2- and 4-bit fields (a block's shared memory
+    shrunk below two one-row slots); and the partial kernel and the fold
+    run apart, equal to the whole."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, packed_linear, ref
+    gen = torch.Generator(device=device).manual_seed(21)
+    deads = (1.0, 0.0, 0.1, 0.9)
+    sizes = (0, 1, 31, 33, 99, 100, 101, 1000)
+    blocks = (1, 100, 512, 1000)
+    n_checks = 0
+
+    def check(got, want, *what):
+        nonlocal n_checks
+        n_checks += 1
+        if not same_bits(got, want):
+            raise AssertionError(f"packed_linear_bwd differs from its plain "
+                                 f"version at {what}")
+
+    def masks(n):
+        return [packing.pack_bitmask(torch.rand((n,), generator=gen,
+                                                device=device) >= d)
+                for d in deads]
+
+    tiles = {}
+    for bits, k, classes, ns in ((1, 100, (1, 3, 8, 9), sizes),
+                                 (2, 256, (1, 3, 8, 9), sizes),
+                                 (2, 33, (1, 3, 8, 9), sizes),
+                                 (4, 100, (1, 3, 8, 9), sizes),
+                                 (8, 33, (1, 3, 8, 9), sizes),
+                                 (16, 17, (1, 3), (0, 1, 33, 101))):
+        words_all = packing.pack_codes(torch.randint(
+            0, 1 << bits, (max(ns), k), generator=gen, device=device), bits)
+        w = words_all.shape[1]
+        for c in classes:
+            p = packed_linear.bwd_plan(1000, w, bits, c, 1000, sms=1,
+                                       blocks_per_sm=1)
+            if p["form"] == "tiled":
+                tiles[f"{bits}-bit k={k} C={c}"] = p["tiles_per_chunk"]
+                if p["tiles_per_chunk"] < 2:
+                    raise AssertionError(f"block_n 1000 fits one slot at "
+                                         f"{bits}-bit k={k} C={c}")
+            g_all = torch.randn((c, max(ns)), generator=gen, device=device)
+            for n in ns:
+                words, g = words_all[:n], g_all[:, :n].contiguous()
+                vws = masks(n)
+                for bn in blocks:
+                    check(ops.packed_linear_bwd(g, words, bits, impl="kernel",
+                                                block_n=bn),
+                          ref.packed_linear_bwd_ref(g, words, bits,
+                                                    block_n=bn),
+                          bits, k, c, n, bn)
+                    for d, vw in zip(deads, vws):
+                        check(ops.packed_linear_bwd_masked(
+                            g, words, vw, bits, impl="kernel", block_n=bn),
+                            ref.packed_linear_bwd_masked_ref(
+                                g, words, vw, bits, block_n=bn),
+                            bits, k, c, n, bn, d)
+    # partials in groups of three chunks (ten chunks of 100 rows)
+    keep = packed_linear.PART_BYTES_MAX
+    try:
+        for bits, k, c in ((1, 100, 3), (2, 256, 9), (4, 100, 8), (8, 33, 3)):
+            words = packing.pack_codes(torch.randint(
+                0, 1 << bits, (1000, k), generator=gen, device=device), bits)
+            fp = (words.shape[1] * (32 // bits)) << bits
+            g = torch.randn((c, 1000), generator=gen, device=device)
+            packed_linear.PART_BYTES_MAX = 3 * 4 * c * fp
+            check(ops.packed_linear_bwd(g, words, bits, impl="kernel",
+                                        block_n=100),
+                  ref.packed_linear_bwd_ref(g, words, bits, block_n=100),
+                  bits, k, c, "groups of 3")
+            for d, vw in zip(deads, masks(1000)):
+                check(ops.packed_linear_bwd_masked(g, words, vw, bits,
+                                                   impl="kernel", block_n=100),
+                      ref.packed_linear_bwd_masked_ref(g, words, vw, bits,
+                                                       block_n=100),
+                      bits, k, c, d, "groups of 3")
+    finally:
+        packed_linear.PART_BYTES_MAX = keep
+    # the device-memory form at 1-, 2- and 4-bit fields, which rows too
+    # wide for two shared-memory slots take: reached by shrinking a block's
+    # shared memory
+    keep = packed_linear.SMEM_BLOCK_MAX
+    try:
+        packed_linear.SMEM_BLOCK_MAX = 64
+        for bits, k in ((1, 100), (2, 256), (4, 100)):
+            words_all = packing.pack_codes(torch.randint(
+                0, 1 << bits, (1000, k), generator=gen, device=device), bits)
+            for c in (1, 3):
+                if packed_linear.bwd_plan(1000, words_all.shape[1], bits, c,
+                                          100)["form"] != "mem":
+                    raise AssertionError(f"{bits}-bit rows past a block's "
+                                         f"shared memory do not plan the "
+                                         f"memory form")
+                g_all = torch.randn((c, 1000), generator=gen, device=device)
+                for n in (33, 1000):
+                    words, g = words_all[:n], g_all[:, :n].contiguous()
+                    for bn in (32, 100):
+                        check(ops.packed_linear_bwd(g, words, bits,
+                                                    impl="kernel",
+                                                    block_n=bn),
+                              ref.packed_linear_bwd_ref(g, words, bits,
+                                                        block_n=bn),
+                              bits, k, c, n, bn, "memory form")
+                        for d, vw in zip(deads, masks(n)):
+                            check(ops.packed_linear_bwd_masked(
+                                g, words, vw, bits, impl="kernel",
+                                block_n=bn),
+                                ref.packed_linear_bwd_masked_ref(
+                                    g, words, vw, bits, block_n=bn),
+                                bits, k, c, n, bn, d, "memory form")
+    finally:
+        packed_linear.SMEM_BLOCK_MAX = keep
+    # the two halves apart: fold(partials) is the whole backward
+    words = packing.pack_codes(torch.randint(0, 4, (3000, 256), generator=gen,
+                                             device=device), 2)
+    vw = masks(3000)[2]
+    for c in (1, 8):
+        g = torch.randn((c, 3000), generator=gen, device=device)
+        for v in (None, vw):
+            part = packed_linear.bwd_partials_cuda(g, words, 2, 100,
+                                                   valid_words=v)
+            check(packed_linear.bwd_fold_cuda(part),
+                  packed_linear.packed_linear_bwd_cuda(g, words, 2, 100,
+                                                       valid_words=v),
+                  "halves apart", c, v is not None)
+    log(f"check packed_linear backward grid: {n_checks} launches bit-exact "
+        f"(block_n 1/100/512/1000 x C 1/3/8/9 x N 0-1000 across chunk and "
+        f"mask-word edges x dead all/none/10 %/90 %, bits 1/2/4/8, 16-bit at "
+        f"C 1/3; groups of 3 chunks; the memory form at bits 1/2/4; partial "
+        f"kernel and fold apart); row "
+        f"tiles a 1,000-row chunk: "
+        f"{', '.join(f'{k} {v}' for k, v in tiles.items())}")
 
 
 def kernel_phase(crp, device) -> dict:
@@ -2517,12 +2671,15 @@ def learn_kernel_phase(rows, words, device) -> None:
     (F.embedding_bag over flat indices for the forward; for the backward
     torch.bincount with weights at C = 1 and g @ one-hot at C = 8; indices
     and one-hot made outside the window); the C = 1 rows go to the
-    kernels line. Then a float64 oracle over 4,096 rows from a dense
-    one-hot."""
+    kernels line, with the C = 8 times under ``c8_`` keys. The backward's
+    partial kernel and fold are timed apart at both C, each beside its
+    bound (and the partial kernel beside the floor of P predicated adds a
+    (row, class, field)), with the plan and the registers and spills of
+    each. Then a float64 oracle over 4,096 rows from a dense one-hot."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import packing
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, packed_linear, ref
     gen = torch.Generator(device=device).manual_seed(16)
     n, w = words.shape
     bits, p = 2, 4
@@ -2611,6 +2768,63 @@ def learn_kernel_phase(rows, words, device) -> None:
                                   bound_pipe=pipe, library_ms=lib_ms,
                                   shape=[c, n, w],
                                   live_rows=n_live if masked else n)
+            else:
+                rows[name].update(c8_ms=ms, c8_bound_ms=b_ms,
+                                  c8_library_ms=lib_ms)
+        # the backward's two halves apart, each beside its bound: the
+        # partial kernel reads the words (the live rows'), g and the mask
+        # and writes the partials, a float add a (row, class, field) it
+        # reads; its own floor adds P times, each predicated on the code;
+        # the fold reads the partials and writes the gradients, an add a
+        # partial entry
+        for name, v in (("packed_linear_bwd", None),
+                        ("packed_linear_bwd_masked", valid)):
+            masked = v is not None
+            plan = packed_linear.bwd_plan(n, w, bits, c, 512, masked=masked,
+                                          device=device)
+            part = packed_linear.bwd_partials_cuda(g, words, bits,
+                                                   valid_words=v)
+            whole = (ops.packed_linear_bwd_masked(g, words, v, bits,
+                                                  impl="kernel") if masked
+                     else ops.packed_linear_bwd(g, words, bits,
+                                                impl="kernel"))
+            if not same_bits(packed_linear.bwd_fold_cuda(part), whole):
+                raise AssertionError(f"{name}: the fold of the partial "
+                                     f"kernel's partials differs from the "
+                                     f"whole at C={c}")
+            part_ms = time_ms(lambda: packed_linear.bwd_partials_cuda(
+                g, words, bits, valid_words=v))
+            fold_ms = time_ms(lambda: packed_linear.bwd_fold_cuda(part))
+            pb_ms = bound([("f32 add", adds[masked], F32_ADD_S)],
+                          words_b[masked] + 4.0 * c * n + 4.0 * part.numel())
+            fb_ms = bound([("f32 add", float(part.numel()), F32_ADD_S)],
+                          4.0 * part.numel() + 4.0 * c * fp)
+            floor_ms = 1e3 * p * adds[masked] / F32_ADD_S
+            kname = (f"linear_bwd_partial_tiledILi{bits}ELi"
+                     f"{plan['classes_per_thread']}ELb{int(masked)}EE")
+            regs = LINEAR_PTXAS.get(kname, (None, None))
+            fold_regs = LINEAR_PTXAS.get("linear_bwd_fold", (None, None))
+            log(f"kernel {name} halves [C={c}, N={n}, W={w}]: partial "
+                f"ms={part_ms:.4f} bound_ms={pb_ms[0]:.5f} ({pb_ms[2]}; P "
+                f"predicated adds {floor_ms:.4f}), fold ms={fold_ms:.4f} "
+                f"bound_ms={fb_ms[0]:.5f} ({fb_ms[2]}) over {part.shape[0]} "
+                f"chunks; plan CT {plan['classes_per_thread']} FT "
+                f"{plan['fields_per_thread']} threads {plan['threads']} "
+                f"tile_rows {plan['tile_rows']} x {plan['tiles_per_chunk']} "
+                f"smem {plan['smem']} blocks/SM {plan['blocks_per_sm']} "
+                f"chunks/block {plan['chunks_per_block']} grid "
+                f"{plan['grid']} fold grid {plan['fold_grid']}; registers "
+                f"{regs[0]} (spills {regs[1]} B), fold {fold_regs[0]} "
+                f"(spills {fold_regs[1]} B)")
+            rows[name].update({
+                f"{'' if c == 1 else 'c8_'}{key}": val for key, val in (
+                    ("partial_ms", part_ms), ("partial_bound_ms", pb_ms[0]),
+                    ("partial_add_floor_ms", floor_ms), ("fold_ms", fold_ms),
+                    ("fold_bound_ms", fb_ms[0]), ("registers", regs[0]),
+                    ("spill_bytes", regs[1]), ("fold_registers", fold_regs[0]),
+                    ("tile_rows", plan["tile_rows"]),
+                    ("classes_per_thread", plan["classes_per_thread"]))})
+            del part, whole
         if c == 1:
             del g_rep, g_live_rep
         else:
@@ -3744,6 +3958,8 @@ def main(argv) -> int:
                 if used and tc:
                     TC_PTXAS[f"{tc.group(1)},{tc.group(2)}"] = (
                         int(used.group(1)), spill)
+                if used and name == "packed_linear":
+                    LINEAR_PTXAS[fn] = (int(used.group(1)), spill)
     log(f"card: {card}")
 
     t0 = time.perf_counter()

@@ -14,8 +14,11 @@
 // Bound on this card: bytes. At the learn path's shapes (N = 2,330,594
 // rows, W = 16 words of 2-bit fields, C = 1) the forward reads 149 MB of
 // words and writes 9 MB of margins, about 0.047 ms at 3.35 TB/s, against
-// N*F = 597M float adds (0.009 ms at 67 TFLOP/s); the backward reads the
-// same words and 9 MB of g.
+// N*F = 597M float adds (0.018 ms at 128 adds a clock an SM); the
+// backward reads the same words and 9 MB of g. At C = 8 both are bound
+// by the adds (0.143 ms). A backward whose order is fixed issues P adds a
+// (row, class, field), each predicated on the code, so its own floor is
+// P times the add bound plus the decoding.
 //
 // Forward design. The TPU kernel streams corpus tiles through a select
 // tree with one class tile resident. Here one thread scores one row for
@@ -24,32 +27,68 @@
 // KB, and wider tables are read from device memory). The row is decoded
 // once for up to 8 classes: score_row_classes of lut_common.cuh (the LUT
 // kernels' score_row is its one-class case), the (word, field) order with
-// __fadd_rn for each class, with 8, 4, 2 or 1 accumulators in registers. One kernel serves both forms: the bitmask
-// pointer is null for the plain one.
+// __fadd_rn for each class, with 8, 4, 2 or 1 accumulators in registers.
+// One kernel serves both forms: the bitmask pointer is null for the plain
+// one.
 //
 // Backward design. The TPU kernel expands each row tile to a one-hot tile
 // in registers and accumulates g_tile @ onehot on the MXU. On this card a
 // float atomic per (row, field) would make the sum order, and so the
 // result, change from run to run. Two kernels instead fix the order of
-// ref.packed_linear_bwd_ref: the first writes one partial per block_n
-// chunk of rows, [chunks, C, F*P], one thread per (chunk, class, field)
-// walking the chunk's rows in ascending order and adding g onto its own P
-// entries (in registers for P <= 16, read-modify-write in the zeroed
-// partial buffer for 8- and 16-bit fields); the second adds the partials
-// onto the accumulator in chunk order, one thread per output entry. Chunks
-// go in groups whose partials fit the scratch the wrapper gives (about 19
-// MB a class at the learn path's shape, one group); a later group's fold
-// continues from the accumulator, so the order is the same. A dead row is
-// skipped, which equals adding 0.0 (a partial that starts at +0.0 is never
-// -0.0). Phantom field slots and entries are computed like any other; the
+// ref.packed_linear_bwd_ref: the partial kernel writes one partial per
+// block_n chunk of rows, [chunks, C, F*P], each adding the chunk's rows
+// in ascending order from +0.0; the fold adds the partials onto the
+// accumulator in chunk order.
+//
+// Partial kernel (1-, 2- and 4-bit fields). A block walks a run of
+// consecutive chunks, each in row tiles of at most tile_rows rows, and
+// stages every tile once in shared memory with 4-byte cp.async: the tile's
+// words transposed to [word][row], its g entries for the block's classes
+// as [row][class], and the validity words that cover it. Two slots, so
+// the next tile (of this chunk or the next) copies while this one adds. A
+// thread owns FT fields of one word and CT classes, FT * P * CT = 32
+// accumulators in registers. Four rows at a time, it reads its word of
+// each in one 16-byte load, their g in CT 16-byte loads and their
+// validity bits in one funnel shift; it shifts each word to its first
+// field once, decodes each field once (a mask and P - 1 compares), and
+// adds g onto the entry the code selects, for every class (an add
+// predicated on the code; a dead row's g is replaced by 0.0, which leaves
+// a partial that started at +0.0 unchanged, as the plain version's zeroed
+// g does). At a chunk's last tile it stores its P * FT entries a class in
+// 16-byte stores. The wrapper's plan takes CT 1 at one class, else the
+// most classes whose accumulators fit (8 at 1- and 2-bit fields, 2 at
+// 4-bit), and spreads the chunks over the card's resident blocks once. What
+// binds it is issue: at 2 bits about 9 instructions a (row, field), 4 of
+// them on the half-rate integer pipe. 8- and 16-bit fields (and rows too
+// wide for two slots) keep the earlier form: one thread per (chunk,
+// class, field) adding in the zeroed partial buffer in device memory.
+//
+// Fold. A block owns a slab of 8 entries (32 bytes a chunk); its threads
+// stream the slab's rows, 64 chunks a stage, through a ring of 8 stages
+// with 16-byte cp.async, and 8 threads add them in chunk order, so many
+// loads are in flight ahead of each entry's serial chain and the entries
+// spread over the card; the chain of dependent adds binds it.
+//
+// Chunks go in groups whose partials fit the scratch the wrapper gives
+// (about 19 MB a class at the learn path's shape, one group); a later
+// group's fold continues from the accumulator, so the order is the same.
+// Phantom field slots and entries are computed like any other; the
 // caller masks them (learn.features.entry_mask).
+#include <mutex>
+
 #include "lut_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 constexpr int FWD_THREADS = 256;
-constexpr int BWD_THREADS = 256;
-constexpr int FOLD_THREADS = 256;
+constexpr int BWD_THREADS = 256;   // the 8- and 16-bit partial kernel
+constexpr int PART_THREADS = 256;  // the most threads a tiled partial block
+constexpr int PART_MIN_BLOCKS = 3; // blocks of 256 an SM: at most 85 registers
+constexpr int FOLD_THREADS = 128;
+constexpr int FOLD_SLAB = 8;       // entries a fold block adds
+constexpr int FOLD_ROWS = FOLD_THREADS * 4 / FOLD_SLAB;  // chunks a stage
+constexpr int FOLD_STAGES = 8;
 
 __device__ __forceinline__ bool row_live(const uint32_t* valid, int r) {
   return valid == nullptr || ((valid[r >> 5] >> (r & 31)) & 1u);
@@ -110,47 +149,258 @@ linear_fwd(const float* __restrict__ tables, const uint32_t* __restrict__ words,
   }
 }
 
-// One thread per (chunk of the group, class, field); P <= 16 entries
-// accumulate in registers, each row's add predicated on its code and, in
-// the masked form, on its validity bit (no branch, so the loads of
-// successive rows overlap; a dead row's word and g are read, not added).
-template <int P>
-__global__ void __launch_bounds__(BWD_THREADS)
-linear_bwd_partial_reg(const float* __restrict__ g,
-                       const uint32_t* __restrict__ words,
-                       const uint32_t* __restrict__ valid,
-                       float* __restrict__ part, int c, int n, int w, int bits,
-                       int block_n, int chunk0, int n_chunks) {
-  const int cpw = 32 / bits, f_all = w * cpw;
-  const long long t = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
-  const long long per_chunk = (long long)c * f_all;
-  if (t >= per_chunk * n_chunks) return;
-  const int ch = (int)(t / per_chunk);
-  const int rem = (int)(t - ch * per_chunk);
-  const int cls = rem / f_all, f = rem - cls * f_all;
-  const int lo = (chunk0 + ch) * block_n, hi = min(lo + block_n, n);
-  const uint32_t* wd = words + f / cpw;
-  const int shift = (f % cpw) * bits;
-  const float* gc = g + (size_t)cls * n;
-  float acc[P];
-#pragma unroll
-  for (int e = 0; e < P; ++e) acc[e] = 0.0f;
-  for (int r = lo; r < hi; ++r) {
-    const uint32_t word = wd[(size_t)r * w];
-    const float gv = gc[r];
-    const int code = row_live(valid, r)
-        ? (int)((word >> shift) & (uint32_t)(P - 1)) : -1;
-#pragma unroll
-    for (int e = 0; e < P; ++e)
-      if (code == e) acc[e] = __fadd_rn(acc[e], gv);
-  }
-  float* o = part + (size_t)t * P;
-#pragma unroll
-  for (int e = 0; e < P; ++e) o[e] = acc[e];
+// 16 bytes global -> shared
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src)
+               : "memory");
 }
 
-// The same for 8- and 16-bit fields: each thread adds onto its own P
-// entries of the zeroed partial buffer, one row after the other.
+// Fields a thread owns at CT classes a thread: FT * P * CT = 32
+// accumulators (the plan's fields_per_thread).
+__host__ __device__ constexpr int fields_per_thread(int bits, int ct) {
+  return (32 >> bits) / ct > 0 ? (32 >> bits) / ct : 1;
+}
+
+// The row tile k of a block whose chunks start at ch_first: chunk ch, rows
+// [r0, r1) (empty when r0 >= r1: tiles past a short last chunk), and
+// whether it is the chunk's last.
+struct Tile {
+  int ch, r0, r1;
+  bool last;
+};
+
+__device__ __forceinline__ Tile tile_at(int k, int ch_first, int tpc, int tr,
+                                        int block_n, int n) {
+  Tile t;
+  t.ch = ch_first + k / tpc;
+  const long long lo = (long long)t.ch * block_n;
+  const long long hi = lo + block_n < n ? lo + block_n : n;
+  const long long r0 = lo + (long long)(k % tpc) * tr;
+  t.r0 = (int)(r0 < hi ? r0 : hi);
+  t.r1 = (int)(r0 + tr < hi ? r0 + tr : hi);
+  t.last = t.r0 < t.r1 && t.r1 == hi;
+  return t;
+}
+
+// The shared-memory slot of one tile, in 4-byte words: the words
+// transposed, [W][row_pitch] (row_pitch: tile_rows rounded to 4, and to 4
+// more where that is a multiple of 8, so that the 16-byte loads of a
+// warp's 8 words of one row group fall in 8 distinct bank groups), g
+// [tile_rows][class_pitch], and the validity words (tile_rows / 32 + 2,
+// and one more that a funnel shift of the last may read). The plan
+// computes the same.
+__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ __forceinline__ int row_pitch(int tr) {
+  return round4(tr) % 8 == 0 ? round4(tr) + 4 : round4(tr);
+}
+__host__ __device__ __forceinline__ int slot_words(int tr, int w) {
+  return w * row_pitch(tr);
+}
+__host__ __device__ __forceinline__ int slot_g(int tr, int gp) {
+  return round4(tr * gp);
+}
+__host__ __device__ __forceinline__ int slot_valid(int tr) {
+  return round4(tr / 32 + 3);
+}
+
+template <int CT>
+__device__ __forceinline__ void load_g(const float* s, float* gv) {
+  if constexpr (CT == 1) {
+    gv[0] = s[0];
+  } else if constexpr (CT == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(s);
+    gv[0] = v.x;
+    gv[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < CT / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(s)[q];
+      gv[4 * q] = v.x;
+      gv[4 * q + 1] = v.y;
+      gv[4 * q + 2] = v.z;
+      gv[4 * q + 3] = v.w;
+    }
+  }
+}
+
+// Items (class group, field group) over blockIdx.y * blockDim.x + tid;
+// blockIdx.x a run of cpb chunks of the group [chunk0, chunk0 + n_chunks).
+template <int BITS, int CT, bool MASKED>
+__global__ void __launch_bounds__(PART_THREADS, PART_MIN_BLOCKS)
+linear_bwd_partial_tiled(const float* __restrict__ g,
+                         const uint32_t* __restrict__ words,
+                         const uint32_t* __restrict__ valid,
+                         float* __restrict__ part, int c, int n, int w,
+                         int block_n, int chunk0, int n_chunks, int cpb,
+                         int tr, int tpc, int gp) {
+  constexpr int P = 1 << BITS, CPW = 32 / BITS;
+  constexpr int FT = fields_per_thread(BITS, CT);
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfg = w * CPW / FT, fp = w * CPW * P;
+  const int items = (c + CT - 1) / CT * nfg;
+  const int i0 = blockIdx.y * nt, it = i0 + tid;
+  const bool active = it < items;
+  const int cg0 = i0 / nfg, cls_lo = cg0 * CT;
+  const int cls_hi = min(c, ((min(items, i0 + nt) - 1) / nfg + 1) * CT);
+  const int ncls = cls_hi - cls_lo;
+  const int cg = it / nfg, fg = it - cg * nfg;
+  const int wi = fg * FT / CPW, s0 = fg * FT % CPW * BITS;
+  const int rp = row_pitch(tr), step_r = nt / w, step_j = nt - step_r * w;
+  const int sw_n = slot_words(tr, w), sg_n = slot_g(tr, gp);
+  const int slot = sw_n + sg_n + slot_valid(tr);
+  const int ch_first = chunk0 + blockIdx.x * cpb;
+  const int ch_end = min(chunk0 + n_chunks, ch_first + cpb);
+  const int n_tiles = (ch_end - ch_first) * tpc;
+
+  auto stage = [&](int k) {
+    const Tile t = tile_at(k, ch_first, tpc, tr, block_n, n);
+    if (t.r0 >= t.r1) return;
+    uint32_t* dst = smem + (k & 1) * slot;
+    const int nr = t.r1 - t.r0;
+    // word j of row r to [j][r]: consecutive threads read consecutive
+    // words of the tile
+    const uint32_t sw = smem_addr(dst);
+    const uint32_t* src = words + (size_t)t.r0 * w;
+    int rr = tid / w, jj = tid - rr * w;
+    for (int i = tid; i < nr * w; i += nt) {
+      cp_async_4(sw + 4 * (jj * rp + rr), src + i, true);
+      rr += step_r;
+      jj += step_j;
+      if (jj >= w) {
+        jj -= w;
+        ++rr;
+      }
+    }
+    const uint32_t sg = smem_addr(dst + sw_n);
+    for (int i = tid; i < nr * ncls; i += nt) {
+      const int cl = i / nr, r = i - cl * nr;
+      cp_async_4(sg + 4 * (r * gp + cl),
+                 g + (size_t)(cls_lo + cl) * n + t.r0 + r, true);
+    }
+    if (MASKED) {
+      const int v0 = t.r0 >> 5, nv = ((t.r1 - 1) >> 5) - v0 + 1;
+      const uint32_t sv = smem_addr(dst + sw_n + sg_n);
+      for (int i = tid; i < nv; i += nt)
+        cp_async_4(sv + 4 * i, valid + v0 + i, true);
+    }
+  };
+
+  float acc[CT][FT][P];
+#pragma unroll
+  for (int j = 0; j < CT; ++j)
+#pragma unroll
+    for (int f = 0; f < FT; ++f)
+#pragma unroll
+      for (int e = 0; e < P; ++e) acc[j][f][e] = 0.0f;
+
+  stage(0);
+  cp_async_commit();
+  for (int k = 0; k < n_tiles; ++k) {
+    // the slot of tile k + 1 was last read in iteration k - 1, before its
+    // closing barrier
+    if (k + 1 < n_tiles) stage(k + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const Tile t = tile_at(k, ch_first, tpc, tr, block_n, n);
+    if (active && t.r0 < t.r1) {
+      const uint32_t* buf = smem + (k & 1) * slot;
+      const uint32_t* sw = buf + wi * rp;   // row r's word at sw[r]
+      const float* sg =
+          reinterpret_cast<const float*>(buf + sw_n) + (cg - cg0) * CT;
+      const uint32_t* sv = buf + sw_n + sg_n;
+      const int vb = t.r0 & 31, nr = t.r1 - t.r0;
+      // one row: its word shifted to the thread's first field, its g
+      auto add_row = [&](uint32_t y, const float* gv) {
+#pragma unroll
+        for (int f = 0; f < FT; ++f) {
+          const uint32_t m = y & ((uint32_t)(P - 1) << (f * BITS));
+#pragma unroll
+          for (int e = 0; e < P; ++e) {
+            if (m == (uint32_t)e << (f * BITS)) {
+#pragma unroll
+              for (int j = 0; j < CT; ++j)
+                acc[j][f][e] = __fadd_rn(acc[j][f][e], gv[j]);
+            }
+          }
+        }
+      };
+      int r = 0;
+      for (; r + 4 <= nr; r += 4) {
+        const uint4 x = *reinterpret_cast<const uint4*>(sw + r);
+        const uint32_t y[4] = {x.x >> s0, x.y >> s0, x.z >> s0, x.w >> s0};
+        float gv[4][CT];
+        if (gp == CT) {   // the four rows' g, 4 * CT floats in a row
+#pragma unroll
+          for (int q = 0; q < CT; ++q) {
+            const float4 v = reinterpret_cast<const float4*>(sg + r * CT)[q];
+            gv[(4 * q) / CT][(4 * q) % CT] = v.x;
+            gv[(4 * q + 1) / CT][(4 * q + 1) % CT] = v.y;
+            gv[(4 * q + 2) / CT][(4 * q + 2) % CT] = v.z;
+            gv[(4 * q + 3) / CT][(4 * q + 3) % CT] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) load_g<CT>(sg + (r + q) * gp, gv[q]);
+        }
+        if (MASKED) {
+          // the four rows' bits, from the two words that hold them
+          const int b = vb + r;
+          const uint32_t live =
+              __funnelshift_r(sv[b >> 5], sv[(b >> 5) + 1], b & 31);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (!((live >> q) & 1u)) {
+#pragma unroll
+              for (int j = 0; j < CT; ++j) gv[q][j] = 0.0f;
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) add_row(y[q], gv[q]);
+      }
+      for (; r < nr; ++r) {
+        float gv[CT];
+        load_g<CT>(sg + r * gp, gv);
+        if (MASKED) {
+          const int b = vb + r;
+          if (!((sv[b >> 5] >> (b & 31)) & 1u)) {
+#pragma unroll
+            for (int j = 0; j < CT; ++j) gv[j] = 0.0f;
+          }
+        }
+        add_row(sw[r] >> s0, gv);
+      }
+      if (t.last) {
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const int cl = cg * CT + j;
+          if (cl < c) {
+            float4* o = reinterpret_cast<float4*>(
+                part + ((size_t)(t.ch - chunk0) * c + cl) * fp +
+                (size_t)fg * FT * P);
+#pragma unroll
+            for (int q = 0; q < FT * P / 4; ++q)
+              o[q] = make_float4(acc[j][(4 * q) / P][(4 * q) % P],
+                                 acc[j][(4 * q + 1) / P][(4 * q + 1) % P],
+                                 acc[j][(4 * q + 2) / P][(4 * q + 2) % P],
+                                 acc[j][(4 * q + 3) / P][(4 * q + 3) % P]);
+          }
+#pragma unroll
+          for (int f = 0; f < FT; ++f)
+#pragma unroll
+            for (int e = 0; e < P; ++e) acc[j][f][e] = 0.0f;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// 8- and 16-bit fields: one thread per (chunk of the group, class, field)
+// adds onto its own P entries of the zeroed partial buffer, one row after
+// the other.
 __global__ void __launch_bounds__(BWD_THREADS)
 linear_bwd_partial_mem(const float* __restrict__ g,
                        const uint32_t* __restrict__ words,
@@ -177,47 +427,102 @@ linear_bwd_partial_mem(const float* __restrict__ g,
 }
 
 // out[j] (+)= part[0][j] + part[1][j] + ... in chunk order, from 0.0 for
-// the first group.
+// the first group; a block a slab of FOLD_SLAB entries (cols is a multiple
+// of 64 and part 16-byte aligned).
 __global__ void __launch_bounds__(FOLD_THREADS)
 linear_bwd_fold(const float* __restrict__ part, float* __restrict__ out,
                 long long cols, int n_chunks, int first) {
-  const long long j = (long long)blockIdx.x * FOLD_THREADS + threadIdx.x;
-  if (j >= cols) return;
-  float a = first ? 0.0f : out[j];
-#pragma unroll 8
-  for (int ch = 0; ch < n_chunks; ++ch)
-    a = __fadd_rn(a, part[(size_t)ch * cols + j]);
-  out[j] = a;
-}
-
-cudaError_t launch_partial(const float* g, const uint32_t* words,
-                           const uint32_t* valid, float* part, int c, int n,
-                           int w, int bits, int block_n, int chunk0,
-                           int n_chunks, cudaStream_t st) {
-  const long long threads = (long long)n_chunks * c * w * (32 / bits);
-  const unsigned blocks = (unsigned)((threads + BWD_THREADS - 1) / BWD_THREADS);
-  switch (bits) {
-    case 1:
-      linear_bwd_partial_reg<2><<<blocks, BWD_THREADS, 0, st>>>(
-          g, words, valid, part, c, n, w, bits, block_n, chunk0, n_chunks);
-      break;
-    case 2:
-      linear_bwd_partial_reg<4><<<blocks, BWD_THREADS, 0, st>>>(
-          g, words, valid, part, c, n, w, bits, block_n, chunk0, n_chunks);
-      break;
-    case 4:
-      linear_bwd_partial_reg<16><<<blocks, BWD_THREADS, 0, st>>>(
-          g, words, valid, part, c, n, w, bits, block_n, chunk0, n_chunks);
-      break;
-    default: {
-      const size_t bytes = (size_t)threads * ((size_t)1 << bits) * sizeof(float);
-      const cudaError_t err = cudaMemsetAsync(part, 0, bytes, st);
-      if (err != cudaSuccess) return err;
-      linear_bwd_partial_mem<<<blocks, BWD_THREADS, 0, st>>>(
-          g, words, valid, part, c, n, w, bits, block_n, chunk0, n_chunks);
+  __shared__ __align__(16) float ring[FOLD_STAGES][FOLD_ROWS * FOLD_SLAB];
+  const int tid = threadIdx.x;
+  const long long j0 = (long long)blockIdx.x * FOLD_SLAB;
+  const int n_stages = (n_chunks + FOLD_ROWS - 1) / FOLD_ROWS;
+  const int row = tid / (FOLD_SLAB / 4), q = tid % (FOLD_SLAB / 4);
+  auto issue = [&](int s) {
+    const int ch = s * FOLD_ROWS + row;
+    if (s < n_stages && ch < n_chunks)
+      cp_async_16(smem_addr(&ring[s % FOLD_STAGES][row * FOLD_SLAB + 4 * q]),
+                  part + (size_t)ch * cols + j0 + 4 * q);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < FOLD_STAGES - 1; ++s) issue(s);
+  float a = 0.0f;
+  if (tid < FOLD_SLAB && !first) a = out[j0 + tid];
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<FOLD_STAGES - 2>();
+    __syncthreads();
+    // the stage refilled here was read in iteration s - 1
+    issue(s + FOLD_STAGES - 1);
+    if (tid < FOLD_SLAB) {
+      const float* st = ring[s % FOLD_STAGES] + tid;
+      const int m = n_chunks - s * FOLD_ROWS;
+      if (m >= FOLD_ROWS) {   // a whole stage: its loads issue ahead
+        float v[FOLD_ROWS];
+#pragma unroll
+        for (int r = 0; r < FOLD_ROWS; ++r) v[r] = st[r * FOLD_SLAB];
+#pragma unroll
+        for (int r = 0; r < FOLD_ROWS; ++r) a = __fadd_rn(a, v[r]);
+      } else {
+        for (int r = 0; r < m; ++r) a = __fadd_rn(a, st[r * FOLD_SLAB]);
+      }
     }
   }
-  return cudaGetLastError();
+  if (tid < FOLD_SLAB) out[j0 + tid] = a;
+}
+
+using PartKernel = void (*)(const float*, const uint32_t*, const uint32_t*,
+                            float*, int, int, int, int, int, int, int, int,
+                            int, int);
+
+template <int BITS, int CT>
+PartKernel tiled_kernel(bool masked) {
+  return masked ? linear_bwd_partial_tiled<BITS, CT, true>
+                : linear_bwd_partial_tiled<BITS, CT, false>;
+}
+
+// The tiled partial kernel of (bits, ct, masked): CT 1, or the plan's
+// other CT (8 at 1- and 2-bit fields, 2 at 4-bit); null where there is
+// none.
+PartKernel part_kernel(int bits, int ct, bool masked) {
+  switch (bits * 16 + ct) {
+    case 1 * 16 + 1: return tiled_kernel<1, 1>(masked);
+    case 1 * 16 + 8: return tiled_kernel<1, 8>(masked);
+    case 2 * 16 + 1: return tiled_kernel<2, 1>(masked);
+    case 2 * 16 + 8: return tiled_kernel<2, 8>(masked);
+    case 4 * 16 + 1: return tiled_kernel<4, 1>(masked);
+    case 4 * 16 + 2: return tiled_kernel<4, 2>(masked);
+    default: return nullptr;
+  }
+}
+
+// Opens kernel k (of part_kernel's (bits, ct, masked)) to smem bytes of
+// dynamic shared memory on the current device. The attribute is set only
+// when it must grow, so a launch of a size seen before costs no call, and
+// it never shrinks below what an earlier plan was given.
+constexpr int MAX_DEVICES = 16;
+std::mutex smem_mu;
+int smem_open[MAX_DEVICES][3][2][2];   // device, bits 1/2/4, CT > 1, masked
+
+cudaError_t open_smem(PartKernel k, int bits, int ct, bool masked,
+                      int smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES)
+    return cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  std::lock_guard<std::mutex> lock(smem_mu);
+  const int b = bits == 1 ? 0 : bits == 2 ? 1 : 2;
+  int& granted = smem_open[dev][b][ct > 1][masked];
+  if (smem <= granted) return cudaSuccess;
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess) granted = smem;
+  return err;
+}
+
+int tiled_smem(int tr, int w, int gp) {
+  return 2 * 4 * (slot_words(tr, w) + slot_g(tr, gp) + slot_valid(tr));
 }
 
 }  // namespace
@@ -244,26 +549,104 @@ extern "C" int packed_linear_fwd_launch(const float* tables,
   return (int)cudaGetLastError();
 }
 
+// Blocks of the tiled partial kernel (bits, ct, masked) an SM holds at
+// `threads` threads and `smem` bytes of dynamic shared memory, into
+// *blocks.
+extern "C" int packed_linear_bwd_occupancy(int bits, int ct, int masked,
+                                           int threads, int smem,
+                                           int* blocks) {
+  const PartKernel k = part_kernel(bits, ct, masked != 0);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = open_smem(k, bits, ct, masked != 0, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, threads,
+                                                            (size_t)smem);
+}
+
+namespace {
+
+// The partial kernel over the group [chunk0, chunk0 + m): the tiled form
+// for ct > 0, else the 8- and 16-bit form.
+cudaError_t launch_partial(const float* g, const uint32_t* words,
+                           const uint32_t* valid, float* part, int c, int n,
+                           int w, int bits, int block_n, int chunk0, int m,
+                           int ct, int threads, int item_groups, int tr,
+                           int tpc, int gp, int smem, int blocks_per_group,
+                           cudaStream_t st) {
+  if (ct > 0) {
+    const PartKernel k = part_kernel(bits, ct, valid != nullptr);
+    if (k == nullptr || smem != tiled_smem(tr, w, gp) || threads < 32 ||
+        threads > PART_THREADS || blocks_per_group < 1)
+      return cudaErrorInvalidValue;
+    const cudaError_t err = open_smem(k, bits, ct, valid != nullptr, smem);
+    if (err != cudaSuccess) return err;
+    const int cpb = (m + blocks_per_group - 1) / blocks_per_group;
+    const dim3 grid((unsigned)((m + cpb - 1) / cpb), (unsigned)item_groups);
+    k<<<grid, threads, smem, st>>>(g, words, valid, part, c, n, w, block_n,
+                                   chunk0, m, cpb, tr, tpc, gp);
+  } else {
+    const long long t = (long long)m * c * w * (32 / bits);
+    const cudaError_t err = cudaMemsetAsync(
+        part, 0, (size_t)t * ((size_t)1 << bits) * sizeof(float), st);
+    if (err != cudaSuccess) return err;
+    linear_bwd_partial_mem<<<(unsigned)((t + BWD_THREADS - 1) / BWD_THREADS),
+                             BWD_THREADS, 0, st>>>(
+        g, words, valid, part, c, n, w, bits, block_n, chunk0, m);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fold(const float* part, float* out, long long cols, int m,
+                        int first, cudaStream_t st) {
+  linear_bwd_fold<<<(unsigned)(cols / FOLD_SLAB), FOLD_THREADS, 0, st>>>(
+      part, out, cols, m, first);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // g [c, n] float32; valid: null or [ceil(n/32)]; part: scratch of
 // group_chunks * c * fp floats; out [c, fp]. Chunks of block_n rows go in
 // groups of group_chunks: partial kernel, then fold, group after group.
-extern "C" int packed_linear_bwd_launch(const float* g, const uint32_t* words,
-                                        const uint32_t* valid, float* part,
-                                        float* out, int c, int n, int w,
-                                        int bits, int block_n,
-                                        int group_chunks, void* stream) {
+// ct: classes a thread of the tiled partial kernel (0: the 8- and 16-bit
+// form); threads, item_groups, tr (tile rows), tpc (tiles a chunk), gp
+// (g's class pitch), smem and blocks_per_group (the blocks a group's
+// chunks spread over) come from the wrapper's plan; smem must equal the
+// layout's own size.
+extern "C" int packed_linear_bwd_launch(
+    const float* g, const uint32_t* words, const uint32_t* valid, float* part,
+    float* out, int c, int n, int w, int bits, int block_n, int group_chunks,
+    int ct, int threads, int item_groups, int tr, int tpc, int gp, int smem,
+    int blocks_per_group, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long cols = (long long)c * ((w * (32 / bits)) << bits);
-  const int n_chunks = (n + block_n - 1) / block_n;
+  const int n_chunks = (int)(((long long)n + block_n - 1) / block_n);
   for (int c0 = 0; c0 < n_chunks; c0 += group_chunks) {
     const int m = n_chunks - c0 < group_chunks ? n_chunks - c0 : group_chunks;
     cudaError_t err = launch_partial(g, words, valid, part, c, n, w, bits,
-                                     block_n, c0, m, st);
+                                     block_n, c0, m, ct, threads, item_groups,
+                                     tr, tpc, gp, smem, blocks_per_group, st);
     if (err != cudaSuccess) return (int)err;
-    linear_bwd_fold<<<(unsigned)((cols + FOLD_THREADS - 1) / FOLD_THREADS),
-                      FOLD_THREADS, 0, st>>>(part, out, cols, m, c0 == 0);
-    err = cudaGetLastError();
+    err = launch_fold(part, out, cols, m, c0 == 0, st);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The two halves apart, for timing and checks: the partials of chunks
+// [0, n_chunks) (one group), and their fold onto out from 0.0.
+extern "C" int packed_linear_bwd_partial_launch(
+    const float* g, const uint32_t* words, const uint32_t* valid, float* part,
+    int c, int n, int w, int bits, int block_n, int n_chunks, int ct,
+    int threads, int item_groups, int tr, int tpc, int gp, int smem,
+    int blocks_per_group, void* stream) {
+  return (int)launch_partial(g, words, valid, part, c, n, w, bits, block_n, 0,
+                             n_chunks, ct, threads, item_groups, tr, tpc, gp,
+                             smem, blocks_per_group, (cudaStream_t)stream);
+}
+
+extern "C" int packed_linear_bwd_fold_launch(const float* part, float* out,
+                                             long long cols, int n_chunks,
+                                             void* stream) {
+  return (int)launch_fold(part, out, cols, n_chunks, 1, (cudaStream_t)stream);
 }

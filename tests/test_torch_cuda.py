@@ -425,21 +425,37 @@ def _bits_equal(got, want):
 
 @pytest.mark.parametrize("bits,k", [(1, 100), (2, 33), (2, 256), (4, 100),
                                     (8, 33), (16, 33)])
-def test_packed_linear_kernels_bit_exact(gen, bits, k):
+def test_packed_linear_kernels_bit_exact(gen, bits, k, monkeypatch):
     """Forward, backward and both masked forms against their plain
-    versions at ragged shapes: N across chunk and mask-word edges, C above
-    the forward's class tile, block_n 32 and 512, 10 % dead."""
+    versions at ragged shapes: N across chunk and mask-word edges, C 1, 3,
+    8, 9 and above the forward's class tile, 10 % dead for the forward;
+    the backward at block_n 32 and 512 with 10 % dead at every N, and at
+    block_n 1, 100 and 1,000 (a chunk the tiled partial kernel walks in
+    several row tiles) with all, none, 10 % and 90 % of the rows dead (at
+    16 bits, whose partials are 256 KB a field, up to N = 101), and with
+    its partials folded in groups of three chunks."""
+    from repro_torch.kernels import packed_linear
     from repro_torch.kernels.packed_linear import fwd_class_tile
     w = _words(gen, 1000, k, bits)
     fp = (w.shape[1] * (32 // bits)) << bits
     tile = fwd_class_tile(fp)
-    for c in (1, 3) + ((tile + 1,) if 0 < tile < 40 else ()):
+    wide = bits != 16
+    classes = ((1, 3, 8, 9) if wide else (1, 3)) + \
+        ((tile + 1,) if 0 < tile < 40 else ())
+    sizes = (0, 1, 31, 33, 100, 101, 1000) if wide else (0, 1, 33, 101,
+                                                          1000)
+    for c in classes:
         tab = torch.randn((c, fp), generator=gen, device="cuda")
-        for n in (0, 1, 33, 1000):
+        p = packed_linear.bwd_plan(1000, w.shape[1], bits, c, 1000)
+        assert p["form"] == ("tiled" if bits <= 4 else "mem")
+        if p["form"] == "tiled":
+            assert p["tiles_per_chunk"] > 1
+        for n in sizes:
             words = w[:n]
             g = torch.randn((c, n), generator=gen, device="cuda")
-            valid = packing.pack_bitmask(
-                torch.rand((n,), generator=gen, device="cuda") >= 0.1)
+            masks = [_mask(gen, n, live) for live in (0.0, 1.0, 0.9, 0.1)]
+            valid = masks[2]
+            full = wide or n <= 101
             assert _bits_equal(ops.packed_linear_fwd(tab, words, bits,
                                                      impl="kernel"),
                                ref.packed_linear_fwd_ref(tab, words, bits))
@@ -447,16 +463,61 @@ def test_packed_linear_kernels_bit_exact(gen, bits, k):
                 ops.packed_linear_fwd_masked(tab, words, valid, bits,
                                              impl="kernel"),
                 ref.packed_linear_fwd_masked_ref(tab, words, valid, bits))
-            for bn in (32, 512):
+            for bn in (1, 32, 100, 512, 1000) if full else (32, 512):
                 assert _bits_equal(
                     ops.packed_linear_bwd(g, words, bits, impl="kernel",
                                           block_n=bn),
                     ref.packed_linear_bwd_ref(g, words, bits, block_n=bn))
+                for vw in masks if full else [valid]:
+                    assert _bits_equal(
+                        ops.packed_linear_bwd_masked(g, words, vw, bits,
+                                                     impl="kernel",
+                                                     block_n=bn),
+                        ref.packed_linear_bwd_masked_ref(g, words, vw, bits,
+                                                         block_n=bn))
+    # ten chunks of partials in groups of three
+    c, n = 3, 1000
+    g = torch.randn((c, n), generator=gen, device="cuda")
+    monkeypatch.setattr(packed_linear, "PART_BYTES_MAX", 3 * 4 * c * fp)
+    assert _bits_equal(ops.packed_linear_bwd(g, w, bits, impl="kernel",
+                                             block_n=100),
+                       ref.packed_linear_bwd_ref(g, w, bits, block_n=100))
+    valid = _mask(gen, n, 0.9)
+    assert _bits_equal(
+        ops.packed_linear_bwd_masked(g, w, valid, bits, impl="kernel",
+                                     block_n=100),
+        ref.packed_linear_bwd_masked_ref(g, w, valid, bits, block_n=100))
+
+
+@pytest.mark.parametrize("bits,k", [(1, 100), (2, 256), (4, 100)])
+def test_packed_linear_bwd_mem_form_bit_exact(gen, bits, k, monkeypatch):
+    """The backward's device-memory form at 1-, 2- and 4-bit fields, the
+    form a row too wide for two shared-memory slots takes (here a block's
+    shared memory shrunk so that it does), against the plain versions:
+    block_n 32 and 100, N across chunk and mask-word edges, 10 % and all
+    dead."""
+    from repro_torch.kernels import packed_linear
+    monkeypatch.setattr(packed_linear, "SMEM_BLOCK_MAX", 64)
+    w = _words(gen, 1000, k, bits)
+    for c in (1, 3):
+        assert packed_linear.bwd_plan(1000, w.shape[1], bits, c,
+                                      100)["form"] == "mem"
+        for n in (1, 33, 1000):
+            words = w[:n]
+            g = torch.randn((c, n), generator=gen, device="cuda")
+            for bn in (32, 100):
                 assert _bits_equal(
-                    ops.packed_linear_bwd_masked(g, words, valid, bits,
-                                                 impl="kernel", block_n=bn),
-                    ref.packed_linear_bwd_masked_ref(g, words, valid, bits,
-                                                     block_n=bn))
+                    ops.packed_linear_bwd(g, words, bits, impl="kernel",
+                                          block_n=bn),
+                    ref.packed_linear_bwd_ref(g, words, bits, block_n=bn))
+                for live in (0.9, 0.0):
+                    vw = _mask(gen, n, live)
+                    assert _bits_equal(
+                        ops.packed_linear_bwd_masked(g, words, vw, bits,
+                                                     impl="kernel",
+                                                     block_n=bn),
+                        ref.packed_linear_bwd_masked_ref(g, words, vw, bits,
+                                                         block_n=bn))
 
 
 def test_fit_words_three_steps_bit_exact(gen):

@@ -140,6 +140,135 @@ def test_plain_backward_matches_jax(bits):
         assert (np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-6 * terms).all()
 
 
+def _bwd_in_order(g, codes, bits, block_n, live=None):
+    """The backward's documented sum order in numpy float32: per chunk of
+    ``block_n`` rows, each live row's g added in ascending row order onto
+    a partial that starts at +0.0; the partials added onto an accumulator
+    from +0.0 in chunk order."""
+    c, n = g.shape
+    p, f = 1 << bits, codes.shape[1]
+    acc = np.zeros((c, f * p), np.float32)
+    for lo in range(0, n, block_n):
+        part = np.zeros((c, f * p), np.float32)
+        for r in range(lo, min(lo + block_n, n)):
+            if live is None or live[r]:
+                idx = np.arange(f) * p + codes[r]
+                part[:, idx] = part[:, idx] + g[:, r:r + 1]
+        acc = acc + part
+    return acc
+
+
+def test_plain_backward_order_is_pinned():
+    """``ref.packed_linear_bwd_ref`` (the order the kernel is held to bit
+    for bit) equals a float32 loop in that order, on g whose sums change
+    with the order (+-2^24 beside 1.0 and 3.0), at block_n 32 and 512,
+    masked too (dead rows' g NaN: a dead row adds nothing); another
+    block_n gives other bits, so the check can see an order change."""
+    rng = np.random.default_rng(21)
+    bits, k, c, n = 2, 16, 2, 1100
+    codes = rng.integers(0, 4, (n, k))
+    tw = packing.pack_codes(torch.from_numpy(codes), bits)
+    g = rng.choice(np.float32([2.0 ** 24, -2.0 ** 24, 1.0, -1.0, 3.0]),
+                   (c, n))
+    live = rng.random(n) >= 0.1
+    tv = packing.pack_bitmask(torch.from_numpy(live))
+    g_dead = np.where(live, g, np.float32(np.nan)).astype(np.float32)
+    got = {}
+    for block_n in (32, 512):
+        want = _bwd_in_order(g, codes, bits, block_n)
+        got[block_n] = ref.packed_linear_bwd_ref(
+            torch.from_numpy(g), tw, bits, block_n=block_n).numpy()
+        _eq(got[block_n], want)
+        _eq(ref.packed_linear_bwd_masked_ref(
+                torch.from_numpy(g_dead), tw, tv, bits,
+                block_n=block_n).numpy(),
+            _bwd_in_order(g, codes, bits, block_n, live))
+    assert not np.array_equal(got[32], got[512])
+
+
+@pytest.mark.parametrize(
+    "n,w,bits,c,block_n,form,ct,ft,threads,groups,gp,tr,tpc,cpb,grid", [
+        # the learn path's shapes: C = 1 and one-vs-rest's C = 8
+        (2_330_594, 16, 2, 1, 512, "tiled", 1, 8, 32, 1, 1, 128, 4, 5,
+         (911, 1)),
+        (2_330_594, 16, 2, 8, 512, "tiled", 8, 1, 256, 1, 8, 96, 6, 5,
+         (911, 1)),
+        # C = 9: eight classes a thread, two class groups over two blocks
+        (2_330_594, 16, 2, 9, 512, "tiled", 8, 1, 256, 2, 8, 96, 6, 9,
+         (506, 2)),
+        (3000, 8, 1, 3, 32, "tiled", 8, 2, 128, 1, 8, 32, 1, 1, (94, 1)),
+        (1000, 13, 4, 2, 100, "tiled", 2, 1, 128, 1, 2, 100, 1, 1,
+         (10, 1)),
+        # a chunk wider than a slot: 3,000 rows in tiles of 96
+        (3000, 16, 2, 3, 5000, "tiled", 8, 1, 256, 1, 8, 96, 32, 1,
+         (1, 1)),
+        # block_n 1: a tile a row
+        (100, 3, 2, 1, 1, "tiled", 1, 8, 32, 1, 1, 1, 1, 1, (100, 1)),
+        # 8- and 16-bit fields keep the memory form, and so do rows whose
+        # two one-row slots exceed a block's shared memory
+        (1000, 9, 8, 3, 32, "mem", None, None, None, None, None, None,
+         None, None, None),
+        (1000, 8000, 4, 2, 512, "mem", None, None, None, None, None, None,
+         None, None, None),
+        (300, 17, 16, 1, 512, "mem", None, None, None, None, None, None,
+         None, None, None)])
+def test_bwd_launch_plan(n, w, bits, c, block_n, form, ct, ft, threads,
+                         groups, gp, tr, tpc, cpb, grid):
+    """Which backward form a call launches and how, by shape alone: the
+    tiled partial kernel's classes and fields a thread, its block, g's
+    class pitch, the row tiles of a chunk (a ring slot of at most
+    SLOT_BYTES), the chunks a block walks (the card's resident blocks,
+    here 132 SMs x 8, covered once) and the fold's slabs."""
+    from repro_torch.kernels import packed_linear as pl
+    p = pl.bwd_plan(n, w, bits, c, block_n, sms=132, blocks_per_sm=8)
+    fp = (w * (32 // bits)) << bits
+    n_chunks = -(-n // block_n)
+    assert p["form"] == form
+    assert p["group_chunks"] == pl.bwd_group_chunks(c, fp, n_chunks)
+    assert (p["fold_slab"], p["fold_grid"]) == (8, c * fp // 8)
+    if form == "mem":
+        return
+    assert (p["classes_per_thread"], p["fields_per_thread"], p["threads"],
+            p["item_groups"], p["class_pitch"], p["tile_rows"],
+            p["tiles_per_chunk"], p["chunks_per_block"], p["grid"]) == \
+        (ct, ft, threads, groups, gp, tr, tpc, cpb, grid)
+    assert ct == pl.bwd_classes_per_thread(bits, c)
+    # every (class group, field group) item has a thread; FT * P * CT = 32
+    # accumulators
+    f_all = w * (32 // bits)
+    assert p["items"] == -(-c // ct) * (f_all // ft) <= threads * groups
+    assert ft * (1 << bits) * ct == 32
+    # the tiles cover a chunk; a slot holds a tile and fits SLOT_BYTES
+    rows = min(block_n, n)
+    assert (tpc - 1) * tr < rows <= tpc * tr
+    assert p["smem"] == 8 * pl._slot_words(tr, w, gp)
+    assert p["smem"] <= 2 * pl.SLOT_BYTES or tr == 1
+    # the blocks cover the group's chunks once, none empty
+    assert (grid[0] - 1) * cpb < p["group_chunks"] <= grid[0] * cpb
+    assert grid[0] * groups <= max(132 * 8, groups)
+
+
+def test_bwd_plan_cache_follows_limits(monkeypatch):
+    """Plans are cached by shape, yet a shrunk limit plans anew: a block's
+    shared memory below two one-row slots gives the memory form, fewer
+    partial bytes give smaller groups, and the old limits the old plan;
+    a caller's change to a returned plan does not reach the cache."""
+    from repro_torch.kernels import packed_linear as pl
+    args = (3000, 16, 2, 1, 100)
+    kw = dict(sms=132, blocks_per_sm=8)
+    first = pl.bwd_plan(*args, **kw)
+    assert (first["form"], first["group_chunks"]) == ("tiled", 30)
+    first["form"] = "changed"
+    with monkeypatch.context() as m:
+        m.setattr(pl, "SMEM_BLOCK_MAX", 256)
+        assert pl.bwd_plan(*args, **kw)["form"] == "mem"
+    with monkeypatch.context() as m:
+        m.setattr(pl, "PART_BYTES_MAX", 3 * 4 * 16 * 16 * 4)
+        assert pl.bwd_plan(*args, **kw)["group_chunks"] == 3
+    again = pl.bwd_plan(*args, **kw)
+    assert (again["form"], again["group_chunks"]) == ("tiled", 30)
+
+
 def test_plain_versions_match_pallas_interpret():
     """JAX's kernels themselves (interpret mode, block_c=2, block_n=32)
     against the port's plain versions: forward bit-exact, backward
