@@ -23,7 +23,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    the tiled partial kernel), C 1/3/8/9, N 0-1,000 across chunk and
    mask-word edges, the four masks, bits 1/2/4/8 and 16, partials in
    groups of three chunks, the device-memory form at bits 1/2/4 (which
-   rows too wide for shared memory take), and its two halves apart; for
+   rows too wide for shared memory take), and its two halves apart; the
+   forward also over N 255, 256, 257, 513 and 1,000 (its 256-row tiles)
+   with its planned grid and a grid shrunk to two blocks a class tile
+   (each then walks several row tiles), 16-byte aligned rows and rows
+   shifted by one word, the four masks, bits 1/2/4/8/16 and C 1/3/8/9
+   and above the class tile, and the memory form (tables too wide for
+   shared memory) at bits 1/2/4/8; for
    the LUT top-k kernels bits 1/2/4/8/16 with float32 and bf16 tables at
    N = 0, 1, 31, 33 and 3,000, top_k above the live rows, the same masks,
    all rows tied, and the grid of the fields kernel (Q around its query
@@ -170,8 +176,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    version, timed beside it, its bound and its library yardstick
    (``F.embedding_bag``; ``torch.bincount`` at C = 1 and a matmul of g
    with the 9.5 GB one-hot at C = 8, built outside the window for that
-   yardstick alone), the backward's partial kernel and fold timed apart
-   beside their bounds with the plan, registers and spills, and a float64
+   yardstick alone), the forward beside the floor of its shared-memory
+   reads (a wavefront a warp's (row, class, field)) with its plan,
+   registers and spills, the backward's partial kernel and fold timed
+   apart beside their bounds with the plan, registers and spills, and a
+   float64
    one-hot oracle over 4,096 rows (within 1e-5 of the terms' magnitudes).
    ``--profile`` adds one full-batch step and one ``fit_log`` gradient.
 10. Repairs (phases 10 and 11 run between phases 5 and 6, while the
@@ -236,6 +245,7 @@ TF32_FLOP_S = 495e12      # dense tensor-core TF32
 TENSOR_I8_OP_S = 1979e12  # dense tensor-core int8
 INT32_OP_S = 132 * 64 * 1.98e9
 POPC_OP_S = 132 * 16 * 1.98e9
+LDS_WAVES_S = 132 * 1.98e9   # shared-memory wavefronts: one a clock an SM
 SPIN_CYCLES = int(2e-3 * 1.98e9)   # 2 ms at the boost clock
 
 # SHA-256 of the JAX reference's R for SketchConfig() at D = 1024
@@ -1020,7 +1030,106 @@ def linear_checks(device) -> None:
         f"at k=33 (two groups of partials); 2-bit backward in groups of 3 "
         f"chunks: bit-exact")
     linear_bwd_grid(device)
+    linear_fwd_grid(device)
     torch.cuda.synchronize()
+
+
+def linear_fwd_grid(device) -> None:
+    """The forward's ragged grid, both forms, bit for bit against the plain
+    versions: N 255, 256, 257, 513 and 1,000 across its 256-row tiles x
+    its planned grid and ``FWD_BLOCKS_MAX`` shrunk to 2 (a block then walks
+    several row tiles) x rows 16-byte aligned and shifted by one word
+    (4-byte loads) x all, none, 10 % and 90 % of the rows dead, at bits
+    1/2/4/8 x C 1/3/8/9 and one C above the class tile (16-bit fields,
+    always the memory form, at C 1 and 3); then ``SMEM_TABLE_MAX`` shrunk
+    below one class's tables, so that bits 1/2/4/8 take the memory
+    form."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, packed_linear, ref
+    gen = torch.Generator(device=device).manual_seed(22)
+    deads = (1.0, 0.0, 0.1, 0.9)
+    n_checks = 0
+
+    def check(got, want, *what):
+        nonlocal n_checks
+        n_checks += 1
+        if not same_bits(got, want):
+            raise AssertionError(f"packed_linear_fwd differs from its plain "
+                                 f"version at {what}")
+
+    def both(tab, words, bits, *what):
+        check(ops.packed_linear_fwd(tab, words, bits, impl="kernel"),
+              ref.packed_linear_fwd_ref(tab, words, bits), *what)
+        for d in deads:
+            vw = packing.pack_bitmask(torch.rand(
+                (words.shape[0],), generator=gen, device=device) >= d)
+            check(ops.packed_linear_fwd_masked(tab, words, vw, bits,
+                                               impl="kernel"),
+                  ref.packed_linear_fwd_masked_ref(tab, words, vw, bits),
+                  *what, d)
+
+    walks = []
+    keep = packed_linear.FWD_BLOCKS_MAX
+    try:
+        for bits, k in ((1, 100), (2, 33), (2, 256), (4, 100), (8, 33),
+                        (16, 33)):
+            flat = packing.pack_codes(torch.randint(
+                0, 1 << bits, (1001, k), generator=gen, device=device),
+                bits).reshape(-1)
+            w = flat.shape[0] // 1001
+            fp = (w * (32 // bits)) << bits
+            tile = packed_linear.fwd_class_tile(fp)
+            classes = (1, 3) if bits == 16 else \
+                (1, 3, 8, 9) + ((tile + 1,) if 0 < tile < 64 else ())
+            for c in classes:
+                tab = torch.randn((c, fp), generator=gen, device=device)
+                for n in (255, 256, 257, 513, 1000):
+                    for shift in (0, 1):
+                        words = flat[shift:shift + n * w].view(n, w)
+                        for blocks in (keep, 2):
+                            packed_linear.FWD_BLOCKS_MAX = blocks
+                            p = packed_linear.fwd_plan(n, w, bits, c,
+                                                       device=device)
+                            if p["form"] != ("mem" if bits == 16 else
+                                             "smem"):
+                                raise AssertionError(f"{bits}-bit k={k} "
+                                                     f"C={c} plans {p}")
+                            if blocks == 2 and n == 1000 and shift == 0 \
+                                    and bits != 16:
+                                walks.append(p["tiles_per_block"])
+                            both(tab, words, bits, bits, k, c, n, shift,
+                                 blocks)
+    finally:
+        packed_linear.FWD_BLOCKS_MAX = keep
+    if min(walks) < 2:
+        raise AssertionError("a grid of two blocks walks one row tile")
+    keep = packed_linear.SMEM_TABLE_MAX
+    try:
+        packed_linear.SMEM_TABLE_MAX = 64
+        for bits, k in ((1, 100), (2, 256), (4, 100), (8, 33)):
+            words_all = packing.pack_codes(torch.randint(
+                0, 1 << bits, (1000, k), generator=gen, device=device), bits)
+            w = words_all.shape[1]
+            fp = (w * (32 // bits)) << bits
+            for c in (1, 3, 9):
+                if packed_linear.fwd_plan(1000, w, bits, c,
+                                          device=device)["form"] != "mem":
+                    raise AssertionError(f"{bits}-bit tables past the "
+                                         f"budget do not plan the memory "
+                                         f"form")
+                tab = torch.randn((c, fp), generator=gen, device=device)
+                for n in (1, 33, 1000):
+                    both(tab, words_all[:n], bits, bits, k, c, n,
+                         "memory form")
+    finally:
+        packed_linear.SMEM_TABLE_MAX = keep
+    log(f"check packed_linear forward grid: {n_checks} launches bit-exact "
+        f"(N 255/256/257/513/1000 across 256-row tiles x the planned grid "
+        f"and two blocks a class tile ({min(walks)}-{max(walks)} row tiles "
+        f"a block at N = 1,000) x aligned and shifted rows x dead all/none/"
+        f"10 %/90 %, bits 1/2/4/8 x C 1/3/8/9 and above the class tile, "
+        f"16-bit at C 1/3; the memory form at bits 1/2/4/8)")
 
 
 def linear_bwd_grid(device) -> None:
@@ -2671,7 +2780,9 @@ def learn_kernel_phase(rows, words, device) -> None:
     (F.embedding_bag over flat indices for the forward; for the backward
     torch.bincount with weights at C = 1 and g @ one-hot at C = 8; indices
     and one-hot made outside the window); the C = 1 rows go to the
-    kernels line, with the C = 8 times under ``c8_`` keys. The backward's
+    kernels line, with the C = 8 times under ``c8_`` keys. The forward is
+    printed beside the floor of its shared-memory reads, with its plan and
+    the registers and spills of its instance. The backward's
     partial kernel and fold are timed apart at both C, each beside its
     bound (and the partial kernel beside the floor of P predicated adds a
     (row, class, field)), with the plan and the registers and spills of
@@ -2771,6 +2882,29 @@ def learn_kernel_phase(rows, words, device) -> None:
             else:
                 rows[name].update(c8_ms=ms, c8_bound_ms=b_ms,
                                   c8_library_ms=lib_ms)
+            if name.startswith("packed_linear_fwd"):
+                # the forward's own floor: a shared-memory wavefront for a
+                # warp's 32 (row, class, field) table reads, live rows only
+                plan = packed_linear.fwd_plan(n, w, bits, c, masked=masked,
+                                              device=device)
+                floor_ms = 1e3 * adds[masked] / 32 / LDS_WAVES_S
+                regs = LINEAR_PTXAS.get(
+                    f"linear_fwd_smemILi{bits}ELb{int(masked)}EE",
+                    (None, None))
+                log(f"kernel {name} [C={c}, N={n}, W={w}]: ms={ms:.4f} "
+                    f"shared-memory floor {floor_ms:.4f} ms, bound_ms="
+                    f"{b_ms:.5f}; plan {plan['form']} class_tile "
+                    f"{plan['class_tile']} rows a tile {plan['threads']} "
+                    f"smem {plan['smem']} blocks/SM {plan['blocks_per_sm']} "
+                    f"grid {plan['grid']} tiles {plan['tiles']} tiles/block "
+                    f"{plan['tiles_per_block']}; registers {regs[0]} "
+                    f"(spills {regs[1]} B)")
+                rows[name].update({
+                    f"{'' if c == 1 else 'c8_'}{key}": val for key, val in (
+                        ("smem_floor_ms", floor_ms), ("registers", regs[0]),
+                        ("spill_bytes", regs[1]),
+                        ("blocks_per_sm", plan["blocks_per_sm"]),
+                        ("grid", list(plan["grid"])))})
         # the backward's two halves apart, each beside its bound: the
         # partial kernel reads the words (the live rows'), g and the mask
         # and writes the partials, a float add a (row, class, field) it

@@ -10,14 +10,20 @@ change from the host's noise.
 ``src/repro_torch`` is imported and its kernels are built under its own
 ``build/``. The shapes are ``chip_smoke.py``'s (this checkout's
 constants), on uniform 2-bit codes at k = 256 drawn on the card from a
-seed: minibatch ``fit_words`` (100 steps of 65,536 rows over 2,330,594
-rows), ``fit_log`` (60 steps over a ``MutableAnnEngine`` of those rows in
-262,144-row segments, 10 % deleted) and ``AnnService.classify`` (1,024
-unit query vectors at D = 1,024, through a service over 65,536 coded
-rows with a classifier of 50 ``fit_store`` steps). Each is timed on the
-host clock around synchronised work after one warm-up: the two training
-paths ``--reps`` times, classify ten times as often. It prints one JSON
-line with the card, every time and each path's median rate.
+seed: full-batch ``fit_words`` (100 steps over 2,330,594 rows, whose
+step issues more host work than the card's), minibatch ``fit_words``
+(100 steps of 65,536 rows over those rows), ``fit_log`` (60 steps over a
+``MutableAnnEngine`` of those rows in 262,144-row segments, 10 %
+deleted) and ``AnnService.classify`` (1,024 unit query vectors at D =
+1,024, through a service over 65,536 coded rows with a classifier of 50
+``fit_store`` steps). Each is timed on the host clock around
+synchronised work after one warm-up: the three training paths ``--reps``
+times, classify ten times as often; the full batch also with the host's
+time until its last launch apart and the SM clock (``nvidia-smi``, every
+50 ms) sampled meanwhile. It prints one JSON line with the card, every
+time and each path's median rate (the full batch's as ms a step), and
+the host's microseconds a forward call at classify's 1,024 rows, one
+word each (2,000 calls queued).
 
 Run the trees in turns in one call (parent, change, change, parent),
 each unpacked with ``git archive``.
@@ -28,6 +34,7 @@ import argparse
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -36,6 +43,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402  (shapes, card line, query rows)
 
 SEED = 21
+FWD_CALLS = 2000
 
 
 def main(argv) -> int:
@@ -53,7 +61,7 @@ def main(argv) -> int:
     from repro_torch.core import packing
     from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
     from repro_torch.index import MutableAnnEngine
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     from repro_torch.learn import LearnConfig, fit_log, fit_store, fit_words
     from repro_torch.serve import AnnService
 
@@ -80,6 +88,28 @@ def main(argv) -> int:
     y = np.where(rng.random(n) < 0.5, 1, -1)
     out = dict(tree=args.tree, card=cs.card_line(), reps=args.reps)
 
+    # the full batch also with the host's own time apart (until its last
+    # launch is queued) and the card's SM clock sampled by nvidia-smi
+    # every 50 ms meanwhile: a host-bound step shows its enqueue time near
+    # its whole time
+    full = LearnConfig(steps=100)
+    fit_words(words, y, crp, full)
+    clock = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    t, t_host = [], []
+    for _ in range(args.reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_words(words, y, crp, full)
+        t_host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    clock.terminate()
+    mhz = [int(v) for v in clock.communicate()[0].split() if v.isdigit()]
+    out.update(full_s=t, full_host_s=t_host, full_sm_mhz=mhz,
+               full_step_ms=1e3 * statistics.median(t) / full.steps)
+
     mb = LearnConfig(batch=cs.LEARN_BATCH, steps=cs.LEARN_MB_STEPS)
     t = runs(lambda: fit_words(words, y, crp, mb), args.reps)
     out.update(mb_s=t, mb_row_steps_s=mb.batch * mb.steps /
@@ -102,6 +132,18 @@ def main(argv) -> int:
     t = runs(lambda: svc.classify(queries), 10 * args.reps)
     out.update(classify_s=t, classify_rows_s=cs.N_QUERIES /
                statistics.median(t))
+    # the host's cost of one forward call (plan, checks, launch) at
+    # classify's 1,024 rows of one word (16 fields, so that the card takes
+    # less than the host), queued without waiting
+    tab = torch.zeros((1, 64), device=dev)
+    sub = words[:cs.N_QUERIES, :1].contiguous()
+    ops.packed_linear_fwd(tab, sub, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FWD_CALLS):
+        ops.packed_linear_fwd(tab, sub, 2)
+    out.update(fwd_call_us=1e6 * (time.perf_counter() - t0) / FWD_CALLS)
+    torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
     return 0
 

@@ -16,20 +16,34 @@
 // words and writes 9 MB of margins, about 0.047 ms at 3.35 TB/s, against
 // N*F = 597M float adds (0.018 ms at 128 adds a clock an SM); the
 // backward reads the same words and 9 MB of g. At C = 8 both are bound
-// by the adds (0.143 ms). A backward whose order is fixed issues P adds a
-// (row, class, field), each predicated on the code, so its own floor is
+// by the adds (0.143 ms). A forward whose tables sit in shared memory
+// reads one entry a (row, class, field): one wavefront a warp's 32 rows,
+// a floor of 0.0713 ms at C = 1 and 0.5707 ms at C = 8 (one wavefront a
+// clock an SM at 1.98 GHz). A backward whose order is fixed issues P adds
+// a (row, class, field), each predicated on the code, so its own floor is
 // P times the add bound plus the decoding.
 //
 // Forward design. The TPU kernel streams corpus tiles through a select
-// tree with one class tile resident. Here one thread scores one row for
-// every class of its block's class tile: the tile's tables sit in shared
-// memory (4 KB a class at 2-bit and k = 256; a tile holds what fits in 96
-// KB, and wider tables are read from device memory). The row is decoded
-// once for up to 8 classes: score_row_classes of lut_common.cuh (the LUT
-// kernels' score_row is its one-class case), the (word, field) order with
-// __fadd_rn for each class, with 8, 4, 2 or 1 accumulators in registers.
-// One kernel serves both forms: the bitmask pointer is null for the plain
-// one.
+// tree with one class tile resident. Here, for 1-, 2-, 4- and 8-bit
+// fields (templated on the width, and on masked), a block copies its
+// class tile's tables into shared memory once (4 KB a class at 2-bit and
+// k = 256; a tile holds what fits in 96 KB) and then walks row tiles of
+// 256 rows, blockIdx.x, + gridDim.x, ...: the wrapper's plan sizes the
+// grid to the card's resident blocks, or to the tiles there are. One
+// thread scores one row for every class of the tile, 8, 4, 2 or 1 a
+// decode, loading its row in 16-byte loads four words ahead of the adds.
+// A word's fields are unrolled: each is a constant shift, one and-or that
+// joins the code's byte offset to the word's (a multiple of 4P), a
+// shared-memory load whose field offset is a constant, and a __fadd_rn a
+// class, in (word, field) order from 0.0: about 4 issue slots and one
+// wavefront a (row, field) at C = 1, at the floors above. Masked, a warp
+// whose 32 rows are all dead writes 0.0 and reads no table; in a warp
+// with a live row, its dead rows go through the same instructions and
+// write 0.0. Tables too wide for shared memory (16-bit fields, wide 8-bit
+// rows) take the memory form: a block a row tile, the tables read from
+// device memory through score_row_classes of lut_common.cuh, at runtime
+// width. One kernel of each form serves both forms of the TPU kernel:
+// the bitmask pointer is null for the plain one.
 //
 // Backward design. The TPU kernel expands each row tile to a one-hot tile
 // in registers and accumulates g_tile @ onehot on the MXU. On this card a
@@ -74,14 +88,16 @@
 // group's fold continues from the accumulator, so the order is the same.
 // Phantom field slots and entries are computed like any other; the
 // caller masks them (learn.features.entry_mask).
+#include <map>
 #include <mutex>
+#include <utility>
 
 #include "lut_common.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
 
-constexpr int FWD_THREADS = 256;
+constexpr int FWD_THREADS = 256;   // rows a forward tile: one thread a row
 constexpr int BWD_THREADS = 256;   // the 8- and 16-bit partial kernel
 constexpr int PART_THREADS = 256;  // the most threads a tiled partial block
 constexpr int PART_MIN_BLOCKS = 3; // blocks of 256 an SM: at most 85 registers
@@ -94,7 +110,8 @@ __device__ __forceinline__ bool row_live(const uint32_t* valid, int r) {
   return valid == nullptr || ((valid[r >> 5] >> (r & 31)) & 1u);
 }
 
-// CB classes of one row -> out[c * n] (0.0 for a dead row).
+// CB classes of one row -> out[c * n] (0.0 for a dead row), tables read
+// where tab points (device memory: the forward's memory form).
 template <int CB>
 __device__ __forceinline__ void score_block(const float* tab, int fp,
                                             const uint32_t* row, int w,
@@ -111,28 +128,23 @@ __device__ __forceinline__ void score_block(const float* tab, int fp,
   for (int c = 0; c < CB; ++c) out[(size_t)c * n] = s[c];
 }
 
+// The memory form, for tables too wide for shared memory (16-bit fields,
+// wide 8-bit rows): one thread a row, every class, tables read from
+// device memory.
 __global__ void __launch_bounds__(FWD_THREADS)
-linear_fwd(const float* __restrict__ tables, const uint32_t* __restrict__ words,
-           const uint32_t* __restrict__ valid, float* __restrict__ out, int c,
-           int n, int w, int bits, int fp, int class_tile, int in_smem) {
-  extern __shared__ __align__(16) float stab[];
-  const int c0 = blockIdx.y * class_tile;
-  const int nc = min(class_tile, c - c0);
-  const float* tab = tables + (size_t)c0 * fp;
-  if (in_smem) {
-    for (int i = threadIdx.x; i < nc * fp; i += FWD_THREADS) stab[i] = tab[i];
-    __syncthreads();
-    tab = stab;
-  }
+linear_fwd_mem(const float* __restrict__ tables,
+               const uint32_t* __restrict__ words,
+               const uint32_t* __restrict__ valid, float* __restrict__ out,
+               int c, int n, int w, int bits) {
+  const int fp = (w * (32 / bits)) << bits;
   const int row = blockIdx.x * FWD_THREADS + threadIdx.x;
   if (row >= n) return;
   const bool live = row_live(valid, row);
   const uint32_t* r = words + (size_t)row * w;
-  float* o = out + (size_t)c0 * n + row;
-  for (int j = 0; j < nc;) {
-    const float* t = tab + (size_t)j * fp;
-    float* oj = o + (size_t)j * n;
-    const int m = nc - j;
+  for (int j = 0; j < c;) {
+    const float* t = tables + (size_t)j * fp;
+    float* oj = out + (size_t)j * n + row;
+    const int m = c - j;
     if (m >= 8) {
       score_block<8>(t, fp, r, w, bits, live, oj, n);
       j += 8;
@@ -145,6 +157,134 @@ linear_fwd(const float* __restrict__ tables, const uint32_t* __restrict__ words,
     } else {
       score_block<1>(t, fp, r, w, bits, live, oj, n);
       j += 1;
+    }
+  }
+}
+
+// One word of a row for CB classes: its CPW fields in order, each decoded
+// once and selecting the entry of every class's table (shared memory from
+// t, fp floats apart). jb, the byte offset of the word's entries, is a
+// multiple of 4P, so the code's byte offset joins it in one shift and one
+// and-or, and the field's own offset is the load's constant.
+template <int BITS, int CB>
+__device__ __forceinline__ void add_word(const float* t, int fp,
+                                         uint32_t word, uint32_t jb,
+                                         float* s) {
+  constexpr int P = 1 << BITS, CPW = 32 / BITS;
+  constexpr uint32_t M4 = (uint32_t)(P - 1) << 2;
+  const char* base = reinterpret_cast<const char*>(t);
+#pragma unroll
+  for (int f = 0; f < CPW; ++f) {
+    const int sh = f * BITS - 2;
+    const uint32_t x = sh >= 0 ? word >> (sh & 31) : word << (-sh & 31);
+    const char* e = base + ((x & M4) | jb) + f * P * 4;
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+      s[c] = __fadd_rn(s[c],
+                       *reinterpret_cast<const float*>(e + (size_t)c * fp * 4));
+  }
+}
+
+// A row's words in device memory: 16-byte loads where the row is
+// 16-byte aligned (vec), else 4-byte ones.
+struct RowWords {
+  const uint32_t* r;
+  bool vec;
+  __device__ __forceinline__ uint4 chunk(int j) const {
+    if (vec) return __ldg(reinterpret_cast<const uint4*>(r + j));
+    return make_uint4(__ldg(r + j), __ldg(r + j + 1), __ldg(r + j + 2),
+                      __ldg(r + j + 3));
+  }
+};
+
+// CB classes of a row -> o[c * n]: (word, field) order from 0.0, four
+// words at a time, the next four loaded before these are added; 0.0
+// where the row is dead.
+template <int BITS, int CB>
+__device__ __forceinline__ void fwd_group(const float* t, int fp, int w,
+                                          const RowWords& row, bool live,
+                                          float* o, int n) {
+  constexpr int WB = ((32 / BITS) << BITS) * 4;   // bytes of a word's entries
+  float s[CB];
+#pragma unroll
+  for (int c = 0; c < CB; ++c) s[c] = 0.0f;
+  const int w4 = w & ~3;
+  if (w4 > 0) {
+    uint4 cur = row.chunk(0);
+    for (int j = 0; j < w4; j += 4) {
+      const uint4 nxt = j + 4 < w4 ? row.chunk(j + 4) : cur;
+      const uint32_t jb = (uint32_t)j * WB;
+      add_word<BITS, CB>(t, fp, cur.x, jb, s);
+      add_word<BITS, CB>(t, fp, cur.y, jb + WB, s);
+      add_word<BITS, CB>(t, fp, cur.z, jb + 2 * WB, s);
+      add_word<BITS, CB>(t, fp, cur.w, jb + 3 * WB, s);
+      cur = nxt;
+    }
+  }
+  for (int j = w4; j < w; ++j)
+    add_word<BITS, CB>(t, fp, __ldg(row.r + j), (uint32_t)j * WB, s);
+#pragma unroll
+  for (int c = 0; c < CB; ++c) o[(size_t)c * n] = live ? s[c] : 0.0f;
+}
+
+// The shared-memory form: a block copies its class tile's tables into
+// shared memory once, then walks the row tiles blockIdx.x, + gridDim.x,
+// ..., one thread a row, each loading its own row's words, and scores
+// every class of the tile, 8, 4, 2 or 1 a decode. Masked: a warp whose
+// rows are all dead writes 0.0 and reads no table; in a warp with a live
+// row the dead rows are scored with it (the same instructions), and their
+// margins replaced by 0.0.
+template <int BITS, bool MASKED>
+__global__ void __launch_bounds__(FWD_THREADS)
+linear_fwd_smem(const float* __restrict__ tables,
+                const uint32_t* __restrict__ words,
+                const uint32_t* __restrict__ valid, float* __restrict__ out,
+                int c, int n, int w, int class_tile, int vec) {
+  extern __shared__ __align__(16) float stab[];
+  const int tid = threadIdx.x;
+  const int fp = (w * (32 / BITS)) << BITS;
+  const int c0 = blockIdx.y * class_tile, nc = min(class_tile, c - c0);
+  const float* tab = tables + (size_t)c0 * fp;
+  if ((reinterpret_cast<uintptr_t>(tab) & 15) == 0) {   // fp % 4 == 0
+    const float4* src = reinterpret_cast<const float4*>(tab);
+    float4* dst = reinterpret_cast<float4*>(stab);
+    for (int i = tid; i < nc * fp / 4; i += FWD_THREADS) dst[i] = __ldg(src + i);
+  } else {
+    for (int i = tid; i < nc * fp; i += FWD_THREADS) stab[i] = __ldg(tab + i);
+  }
+  __syncthreads();
+  const int n_tiles = (n + FWD_THREADS - 1) / FWD_THREADS;
+  float* o = out + (size_t)c0 * n;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int row = t * FWD_THREADS + tid;
+    bool live = true;
+    if (MASKED) {
+      live = row < n && ((__ldg(valid + (row >> 5)) >> (row & 31)) & 1u);
+      if (!__any_sync(0xffffffffu, live)) {
+        if (row < n)
+          for (int j = 0; j < nc; ++j) o[(size_t)j * n + row] = 0.0f;
+        continue;
+      }
+    }
+    if (row >= n) continue;
+    const RowWords rw{words + (size_t)row * w, vec != 0};
+    for (int j = 0; j < nc;) {
+      const float* tj = stab + (size_t)j * fp;
+      float* oj = o + (size_t)j * n + row;
+      const int m = nc - j;
+      if (m >= 8) {
+        fwd_group<BITS, 8>(tj, fp, w, rw, live, oj, n);
+        j += 8;
+      } else if (m >= 4) {
+        fwd_group<BITS, 4>(tj, fp, w, rw, live, oj, n);
+        j += 4;
+      } else if (m >= 2) {
+        fwd_group<BITS, 2>(tj, fp, w, rw, live, oj, n);
+        j += 2;
+      } else {
+        fwd_group<BITS, 1>(tj, fp, w, rw, live, oj, n);
+        j += 1;
+      }
     }
   }
 }
@@ -495,25 +635,34 @@ PartKernel part_kernel(int bits, int ct, bool masked) {
   }
 }
 
-// Opens kernel k (of part_kernel's (bits, ct, masked)) to smem bytes of
-// dynamic shared memory on the current device. The attribute is set only
-// when it must grow, so a launch of a size seen before costs no call, and
-// it never shrinks below what an earlier plan was given.
-constexpr int MAX_DEVICES = 16;
-std::mutex smem_mu;
-int smem_open[MAX_DEVICES][3][2][2];   // device, bits 1/2/4, CT > 1, masked
+using FwdKernel = void (*)(const float*, const uint32_t*, const uint32_t*,
+                           float*, int, int, int, int, int);
 
-cudaError_t open_smem(PartKernel k, int bits, int ct, bool masked,
-                      int smem) {
+// The shared-memory form of the forward at (bits, masked); null for
+// 16-bit fields, whose tables never fit.
+FwdKernel fwd_kernel(int bits, bool masked) {
+  switch (bits) {
+    case 1: return masked ? linear_fwd_smem<1, true> : linear_fwd_smem<1, false>;
+    case 2: return masked ? linear_fwd_smem<2, true> : linear_fwd_smem<2, false>;
+    case 4: return masked ? linear_fwd_smem<4, true> : linear_fwd_smem<4, false>;
+    case 8: return masked ? linear_fwd_smem<8, true> : linear_fwd_smem<8, false>;
+    default: return nullptr;
+  }
+}
+
+// Opens kernel k to smem bytes of dynamic shared memory on the current
+// device. The attribute is set only when it must grow, so a launch of a
+// size seen before costs no call, and it never shrinks below what an
+// earlier plan was given.
+std::mutex smem_mu;
+std::map<std::pair<int, const void*>, int> smem_open;   // (device, kernel)
+
+cudaError_t open_smem(const void* k, int smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES)
-    return cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   std::lock_guard<std::mutex> lock(smem_mu);
-  const int b = bits == 1 ? 0 : bits == 2 ? 1 : 2;
-  int& granted = smem_open[dev][b][ct > 1][masked];
+  int& granted = smem_open[{dev, k}];
   if (smem <= granted) return cudaSuccess;
   err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
@@ -528,25 +677,49 @@ int tiled_smem(int tr, int w, int gp) {
 }  // namespace
 
 // tables [c, fp] float32, fp = w * (32/bits) << bits; valid: null or
-// [ceil(n/32)]; out [c, n]. class_tile: classes a block scores; in_smem:
-// whether class_tile tables fit the block's shared memory.
+// [ceil(n/32)]; out [c, n]. From the wrapper's plan: class_tile 0, the
+// memory form (a block a row tile); else the shared-memory form on a grid
+// of grid_x blocks a class tile of class_tile classes, with smem bytes of
+// dynamic shared memory (class_tile tables).
 extern "C" int packed_linear_fwd_launch(const float* tables,
                                         const uint32_t* words,
                                         const uint32_t* valid, float* out,
                                         int c, int n, int w, int bits,
-                                        int class_tile, int in_smem,
+                                        int class_tile, int smem, int grid_x,
                                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (class_tile == 0) {
+    linear_fwd_mem<<<(unsigned)((n + FWD_THREADS - 1) / FWD_THREADS),
+                     FWD_THREADS, 0, st>>>(tables, words, valid, out, c, n, w,
+                                           bits);
+    return (int)cudaGetLastError();
+  }
   const int fp = (w * (32 / bits)) << bits;
-  const size_t smem = in_smem ? (size_t)class_tile * fp * sizeof(float) : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      linear_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const FwdKernel k = fwd_kernel(bits, valid != nullptr);
+  if (k == nullptr || class_tile < 1 || grid_x < 1 ||
+      smem != 4 * class_tile * fp)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = open_smem((const void*)k, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((n + FWD_THREADS - 1) / FWD_THREADS),
+  const int vec =
+      w % 4 == 0 && (reinterpret_cast<uintptr_t>(words) & 15) == 0;
+  const dim3 grid((unsigned)grid_x,
                   (unsigned)((c + class_tile - 1) / class_tile));
-  linear_fwd<<<grid, FWD_THREADS, smem, st>>>(tables, words, valid, out, c, n,
-                                              w, bits, fp, class_tile, in_smem);
+  k<<<grid, FWD_THREADS, smem, st>>>(tables, words, valid, out, c, n, w,
+                                     class_tile, vec);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the forward's shared-memory form (bits, masked) an SM holds at
+// `smem` bytes of dynamic shared memory, into *blocks.
+extern "C" int packed_linear_fwd_occupancy(int bits, int masked, int smem,
+                                           int* blocks) {
+  const FwdKernel k = fwd_kernel(bits, masked != 0);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = open_smem((const void*)k, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k, FWD_THREADS, (size_t)smem);
 }
 
 // Blocks of the tiled partial kernel (bits, ct, masked) an SM holds at
@@ -557,7 +730,7 @@ extern "C" int packed_linear_bwd_occupancy(int bits, int ct, int masked,
                                            int* blocks) {
   const PartKernel k = part_kernel(bits, ct, masked != 0);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = open_smem(k, bits, ct, masked != 0, smem);
+  const cudaError_t err = open_smem((const void*)k, smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, threads,
                                                             (size_t)smem);
@@ -578,7 +751,7 @@ cudaError_t launch_partial(const float* g, const uint32_t* words,
     if (k == nullptr || smem != tiled_smem(tr, w, gp) || threads < 32 ||
         threads > PART_THREADS || blocks_per_group < 1)
       return cudaErrorInvalidValue;
-    const cudaError_t err = open_smem(k, bits, ct, valid != nullptr, smem);
+    const cudaError_t err = open_smem((const void*)k, smem);
     if (err != cudaSuccess) return err;
     const int cpb = (m + blocks_per_group - 1) / blocks_per_group;
     const dim3 grid((unsigned)((m + cpb - 1) / cpb), (unsigned)item_groups);

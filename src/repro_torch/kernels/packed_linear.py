@@ -5,7 +5,8 @@ Counterparts of ``repro/kernels/packed_linear.py``:
 * ``packed_linear_fwd_cuda`` (``packed_linear_fwd_pallas`` and, with
   ``valid_words``, ``packed_linear_fwd_masked_pallas``): float32 class
   tables [C, F*P] x int32 words [N, W] -> float32 margins [C, N], dead
-  rows 0.0;
+  rows 0.0; ``fwd_plan`` picks its form (class tables in shared memory,
+  or read from device memory) and grid by shape before the launch;
 * ``packed_linear_bwd_cuda`` (``packed_linear_bwd_pallas`` and, with
   ``valid_words``, ``packed_linear_bwd_masked_pallas``): float32 margin
   gradients [C, N] x words -> float32 table gradients [C, F*P], in the
@@ -24,12 +25,15 @@ from repro_torch.kernels.packed_collision import check_valid
 
 __all__ = ["packed_linear_fwd_cuda", "packed_linear_bwd_cuda",
            "bwd_partials_cuda", "bwd_fold_cuda", "fwd_class_tile",
+           "fwd_plan", "FWD_THREADS", "FWD_BLOCKS_MAX",
            "bwd_group_chunks", "bwd_classes_per_thread",
            "bwd_fields_per_thread", "bwd_plan", "SMEM_TABLE_MAX",
            "PART_BYTES_MAX", "SLOT_BYTES", "launches", "masked_launches",
            "bwd_launches", "bwd_masked_launches"]
 
 SMEM_TABLE_MAX = 96 * 1024     # shared memory for a block's class tables
+FWD_THREADS = 256              # rows a forward tile: one thread a row
+FWD_BLOCKS_MAX = 1 << 20       # the most forward blocks a class tile
 PART_BYTES_MAX = 256 << 20     # the backward's partials, a group of chunks
 SLOT_BYTES = 12 * 1024         # a ring slot of the tiled partial kernel
 SMEM_BLOCK_MAX = 232448        # 227 KB: a block's most shared memory
@@ -53,6 +57,67 @@ def fwd_class_tile(fp: int) -> int:
     ``fp`` float32 entries a class; 0 when one class does not fit (the
     tables are then read from device memory)."""
     return SMEM_TABLE_MAX // (4 * fp)
+
+
+def _fwd_occupancy(bits: int, masked: bool, smem: int) -> int:
+    from repro_torch.kernels import _build
+    key = ("fwd", bits, masked, smem)
+    if key not in _occupancy:
+        fn = _build.function("packed_linear", "packed_linear_fwd_occupancy",
+                             [_I, _I, _I, ctypes.POINTER(_I)])
+        blocks = _I(0)
+        err = fn(bits, int(masked), smem, ctypes.byref(blocks))
+        if err or blocks.value < 1:
+            raise RuntimeError(f"packed_linear_fwd kernel (bits {bits}, "
+                               f"{smem} B) does not fit an SM: CUDA error "
+                               f"{err}")
+        _occupancy[key] = blocks.value
+    return _occupancy[key]
+
+
+def fwd_plan(n: int, w: int, bits: int, c: int, masked: bool = False,
+             device=None, sms=None, blocks_per_sm=None) -> dict:
+    """How the forward runs, by shape alone, before any launch.
+
+    ``form``: "smem" (1-, 2-, 4- and 8-bit fields whose tables fit
+    ``SMEM_TABLE_MAX`` a class: a block copies a class tile's tables into
+    shared memory once, then walks row tiles of ``FWD_THREADS`` rows, one
+    thread a row) or "mem" (one class does not fit, or 16-bit fields:
+    tables read from device memory, a block a row tile). Both: threads
+    (the rows of a tile), tiles, class_tile (0 for "mem"), smem and grid;
+    "smem" also blocks_per_sm and tiles_per_block: the card's resident
+    blocks, at most ``FWD_BLOCKS_MAX`` a class tile, spread over the class
+    tiles, and none without a tile. ``sms`` and ``blocks_per_sm`` stand in
+    for the card's (the tests' way to plan without one). Plans are cached
+    by shape, the card's SMs and the limits (which the tests shrink)."""
+    if sms is None:
+        sms = _sm_count(device)
+    return dict(_fwd_plan(n, w, bits, c, bool(masked), sms, blocks_per_sm,
+                          (SMEM_TABLE_MAX, FWD_BLOCKS_MAX)))
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(n: int, w: int, bits: int, c: int, masked: bool, sms: int,
+              blocks_per_sm, limits: tuple) -> dict:
+    # limits: SMEM_TABLE_MAX and FWD_BLOCKS_MAX at the call, in the key
+    # alone (the helpers read the module's)
+    fp = (w * (32 // bits)) << bits
+    tiles = -(-n // FWD_THREADS)
+    fit = fwd_class_tile(fp)   # 0 at 16-bit fields
+    if fit == 0:
+        return dict(form="mem", threads=FWD_THREADS, tiles=tiles,
+                    class_tile=0, smem=0, grid=(tiles, 1))
+    tile = min(fit, c)
+    class_tiles = -(-c // tile)
+    smem = 4 * tile * fp
+    if blocks_per_sm is None:
+        blocks_per_sm = _fwd_occupancy(bits, masked, smem)
+    grid_x = max(1, min(tiles, FWD_BLOCKS_MAX,
+                        sms * blocks_per_sm // class_tiles))
+    return dict(form="smem", threads=FWD_THREADS, tiles=tiles,
+                class_tile=tile, smem=smem, blocks_per_sm=blocks_per_sm,
+                tiles_per_block=-(-tiles // grid_x),
+                grid=(grid_x, class_tiles))
 
 
 def bwd_group_chunks(c: int, fp: int, n_chunks: int) -> int:
@@ -223,9 +288,10 @@ def _ptr(t):
 
 def packed_linear_fwd_cuda(tables: torch.Tensor, words: torch.Tensor,
                            bits: int, valid_words=None) -> torch.Tensor:
-    """Launches the forward kernel: one thread a row, every class of a
-    block's class tile -> float32 margins [C, N]; with ``valid_words``
-    (int32 [ceil(N/32)]) dead rows are 0.0."""
+    """Launches the forward kernel of the form ``fwd_plan`` picks by
+    shape: one thread a row, every class of a block's class tile ->
+    float32 margins [C, N]; with ``valid_words`` (int32 [ceil(N/32)])
+    dead rows are 0.0."""
     global launches, masked_launches
     from repro_torch.kernels import _build
     n, w, fp = _check(words, bits, valid_words)
@@ -234,12 +300,14 @@ def packed_linear_fwd_cuda(tables: torch.Tensor, words: torch.Tensor,
     out = torch.empty((c, n), dtype=torch.float32, device=words.device)
     if c == 0 or n == 0:
         return out
-    tile = fwd_class_tile(fp)
+    p = fwd_plan(n, w, bits, c, masked=valid_words is not None,
+                 device=words.device)
     fn = _build.function("packed_linear", "packed_linear_fwd_launch",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                         [_P, _P, _P, _P] + [_I] * 7 + [_P])
     err = fn(tables.data_ptr(), words.data_ptr(), _ptr(valid_words),
-             out.data_ptr(), c, n, w, bits, min(tile, c) if tile else c,
-             int(tile > 0), torch.cuda.current_stream(words.device).cuda_stream)
+             out.data_ptr(), c, n, w, bits, p["class_tile"], p["smem"],
+             p["grid"][0],
+             torch.cuda.current_stream(words.device).cuda_stream)
     if err:
         raise RuntimeError(f"packed_linear_fwd kernel launch failed: CUDA "
                            f"error {err}")

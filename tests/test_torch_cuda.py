@@ -428,12 +428,18 @@ def _bits_equal(got, want):
 def test_packed_linear_kernels_bit_exact(gen, bits, k, monkeypatch):
     """Forward, backward and both masked forms against their plain
     versions at ragged shapes: N across chunk and mask-word edges, C 1, 3,
-    8, 9 and above the forward's class tile, 10 % dead for the forward;
-    the backward at block_n 32 and 512 with 10 % dead at every N, and at
-    block_n 1, 100 and 1,000 (a chunk the tiled partial kernel walks in
-    several row tiles) with all, none, 10 % and 90 % of the rows dead (at
-    16 bits, whose partials are 256 KB a field, up to N = 101), and with
-    its partials folded in groups of three chunks."""
+    8, 9 and above the forward's class tile, all, none, 10 % and 90 % dead
+    for the forward; the backward at block_n 32 and 512 with 10 % dead at
+    every N, and at block_n 1, 100 and 1,000 (a chunk the tiled partial
+    kernel walks in several row tiles) with all, none, 10 % and 90 % of
+    the rows dead (at 16 bits, whose partials are 256 KB a field, up to N
+    = 101), and with its partials folded in groups of three chunks. Then
+    the forward's grid: N across its 256-row tiles (255, 256, 257, 513,
+    1,000) with its grid as planned and shrunk to two blocks a class tile
+    (each then walks several row tiles), on words 16-byte aligned and
+    shifted by one word (4-byte loads), every mask; and tables too wide
+    for shared memory (the memory form, reached by shrinking the tables'
+    budget) at every width."""
     from repro_torch.kernels import packed_linear
     from repro_torch.kernels.packed_linear import fwd_class_tile
     w = _words(gen, 1000, k, bits)
@@ -459,10 +465,11 @@ def test_packed_linear_kernels_bit_exact(gen, bits, k, monkeypatch):
             assert _bits_equal(ops.packed_linear_fwd(tab, words, bits,
                                                      impl="kernel"),
                                ref.packed_linear_fwd_ref(tab, words, bits))
-            assert _bits_equal(
-                ops.packed_linear_fwd_masked(tab, words, valid, bits,
-                                             impl="kernel"),
-                ref.packed_linear_fwd_masked_ref(tab, words, valid, bits))
+            for vw in masks:
+                assert _bits_equal(
+                    ops.packed_linear_fwd_masked(tab, words, vw, bits,
+                                                 impl="kernel"),
+                    ref.packed_linear_fwd_masked_ref(tab, words, vw, bits))
             for bn in (1, 32, 100, 512, 1000) if full else (32, 512):
                 assert _bits_equal(
                     ops.packed_linear_bwd(g, words, bits, impl="kernel",
@@ -487,6 +494,48 @@ def test_packed_linear_kernels_bit_exact(gen, bits, k, monkeypatch):
         ops.packed_linear_bwd_masked(g, w, valid, bits, impl="kernel",
                                      block_n=100),
         ref.packed_linear_bwd_masked_ref(g, w, valid, bits, block_n=100))
+    # the forward's grid: row tiles, two blocks a class tile, unaligned rows
+    flat = _words(gen, 1001, k, bits).reshape(-1)
+    for c in classes:
+        tab = torch.randn((c, fp), generator=gen, device="cuda")
+        for n in (255, 256, 257, 513, 1000):
+            masks = [_mask(gen, n, live) for live in (0.0, 1.0, 0.9, 0.1)]
+            for shift in (0, 1):
+                words = flat[shift:shift + n * w.shape[1]].view(n, -1)
+                for blocks in (None, 2):
+                    with monkeypatch.context() as m:
+                        if blocks:
+                            m.setattr(packed_linear, "FWD_BLOCKS_MAX", blocks)
+                        p = packed_linear.fwd_plan(n, w.shape[1], bits, c)
+                        assert p["form"] == ("smem" if tile else "mem")
+                        if blocks and tile:
+                            assert p["grid"][0] == min(p["tiles"], 2)
+                        assert _bits_equal(
+                            ops.packed_linear_fwd(tab, words, bits,
+                                                  impl="kernel"),
+                            ref.packed_linear_fwd_ref(tab, words, bits))
+                        for vw in masks:
+                            assert _bits_equal(
+                                ops.packed_linear_fwd_masked(
+                                    tab, words, vw, bits, impl="kernel"),
+                                ref.packed_linear_fwd_masked_ref(
+                                    tab, words, vw, bits))
+    # tables too wide for shared memory: the memory form
+    monkeypatch.setattr(packed_linear, "SMEM_TABLE_MAX", 64)
+    for c in (1, 3, 9):
+        tab = torch.randn((c, fp), generator=gen, device="cuda")
+        assert packed_linear.fwd_plan(1000, w.shape[1], bits,
+                                      c)["form"] == "mem"
+        for n in (33, 1000):
+            assert _bits_equal(ops.packed_linear_fwd(tab, w[:n], bits,
+                                                     impl="kernel"),
+                               ref.packed_linear_fwd_ref(tab, w[:n], bits))
+            for live in (0.0, 0.9):
+                vw = _mask(gen, n, live)
+                assert _bits_equal(
+                    ops.packed_linear_fwd_masked(tab, w[:n], vw, bits,
+                                                 impl="kernel"),
+                    ref.packed_linear_fwd_masked_ref(tab, w[:n], vw, bits))
 
 
 @pytest.mark.parametrize("bits,k", [(1, 100), (2, 256), (4, 100)])

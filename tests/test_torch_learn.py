@@ -186,6 +186,114 @@ def test_plain_backward_order_is_pinned():
     assert not np.array_equal(got[32], got[512])
 
 
+def _fwd_in_order(tab, u, bits):
+    """The forward's documented sum order in numpy float32: per row and
+    class, from +0.0, the entry each field slot's code selects, one
+    rounded add at a time in (word, field) order."""
+    p, cpw = 1 << bits, 32 // bits
+    s = np.zeros((tab.shape[0], u.shape[0]), np.float32)
+    for j in range(u.shape[1]):
+        for f in range(cpw):
+            code = (u[:, j] >> np.uint32(f * bits)) & np.uint32(p - 1)
+            s = s + tab[:, (j * cpw + f) * p + code.astype(np.int64)]
+    return s
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_plain_forward_order_is_pinned(bits):
+    """``ref.packed_linear_fwd_ref`` and its masked form (the order the
+    kernel is held to bit for bit) equal a float32 loop in (word, field)
+    order from 0.0, on tables whose sums change with the order (+-2^24
+    beside 1.0 and 3.0; k = 40 leaves phantom field slots at 8 bits);
+    the fields added in reverse give other bits, so the check can see an
+    order change. Dead rows are 0.0."""
+    rng = np.random.default_rng(40 + bits)
+    k, c, n = 40, 3, 300
+    u, tw = _words(rng, n, k, bits)
+    fp = u.shape[1] * (32 // bits) << bits
+    tab = rng.choice(np.float32([2.0 ** 24, -2.0 ** 24, 1.0, 3.0]), (c, fp))
+    want = _fwd_in_order(tab, u, bits)
+    got = ref.packed_linear_fwd_ref(torch.from_numpy(tab), tw, bits).numpy()
+    _eq(got, want)
+    p, cpw = 1 << bits, 32 // bits
+    rev = np.zeros_like(want)
+    for slot in reversed(range(u.shape[1] * cpw)):
+        j, f = divmod(slot, cpw)
+        code = (u[:, j] >> np.uint32(f * bits)) & np.uint32(p - 1)
+        rev = rev + tab[:, slot * p + code.astype(np.int64)]
+    assert not np.array_equal(rev, want)
+    live = rng.random(n) >= 0.1
+    tv = packing.pack_bitmask(torch.from_numpy(live))
+    _eq(ref.packed_linear_fwd_masked_ref(torch.from_numpy(tab), tw, tv,
+                                         bits).numpy(),
+        np.where(live, want, np.float32(0.0)))
+
+
+@pytest.mark.parametrize(
+    "n,w,bits,c,form,tile,smem,tiles,tpb,grid", [
+        # the learn path's shapes: C = 1 and one-vs-rest's C = 8; 9,104
+        # row tiles over the card's resident blocks (132 SMs x 8)
+        (2_330_594, 16, 2, 1, "smem", 1, 4096, 9104, 9, (1056, 1)),
+        (2_330_594, 16, 2, 8, "smem", 8, 32768, 9104, 9, (1056, 1)),
+        # classify's 1,024 rows and a 65,536-row minibatch: a block a tile
+        (1024, 16, 2, 1, "smem", 1, 4096, 4, 1, (4, 1)),
+        (65_536, 16, 2, 1, "smem", 1, 4096, 256, 1, (256, 1)),
+        (1000, 4, 1, 3, "smem", 3, 3072, 4, 1, (4, 1)),
+        (3000, 13, 4, 9, "smem", 9, 59904, 12, 1, (12, 1)),
+        # 8-bit rows of 9 words: 36 KB a class, two classes a tile; three
+        # class tiles share the resident blocks
+        (100_000, 9, 8, 5, "smem", 2, 73728, 391, 2, (352, 3)),
+        # tables too wide for shared memory: 8-bit rows of 40 words (160
+        # KB a class) and every 16-bit table
+        (1000, 40, 8, 3, "mem", 0, 0, 4, None, (4, 1)),
+        (300, 17, 16, 1, "mem", 0, 0, 2, None, (2, 1))])
+def test_fwd_launch_plan(n, w, bits, c, form, tile, smem, tiles, tpb, grid):
+    """Which forward form a call launches and how, by shape alone: the
+    class tile whose tables fit SMEM_TABLE_MAX, the shared memory, the
+    row tiles of FWD_THREADS rows and the grid (the card's resident
+    blocks, here 132 SMs x 8, spread over the class tiles, or the tiles
+    there are)."""
+    from repro_torch.kernels import packed_linear as pl
+    p = pl.fwd_plan(n, w, bits, c, sms=132, blocks_per_sm=8)
+    fp = (w * (32 // bits)) << bits
+    assert (p["form"], p["class_tile"], p["smem"], p["tiles"],
+            p["grid"]) == (form, tile, smem, tiles, grid)
+    assert p["threads"] == pl.FWD_THREADS and \
+        (tiles - 1) * pl.FWD_THREADS < n <= tiles * pl.FWD_THREADS
+    if form == "mem":
+        assert pl.fwd_class_tile(fp) == 0
+        return
+    assert p["tiles_per_block"] == tpb
+    assert tile == min(c, pl.fwd_class_tile(fp)) and \
+        smem == 4 * tile * fp <= pl.SMEM_TABLE_MAX
+    assert grid[1] == -(-c // tile)
+    # every block walks a tile or more, within the resident blocks
+    assert grid[0] <= tiles and tpb == -(-tiles // grid[0])
+    assert grid[0] * grid[1] <= 132 * 8
+
+
+def test_fwd_plan_cache_follows_limits(monkeypatch):
+    """Forward plans are cached by shape, yet a shrunk limit plans anew:
+    fewer blocks make each walk more row tiles, a smaller table budget
+    gives the memory form, and the old limits the old plan."""
+    from repro_torch.kernels import packed_linear as pl
+    args = (3000, 16, 2, 1)
+    kw = dict(sms=132, blocks_per_sm=8)
+    first = pl.fwd_plan(*args, **kw)
+    assert (first["form"], first["grid"], first["tiles_per_block"]) == \
+        ("smem", (12, 1), 1)
+    first["form"] = "changed"
+    with monkeypatch.context() as m:
+        m.setattr(pl, "FWD_BLOCKS_MAX", 2)
+        p = pl.fwd_plan(*args, **kw)
+        assert (p["grid"], p["tiles_per_block"]) == ((2, 1), 6)
+    with monkeypatch.context() as m:
+        m.setattr(pl, "SMEM_TABLE_MAX", 1024)
+        assert pl.fwd_plan(*args, **kw)["form"] == "mem"
+    again = pl.fwd_plan(*args, **kw)
+    assert (again["form"], again["grid"]) == ("smem", (12, 1))
+
+
 @pytest.mark.parametrize(
     "n,w,bits,c,block_n,form,ct,ft,threads,groups,gp,tr,tpc,cpb,grid", [
         # the learn path's shapes: C = 1 and one-vs-rest's C = 8
