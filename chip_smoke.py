@@ -64,7 +64,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    alone, held to the counts) is their ``gemm_library_ms``; the sweep's
    partial lists are held to their plain version and timed apart from
    the merge at top_k 10 and at m 64, with the plan and the registers
-   and spills of each instance.
+   and spills of each instance. Row 9 (``packed_collision_counts``) runs
+   on the int8 tensor cores for 1- and 2-bit codes
+   (``csrc/packed_counts.cu``'s ``packed_counts_tc``, chosen by
+   ``packed_collision.counts_plan``; the ``packed_counts_tc`` row,
+   launches counted apart): the small checks hold it at QB 64 and 128,
+   with TMA stores at N % 4 == 0 and 4-byte stores at ragged N, its
+   row's bound is the [Q, N] write's bytes against the one-hot product
+   at 1,979 TOPS, with the popcount bound and ``torch._int_mm``'s
+   segment beside, and its kernel row times it at the LSH chunk's
+   shape. Row
+   10 (``packed_lut_rerank``) runs one warp a query for M <= 128
+   (``lut_rerank_warp``, ``packed_lut.rerank_plan``; the
+   ``packed_lut_rerank_warp`` row): its row gives the latency floor of
+   one candidate's chain of F dependent float adds beside its bytes
+   bound, and the kernel row times the block kernel at the same shape.
+   Both rows record the form that ran and, in the kernels line, its
+   launches on the path (``form_launches``).
 3. Main path at N = 4,194,304 rows, D = 1024, k = 256, 2-bit codes at
    w = 0.75: seeded Gaussian rows made on the card in 65,536-row chunks
    go through ``CodedRandomProjection.sketch`` into a ``CodeStore``;
@@ -247,6 +263,8 @@ INT32_OP_S = 132 * 64 * 1.98e9
 POPC_OP_S = 132 * 16 * 1.98e9
 LDS_WAVES_S = 132 * 1.98e9   # shared-memory wavefronts: one a clock an SM
 SPIN_CYCLES = int(2e-3 * 1.98e9)   # 2 ms at the boost clock
+SM_CLOCK_HZ = 1.98e9     # the boost clock
+FADD_CLOCKS = 4          # a dependent float add's latency, in clocks
 
 # SHA-256 of the JAX reference's R for SketchConfig() at D = 1024
 # (repro.core.sketch.CodedRandomProjection(SketchConfig(), 1024)
@@ -293,9 +311,17 @@ KERNELS = {
     "packed_collision_counts": ("scored",
                                 "src/repro_torch/kernels/csrc/packed_counts.cu",
                                 "src/repro/kernels/packed_collision.py:90"),
+    # row 9's tensor kernel (1- and 2-bit codes)
+    "packed_counts_tc": ("scored",
+                         "src/repro_torch/kernels/csrc/packed_counts.cu",
+                         "src/repro/kernels/packed_collision.py:90"),
     "packed_lut_rerank": ("scored",
                           "src/repro_torch/kernels/csrc/packed_lut.cu",
                           "src/repro/kernels/packed_lut.py:296"),
+    # row 10's warp-a-query kernel (M <= 128, 1-, 2- and 4-bit codes)
+    "packed_lut_rerank_warp": ("scored",
+                               "src/repro_torch/kernels/csrc/packed_lut.cu",
+                               "src/repro/kernels/packed_lut.py:296"),
     "packed_topk_masked": ("mutable",
                            "src/repro_torch/kernels/csrc/packed_topk.cu",
                            "src/repro/kernels/packed_collision.py:247"),
@@ -337,11 +363,13 @@ PATH_KERNELS = {
     "main": ("encode_fused", "coded_project", "pack_codes", "packed_topk",
              "packed_topk_tc"),
     "scored": ("coded_project", "pack_codes", "packed_topk",
-               "packed_collision_counts", "packed_lut_rerank",
+               "packed_collision_counts", "packed_counts_tc",
+               "packed_lut_rerank", "packed_lut_rerank_warp",
                "fused_scored_topk", "packed_topk_tc"),
     "mutable": ("encode_fused", "coded_project", "pack_codes",
                 "packed_topk_masked", "fused_scored_topk_masked",
-                "packed_collision_counts", "packed_lut_rerank",
+                "packed_collision_counts", "packed_counts_tc",
+                "packed_lut_rerank", "packed_lut_rerank_warp",
                 "packed_topk_tc"),
     "url": ("code_pack", "normal_unit_group", "csr_group_step", "pack_codes",
             "packed_topk", "fused_scored_topk", "packed_topk_tc"),
@@ -353,7 +381,8 @@ PATH_KERNELS = {
     "serve": ("encode_fused", "coded_project", "pack_codes", "code_pack",
               "packed_topk", "packed_topk_masked", "fused_scored_topk",
               "fused_scored_topk_masked", "packed_lut_rerank",
-              "packed_collision_counts", "packed_lut_topk",
+              "packed_lut_rerank_warp", "packed_collision_counts",
+              "packed_counts_tc", "packed_lut_topk",
               "packed_lut_topk_masked", "collision_counts",
               "packed_linear_fwd", "packed_linear_bwd", "packed_topk_tc"),
 }
@@ -363,6 +392,11 @@ TC_PTXAS = {}
 # the same for every kernel of csrc/packed_linear.cu, by name and template
 # arguments (linear_bwd_partial_tiledILi2ELi1ELb0EE: 2-bit, CT 1, unmasked)
 LINEAR_PTXAS = {}
+# ... of row 9's tensor kernel (packed_counts_tcILi2ELi128ELb1EE: 2-bit,
+# QB 128, TMA stores) and of row 10's kernels (lut_rerank_warpIfLi2ELi2EE:
+# float32 tables, 2-bit, CPL 2)
+COUNTS_PTXAS = {}
+RERANK_PTXAS = {}
 
 
 def log(msg: str) -> None:
@@ -589,20 +623,30 @@ def scored_checks(device) -> None:
             0, 1 << bits, (n, k), generator=gen, device=device), bits)
 
     for bits in (1, 2, 4, 8):
+        # QB 64 and 128 of the tensor kernel; TMA stores where N % 4 == 0,
+        # 4-byte stores on ragged N
         for nq, n, k in ((33, 2000, 100), (5, 37, 64), (9, 70_000, 64),
-                         (40, 129, 256), (3, 0, 17)):
-            wq, wdb = words(nq, k, bits), words(n, k, bits)
-            got = ops.packed_collision_counts(wq, wdb, bits, k, impl="kernel")
-            if not same((got,), (ref.packed_collision_ref(wq, wdb, bits, k),)):
-                raise AssertionError(f"packed_collision_counts bits={bits} "
-                                     f"{(nq, n, k)}")
-    log("check packed_collision_counts bits 1/2/4/8: bit-exact")
+                         (40, 129, 256), (3, 0, 17), (129, 3004, 100),
+                         (200, 65, 256)):
+            for block_q in (None, 64, 128):
+                wq, wdb = words(nq, k, bits), words(n, k, bits)
+                got = ops.packed_collision_counts(
+                    wq, wdb, bits, k, impl="kernel", block_q=block_q)
+                if not same((got,), (ref.packed_collision_ref(
+                        wq, wdb, bits, k),)):
+                    raise AssertionError(
+                        f"packed_collision_counts bits={bits} "
+                        f"{(nq, n, k)} block_q={block_q}")
+    log("check packed_collision_counts bits 1/2/4/8 (tensor kernel at QB "
+        "64/128, TMA and 4-byte stores): bit-exact")
     for bits in (1, 2, 4):
         for dtype in ("f32", "bf16"):
             # (queries, candidates, k, top_k): random invalid slots, M in the
             # thousands, top_k above the valid count, one candidate
             for nq, m, k, top_k in ((13, 50, 33, 7), (7, 3000, 100, 10),
-                                    (4, 5, 17, 9), (2, 1, 64, 3)):
+                                    (4, 5, 17, 9), (2, 1, 64, 3),
+                                    (300, 64, 256, 10), (6, 65, 100, 70),
+                                    (5, 128, 33, 10), (9, 32, 64, 40)):
                 tab, _ = rand_tables(gen, nq, packing.packed_width(k, bits),
                                      bits, dtype, device)
                 cand = words(nq * m, k, bits).reshape(nq, m, -1)
@@ -1507,15 +1551,13 @@ def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word,
     packed_topk phase's queries and corpus, with the sketcher's tables."""
     import torch
     from repro_torch.core import packing
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, packed_lut, ref
+    from repro_torch.kernels import packed_collision as pc
     from repro_torch.rank import build_rank_tables
     bits, nq = crp.spec.bits, CHUNK_Q
     w_words = packing.packed_width(K, bits)
     q_tab = build_rank_tables(crp).query_tables(codes_q)
     fp = q_tab.shape[1]
-    pairs = float(nq) * N_ROWS * w_words
-    count_ops = [("popc", pairs, POPC_OP_S),
-                 ("int32", pairs * int_word, INT32_OP_S)]
 
     def row(name, fn_kernel, fn_plain, want, b, shape, plain_reps=10,
             **extra):
@@ -1531,19 +1573,40 @@ def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word,
         rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe,
                           library_ms=None, shape=shape, **extra)
-        popc = (f" popc_bound_ms={extra['popc_bound_ms']:.4f}"
-                if "popc_bound_ms" in extra else "")
+        more = "".join(f" {key}={extra[key]:.6f}" for key in
+                       ("popc_bound_ms", "latency_floor_ms", "gemm_library_ms")
+                       if key in extra)
+        form = (f"; form {extra['form']}, plan {json.dumps(extra['plan'])}"
+                if "form" in extra else "")
         log(f"kernel {name}: {shape} bit-exact ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, {pipe})"
-            f"{popc}; phase {time.perf_counter() - t0:.1f} s")
+            f"{more}{form}; phase {time.perf_counter() - t0:.1f} s")
 
+    # the least work is the one-hot product against the [Q, N] write; the
+    # popcount fold beside
+    counts_want = ref.packed_collision_ref(wq, wdb, bits, K)
+    count_tensor, count_popc = count_bounds(
+        nq, N_ROWS, w_words, int_word,
+        4.0 * (N_ROWS * w_words + nq * w_words + nq * N_ROWS))
+    count_plan = pc.counts_plan(nq, N_ROWS, w_words, bits,
+                                device=wq.device)
+    if count_plan["kernel"] != "tensor":
+        raise AssertionError(f"the LSH chunk's counts plan {count_plan}")
+    before = ops.launch_counts()
     row("packed_collision_counts",
         lambda: ops.packed_collision_counts(wq, wdb, bits, K, impl="kernel"),
         lambda: ref.packed_collision_ref(wq, wdb, bits, K),
-        ref.packed_collision_ref(wq, wdb, bits, K),
-        bound(count_ops, 4.0 * (N_ROWS * w_words + nq * w_words
-                                + nq * N_ROWS)),
-        [nq, N_ROWS, w_words], plain_reps=3)
+        counts_want, count_tensor, [nq, N_ROWS, w_words], plain_reps=3,
+        popc_bound_ms=count_popc, gemm_library_ms=gemm_lib["ms"],
+        form=count_plan["kernel"], form_counter="packed_counts_tc",
+        plan=count_plan)
+    ran = launch_diff(before)
+    if ran.get("packed_counts_tc", 0) != ran["packed_collision_counts"]:
+        raise AssertionError(f"the LSH chunk's counts did not all run on the "
+                             f"tensor kernel: {ran}")
+    counts_tc_rows(rows, wq, wdb, bits, counts_want, count_tensor,
+                   count_popc, count_plan, gemm_lib)
+    del counts_want
     torch.cuda.empty_cache()
     # the least work is one count sweep: B4's one-hot product, no more
     want = ref.fused_scored_topk_ref(wq, q_tab, wdb, bits, K, RERANK_M, TOP_K)
@@ -1566,15 +1629,96 @@ def scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word,
     cand = wdb[cand_ids]
     valid = torch.rand((nq, RERANK_M), generator=gen, device=wdb.device) > 0.1
     lookups = float(nq) * RERANK_M * w_words * (32 // bits)
+    rerank_want = ref.packed_lut_rerank_ref(q_tab, cand, valid, bits, TOP_K)
+    rerank_bound = bound([("f32 add", lookups, F32_ADD_S)],
+                         4.0 * nq * (fp + RERANK_M * w_words + 2 * TOP_K)
+                         + nq * RERANK_M)
+    # one candidate's chain of F dependent float adds
+    floor_ms = 1e3 * w_words * (32 // bits) * FADD_CLOCKS / SM_CLOCK_HZ
+    rerank_plan = packed_lut.rerank_plan(nq, RERANK_M, w_words, bits,
+                                         q_tab.dtype, device=wq.device)
+    if rerank_plan["kernel"] != "warp":
+        raise AssertionError(f"the main path's re-rank plan {rerank_plan}")
     row("packed_lut_rerank",
         lambda: ops.packed_lut_rerank(q_tab, cand, valid, bits, TOP_K,
                                       impl="kernel"),
         lambda: ref.packed_lut_rerank_ref(q_tab, cand, valid, bits, TOP_K),
-        ref.packed_lut_rerank_ref(q_tab, cand, valid, bits, TOP_K),
-        bound([("f32 add", lookups, F32_ADD_S)],
-              4.0 * nq * (fp + RERANK_M * w_words + 2 * TOP_K)
-              + nq * RERANK_M),
-        [nq, RERANK_M, w_words, TOP_K])
+        rerank_want, rerank_bound, [nq, RERANK_M, w_words, TOP_K],
+        latency_floor_ms=floor_ms, form=rerank_plan["kernel"],
+        form_counter="packed_lut_rerank_warp", plan=rerank_plan)
+    rerank_warp_rows(rows, q_tab, cand, valid, bits, rerank_want,
+                     rerank_bound, floor_ms, rerank_plan)
+
+
+def counts_tc_rows(rows, wq, wdb, bits, want, tensor, popc_ms, plan,
+                   gemm_lib) -> None:
+    """Row 9's tensor kernel (csrc/packed_counts.cu's packed_counts_tc) at
+    the LSH chunk's shape through its wrapper, bit-exact against the
+    plain version, with its plan and the registers and spills of each
+    instance."""
+    import torch
+    from repro_torch.kernels import packed_collision as pc
+    nq, w_words = wq.shape
+    got = pc.packed_collision_counts_cuda(wq, wdb, bits, K)
+    if not torch.equal(got, want):
+        raise AssertionError("packed_counts_tc differs from its plain version")
+    del got
+    ms = time_ms(lambda: pc.packed_collision_counts_cuda(wq, wdb, bits, K))
+    torch.cuda.empty_cache()
+    b_ms, b_by, pipe = tensor
+    rows["packed_counts_tc"] = dict(
+        max_abs_err=0, ms=ms,
+        plain_ms=rows["packed_collision_counts"]["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, bound_pipe=pipe, library_ms=None,
+        popc_bound_ms=popc_ms, gemm_library_ms=gemm_lib["ms"],
+        gemm_library_shape=gemm_lib["shape"], plan=plan,
+        registers={k: dict(registers=r, spill_bytes=sp)
+                   for k, (r, sp) in COUNTS_PTXAS.items()},
+        shape=[nq, N_ROWS, w_words])
+    log(f"kernel packed_counts_tc: Q={nq} N={N_ROWS} W={w_words} bit-exact "
+        f"ms={ms:.4f} ({plan['store']} stores) bound_ms={b_ms:.4f} "
+        f"({b_by}, {pipe}) popc_bound_ms={popc_ms:.4f} "
+        f"plan {json.dumps(plan)}; registers and spill stores "
+        f"{json.dumps(rows['packed_counts_tc']['registers'])}")
+
+
+def rerank_warp_rows(rows, q_tab, cand, valid, bits, want, b, floor_ms,
+                     plan) -> None:
+    """Row 10's warp kernel (csrc/packed_lut.cu's lut_rerank_warp) at the
+    main path's shape, and the block kernel launched apart at the same
+    shape (the form the plan picks for M past a warp), each bit-exact
+    against the plain version, with the plan and the registers of each
+    instance."""
+    import torch
+    from repro_torch.kernels import packed_lut as pl
+    nq, m, w_words = cand.shape
+    code = pl.TABLE_DTYPES[q_tab.dtype]
+    out = (torch.empty_like(want[0]), torch.empty_like(want[1]))
+    form_ms = {}
+    for form in ("warp", "block"):
+        p = plan if form == "warp" else dict(kernel="block")
+        out[0].fill_(0)
+        out[1].fill_(0)
+        pl._launch(p, q_tab, code, cand, valid, bits, TOP_K, *out)
+        if not same(out, want):
+            raise AssertionError(f"lut_rerank {form} kernel differs from its "
+                                 f"plain version")
+        form_ms[form] = time_ms(lambda: pl._launch(
+            p, q_tab, code, cand, valid, bits, TOP_K, *out))
+    b_ms, b_by, pipe = b
+    rows["packed_lut_rerank_warp"] = dict(
+        max_abs_err=0, ms=form_ms["warp"],
+        plain_ms=rows["packed_lut_rerank"]["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, bound_pipe=pipe, library_ms=None,
+        latency_floor_ms=floor_ms, block_ms=form_ms["block"], plan=plan,
+        registers={k: dict(registers=r, spill_bytes=sp)
+                   for k, (r, sp) in RERANK_PTXAS.items()},
+        shape=[nq, m, w_words, TOP_K])
+    log(f"kernel packed_lut_rerank_warp: {[nq, m, w_words, TOP_K]} "
+        f"bit-exact; ms={form_ms['warp']:.4f}, the block kernel at this "
+        f"shape {form_ms['block']:.4f}; bound_ms={b_ms:.6f} ({b_by}) "
+        f"latency floor {floor_ms:.6f} ms; plan {json.dumps(plan)}; "
+        f"registers {json.dumps(rows['packed_lut_rerank_warp']['registers'])}")
 
 
 def masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word,
@@ -4094,6 +4238,10 @@ def main(argv) -> int:
                         int(used.group(1)), spill)
                 if used and name == "packed_linear":
                     LINEAR_PTXAS[fn] = (int(used.group(1)), spill)
+                if used and fn.startswith("packed_counts_tc"):
+                    COUNTS_PTXAS[fn] = (int(used.group(1)), spill)
+                if used and fn.startswith("lut_rerank"):
+                    RERANK_PTXAS[fn] = (int(used.group(1)), spill)
     log(f"card: {card}")
 
     t0 = time.perf_counter()
@@ -4182,6 +4330,8 @@ def main(argv) -> int:
         row = dict(name=name, route="cuda", source=src, replaces=rep,
                    launches=path_counts[path][name])
         row.update(rows[name])
+        if "form_counter" in row:   # the launches of the form that ran
+            row["form_launches"] = path_counts[path][row.pop("form_counter")]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

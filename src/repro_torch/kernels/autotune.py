@@ -56,7 +56,9 @@ SWEEPS = {
     "code_pack": {"threads": (128, 256, 512, 1024)},
     "collision_counts": {"block_q": (32, 64, 128),
                          "block_n": (32, 64, 128)},
-    "packed_collision_counts": {"block_q": (8, 16, 32, 64)},
+    # queries a block of either count kernel (counts_plan): the tensor
+    # kernel's QB is 128 at 128 where it fits, else 64
+    "packed_collision_counts": {"block_q": (32, 64, 128)},
     "packed_topk": {"n_ranges": _COUNT_RANGES},
     "packed_topk_masked": {"n_ranges": _COUNT_RANGES},
     "packed_lut_topk": {"n_ranges": _RANGES},

@@ -88,10 +88,6 @@
 // group's fold continues from the accumulator, so the order is the same.
 // Phantom field slots and entries are computed like any other; the
 // caller masks them (learn.features.entry_mask).
-#include <map>
-#include <mutex>
-#include <utility>
-
 #include "lut_common.cuh"
 #include "wgmma_common.cuh"
 
@@ -287,13 +283,6 @@ linear_fwd_smem(const float* __restrict__ tables,
       }
     }
   }
-}
-
-// 16 bytes global -> shared
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
-               "l"(src)
-               : "memory");
 }
 
 // Fields a thread owns at CT classes a thread: FT * P * CT = 32
@@ -648,26 +637,6 @@ FwdKernel fwd_kernel(int bits, bool masked) {
     case 8: return masked ? linear_fwd_smem<8, true> : linear_fwd_smem<8, false>;
     default: return nullptr;
   }
-}
-
-// Opens kernel k to smem bytes of dynamic shared memory on the current
-// device. The attribute is set only when it must grow, so a launch of a
-// size seen before costs no call, and it never shrinks below what an
-// earlier plan was given.
-std::mutex smem_mu;
-std::map<std::pair<int, const void*>, int> smem_open;   // (device, kernel)
-
-cudaError_t open_smem(const void* k, int smem) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(smem_mu);
-  int& granted = smem_open[{dev, k}];
-  if (smem <= granted) return cudaSuccess;
-  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err == cudaSuccess) granted = smem;
-  return err;
 }
 
 int tiled_smem(int tr, int w, int gp) {

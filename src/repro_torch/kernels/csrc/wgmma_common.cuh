@@ -1,11 +1,17 @@
 // Hopper building blocks shared by the tensor-core kernels (coded_gemm.cu,
 // topk_tc.cuh): shared-memory addresses, mbarriers, cp.async, named
 // barriers, wgmma's shared-memory descriptor and its fence, commit and
-// wait, and the register fences that keep the compiler from moving
-// accesses of wgmma's registers across its asynchronous issue.
+// wait, the register fences that keep the compiler from moving
+// accesses of wgmma's registers across its asynchronous issue, and, on
+// the host, open_smem, which raises a kernel's dynamic shared memory
+// once rather than at every launch.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -46,6 +52,13 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
                "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes global -> shared (both 16-byte aligned), through L2 only
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src)
                : "memory");
 }
 
@@ -120,6 +133,25 @@ template <int N>
 __device__ __forceinline__ void keep_regs(const uint32_t* a) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" ::"r"(a[i]) : "memory");
+}
+
+// Opens kernel k to smem bytes of dynamic shared memory on the current
+// device. The attribute is set only when it must grow, so a launch of a
+// size seen before costs no call, and it never shrinks below what an
+// earlier plan was given.
+inline cudaError_t open_smem(const void* k, int smem) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, int> granted;  // (device, kernel)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  int& have = granted[{dev, k}];
+  if (smem <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess) have = smem;
+  return err;
 }
 
 }  // namespace

@@ -68,11 +68,15 @@ _WRAPPERS = {"coded_project": (_proj_code, "launches"),
              "packed_topk": (_packed_collision, "launches"),
              "packed_topk_masked": (_packed_collision, "masked_launches"),
              "packed_collision_counts": (_packed_collision, "counts_launches"),
+             # its tensor-core kernel (counts_plan)
+             "packed_counts_tc": (_packed_collision, "counts_tc_launches"),
              # the tensor-core count sweep inside the four top-k families
              "packed_topk_tc": (_packed_collision, "tc_launches"),
              "packed_lut_topk": (_lut_topk, "launches"),
              "packed_lut_topk_masked": (_lut_topk, "masked_launches"),
              "packed_lut_rerank": (_packed_lut, "launches"),
+             # its warp-a-query kernel (rerank_plan)
+             "packed_lut_rerank_warp": (_packed_lut, "warp_launches"),
              "fused_scored_topk": (_fused_scored, "launches"),
              "fused_scored_topk_masked": (_fused_scored, "masked_launches"),
              "packed_linear_fwd": (_packed_linear, "launches"),
@@ -367,9 +371,11 @@ def packed_lut_rerank(q_tables: torch.Tensor, cand_words: torch.Tensor,
                    c=cand_words.shape[1], w=cand_words.shape[2], t=t,
                    k=t >> bits, top_k=top_k)
     if _use_kernel(impl, cand_words):
+        if cand_valid.dtype != torch.bool:
+            cand_valid = cand_valid != 0
         return _packed_lut.packed_lut_rerank_cuda(
             q_tables.contiguous(), cand_words.contiguous(),
-            (cand_valid != 0).contiguous(), bits, top_k)
+            cand_valid.contiguous(), bits, top_k)
     return _ref.packed_lut_rerank_ref(q_tables, cand_words, cand_valid, bits,
                                       top_k)
 

@@ -10,7 +10,13 @@ Counterparts of ``repro/kernels/packed_collision.py``:
   in a validity bitmask int32 [ceil(N/32)]; dead rows never surface;
 * ``packed_collision_counts_cuda`` (``csrc/packed_counts.cu``,
   ``packed_collision_counts_pallas``): the whole int32 count matrix
-  [Q, N].
+  [Q, N], by the kernel ``counts_plan`` picks from the shape alone:
+  ``packed_counts_tc`` (the same one-hot product on the int8 tensor
+  cores, its counts staged in shared memory and written 256 bytes a
+  query and tile by TMA stores, or by 4-byte stores where N is not a
+  multiple of 4) for 1- and 2-bit codes whose one-hot queries fit
+  (``counts_layout``), else the popcount kernel.
+  ``counts_tc_launches`` counts the tensor kernel's launches.
 
 The top-k kernels' count sweep is chosen by ``plan``, from the shape
 alone and before the launch: the int8 tensor-core kernel
@@ -26,8 +32,10 @@ by whichever wrapper (here or ``fused_scored``).
 Launch knobs, none of which changes a bit: ``n_ranges`` (S, the corpus
 ranges of the top-k kernels; their partial lists merge in range order
 under the strictly-beats rule) and ``block_q`` (queries a block of the
-count kernel). S defaults to ``n_ranges`` for the popcount kernel and,
-for the tensor-core kernel, to twice the block rows (two ranges a block)
+count kernels: any positive number for the popcount kernel; the tensor
+kernel takes QB = 128 at 128 or more where that fits, else 64). S
+defaults to ``n_ranges`` for the popcount kernel and, for the
+tensor-core kernel, to twice the block rows (two ranges a block)
 that make the grid the most nearly whole waves of the blocks the card
 holds at once (``lut_topk.whole_waves``). Any top_k is answered: lists
 longer than 2048 entries, or too long for shared memory beside the
@@ -37,14 +45,16 @@ tensor-core kernel's operands, live in device memory
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 __all__ = ["packed_topk_cuda", "packed_topk_masked_cuda",
            "packed_topk_partial_cuda", "merge_ranges_cuda",
            "packed_collision_counts_cuda", "n_ranges", "resolve_ranges",
-           "plan", "tc_layout", "check_words", "check_valid",
-           "COUNT_BLOCK_Q", "launches", "masked_launches", "counts_launches",
+           "plan", "tc_layout", "counts_plan", "counts_layout",
+           "check_words", "check_valid", "COUNT_BLOCK_Q", "launches",
+           "masked_launches", "counts_launches", "counts_tc_launches",
            "tc_launches"]
 
 WARPS = 8          # queries per block (csrc/packed_topk.cu)
@@ -61,12 +71,13 @@ SMEM_LIST_MAX = 2048         # longer lists live in device memory
 # kernel launches since the last reset (ops.reset_launch_counts)
 launches = 0          # packed_topk
 masked_launches = 0   # packed_topk_masked
-counts_launches = 0   # packed_collision_counts
+counts_launches = 0   # packed_collision_counts, either kernel
+counts_tc_launches = 0   # its tensor-core kernel
 tc_launches = 0       # the tensor-core sweep, under any of the four top-k ops
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_occupancy: dict = {}
+_occupancy: dict = {}   # (kernel, bits, QB, ...) -> blocks an SM
 
 
 def n_ranges(nq: int, n: int, sms: int) -> int:
@@ -144,7 +155,7 @@ def tc_layout(w: int, bits: int, top_k: int, block_q: int):
 
 def _tc_occupancy(bits: int, qb: int, smem: int) -> int:
     from repro_torch.kernels import _build
-    key = (bits, qb, smem)
+    key = ("topk", bits, qb, smem)
     if key not in _occupancy:
         fn = _build.function("packed_topk", "packed_topk_tc_occupancy",
                              [_I, _I, _I, ctypes.POINTER(_I)])
@@ -332,29 +343,117 @@ def packed_topk_masked_cuda(words_q: torch.Tensor, words_db: torch.Tensor,
     return _topk(words_q, words_db, valid_words, bits, k, top_k, n_ranges)
 
 
+def counts_layout(w: int, bits: int, block_q: int):
+    """The tensor-core count kernel's dynamic shared memory at QB =
+    ``block_q`` (bytes), or None where it does not fit (or ``bits`` is
+    not 1 or 2): the one-hot queries [4 ceil(W/8)][QB][128] u8, the two
+    warpgroups' staged counts [2][QB][64] int32 and rings [2][64][W | 1]
+    words, and 1024 bytes of alignment."""
+    if bits not in TC_BITS:
+        return None
+    onehot = 4 * -(-w // 8) * block_q * 128
+    staged = TC_WG * block_q * TC_ROWS * 4
+    ring = TC_WG * TC_STAGES * TC_ROWS * (w | 1) * 4
+    total = 1024 + onehot + staged + ring
+    return total if total <= SMEM_BLOCK_MAX else None
+
+
+def _counts_occupancy_of(bits: int, qb: int, tma: bool, smem: int) -> int:
+    from repro_torch.kernels import _build
+    key = ("counts", bits, qb, tma, smem)
+    if key not in _occupancy:
+        fn = _build.function("packed_counts", "packed_counts_tc_occupancy",
+                             [_I, _I, _I, _I, ctypes.POINTER(_I)])
+        blocks = _I(0)
+        err = fn(bits, qb, int(tma), smem, ctypes.byref(blocks))
+        if err or blocks.value < 1:
+            raise RuntimeError(f"packed_counts tensor-core kernel (bits "
+                               f"{bits}, QB {qb}, {smem} B) does not fit an "
+                               f"SM: CUDA error {err}")
+        _occupancy[key] = blocks.value
+    return _occupancy[key]
+
+
+def counts_plan(nq: int, n: int, w: int, bits: int, block_q=None,
+                device=None, sms=None, blocks_per_sm=None) -> dict:
+    """The kernel an all-pairs count call launches, by shape alone:
+    kernel ("tensor" for 1- and 2-bit codes whose one-hot queries fit at
+    QB = 64, else "popcount"), block_q (QB, or the popcount kernel's
+    queries a block), grid, smem, store (tensor: "tma" where N is a
+    multiple of 4, TMA's 16-byte row stride, else "4-byte") and
+    blocks_per_sm (tensor: the grid is the card's resident blocks over
+    the query blocks, at most one warpgroup a 64-row tile). ``block_q``
+    None takes the defaults: QB 128 for more than 64 queries where it
+    fits, else 64; COUNT_BLOCK_Q for the popcount kernel. ``sms`` and
+    ``blocks_per_sm`` stand in for the card's. Plans are cached by shape,
+    the card's SMs and the limits."""
+    if block_q is not None and block_q < 1:
+        raise ValueError(f"block_q must be positive, got {block_q}")
+    if counts_layout(w, bits, TC_BLOCK_Q[-1]) is not None and sms is None:
+        from repro_torch.kernels.packed_linear import _sm_count
+        sms = _sm_count(device)
+    return dict(_counts_plan(nq, n, w, bits, block_q, sms, blocks_per_sm,
+                             (SMEM_BLOCK_MAX, COUNT_BLOCK_Q)))
+
+
+@functools.lru_cache(maxsize=256)
+def _counts_plan(nq: int, n: int, w: int, bits: int, block_q, sms,
+                 blocks_per_sm, limits: tuple) -> dict:
+    # limits: SMEM_BLOCK_MAX and COUNT_BLOCK_Q at the call, in the key
+    # alone (the helpers read the module's)
+    if counts_layout(w, bits, TC_BLOCK_Q[-1]) is None:
+        qt = COUNT_BLOCK_Q if block_q is None else int(block_q)
+        if -(-nq // qt) > 65535:
+            raise ValueError(f"at most 65535 blocks of block_q {qt} may "
+                             f"cover the queries, got {nq}")
+        return dict(kernel="popcount", block_q=qt,
+                    grid=(-(-n // 128), -(-nq // qt)), smem=qt * w * 4,
+                    store=None, blocks_per_sm=None)
+    want = block_q if block_q is not None else (128 if nq > 64 else 64)
+    qb = 128 if want >= 128 and counts_layout(w, bits, 128) is not None \
+        else 64
+    smem = counts_layout(w, bits, qb)
+    store = "tma" if n % 4 == 0 else "4-byte"
+    if blocks_per_sm is None:
+        blocks_per_sm = _counts_occupancy_of(bits, qb, store == "tma", smem)
+    q_blocks = -(-nq // qb)
+    tiles = -(-n // TC_ROWS)
+    cols = max(1, min(blocks_per_sm * sms // max(q_blocks, 1),
+                      -(-tiles // TC_WG)))
+    return dict(kernel="tensor", block_q=qb, grid=(q_blocks, cols),
+                smem=smem, store=store, blocks_per_sm=blocks_per_sm)
+
+
 def packed_collision_counts_cuda(words_q: torch.Tensor,
                                  words_db: torch.Tensor, bits: int,
-                                 k: int,
-                                 block_q: int = COUNT_BLOCK_Q) -> torch.Tensor:
-    """Launches the all-pairs count kernel, ``block_q`` queries a block
-    -> int32 counts [Q, N]."""
-    global counts_launches
+                                 k: int, block_q=None) -> torch.Tensor:
+    """Launches the all-pairs count kernel ``counts_plan`` picks ->
+    int32 counts [Q, N]."""
+    global counts_launches, counts_tc_launches
     from repro_torch.kernels import _build
     nq, n, w = check_words(words_q, words_db, bits)
-    if block_q < 1 or -(-nq // block_q) > 65535:
-        raise ValueError(f"block_q must be positive and at most 65535 "
-                         f"blocks of it cover the queries, got {block_q} "
-                         f"for {nq}")
+    if block_q is not None and block_q < 1:
+        raise ValueError(f"block_q must be positive, got {block_q}")
     out = torch.empty((nq, n), dtype=torch.int32, device=words_q.device)
     if nq == 0 or n == 0:
         return out
-    fn = _build.function("packed_counts", "packed_counts_launch",
-                         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-    err = fn(words_q.data_ptr(), words_db.data_ptr(), out.data_ptr(), nq, n,
-             w, bits, k, block_q,
-             torch.cuda.current_stream(words_q.device).cuda_stream)
+    p = counts_plan(nq, n, w, bits, block_q, words_q.device)
+    stream = torch.cuda.current_stream(words_q.device).cuda_stream
+    if p["kernel"] == "tensor":
+        fn = _build.function("packed_counts", "packed_counts_tc_launch",
+                             [_P, _P, _P] + [_I] * 9 + [_P])
+        err = fn(words_q.data_ptr(), words_db.data_ptr(), out.data_ptr(), nq,
+                 n, w, bits, k, p["block_q"], p["grid"][1], p["smem"],
+                 int(p["store"] == "tma"), stream)
+    else:
+        fn = _build.function("packed_counts", "packed_counts_launch",
+                             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+        err = fn(words_q.data_ptr(), words_db.data_ptr(), out.data_ptr(), nq,
+                 n, w, bits, k, p["block_q"], stream)
     if err:
-        raise RuntimeError(f"packed_collision_counts kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"packed_collision_counts {p['kernel']} kernel "
+                           f"launch failed: CUDA error {err}")
     counts_launches += 1
+    if p["kernel"] == "tensor":
+        counts_tc_launches += 1
     return out

@@ -65,7 +65,12 @@ def _m_collision_counts(q, n, k, **_):
 
 
 def _m_packed_collision_counts(q, n, w, **_):
-    # XOR + popcount-fold + accumulate per word pair ~ 3 word ops
+    # XOR + popcount-fold + accumulate per word pair ~ 3 word ops (the
+    # reference's model: the function's work, whichever kernel runs). Its
+    # bytes are the [Q, N] write, and they bind: 0.75 W word ops a byte
+    # sits under the float32 ridge (20) up to W = 26, and the tensor-core
+    # kernel of 1- and 2-bit codes (csrc/packed_counts.cu) is bound by
+    # that write too
     return q * n, 3 * q * n * w, 4 * (q * w + n * w + q * n)
 
 

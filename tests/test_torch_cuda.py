@@ -118,24 +118,87 @@ def _same(got, want):
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _any_words(gen, n, w):
+    """Words of random bits: every code in every field slot, padding
+    fields too."""
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (n, w), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+@pytest.mark.parametrize("block_q", [None, 64, 128])
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
-def test_collision_counts_kernel_bit_exact(gen, bits):
+def test_collision_counts_kernel_bit_exact(gen, bits, block_q):
+    """Both kernels of counts_plan (tensor cores at 1 and 2 bits, at QB 64
+    and 128, with TMA stores at N 64 and 3,004 and 4-byte stores at the
+    other N; popcount at 4 and 8) against the plain version: N across the
+    64-row tiles, Q across the query blocks, W 1-16 with padded fields (k
+    short of 32W/b), packed codes and words of random bits, the all-ones
+    word, exact hits."""
+    from repro_torch.kernels import packed_collision as pc
     wq, wdb = _words(gen, 37, 100, bits), _words(gen, 3001, 100, bits)
     assert torch.equal(ops.packed_collision_counts(wq, wdb, bits, 100,
                                                    impl="kernel"),
                        ref.packed_collision_ref(wq, wdb, bits, 100))
+    for w in (1, 4, 9, 16):
+        k = 32 * w // bits - 1
+        for nq in (1, 37, 64, 129):
+            for n in (1, 63, 64, 65, 3001, 3004):
+                wq = _any_words(gen, nq, w)
+                wdb = _any_words(gen, n, w)
+                wq[0] = -1
+                wdb[0] = -1
+                wdb[n // 2] = wq[nq // 2]
+                if n > 3:
+                    wdb[3:] = torch.where(wdb[3:] % 3 == 0, wq[-1], wdb[3:])
+                p = pc.counts_plan(nq, n, w, bits, block_q, wq.device)
+                assert p["kernel"] == ("tensor" if bits <= 2 else "popcount")
+                if bits <= 2:
+                    assert p["store"] == ("tma" if n % 4 == 0 else "4-byte")
+                before = ops.launch_counts()
+                got = ops.packed_collision_counts(wq, wdb, bits, k,
+                                                  impl="kernel",
+                                                  block_q=block_q)
+                after = ops.launch_counts()
+                assert after["packed_collision_counts"] == \
+                    before["packed_collision_counts"] + 1
+                assert after["packed_counts_tc"] == \
+                    before["packed_counts_tc"] + (bits <= 2)
+                assert torch.equal(got, ref.packed_collision_ref(
+                    wq, wdb, bits, k)), (w, nq, n, p)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("bits", [1, 2, 4])
 def test_lut_rerank_kernel_bit_exact(gen, bits, dtype):
-    for nq, m, top_k in ((13, 50, 7), (5, 2000, 10), (3, 4, 9)):
-        tab, _ = _tables(gen, nq, -(-33 // (32 // bits)), bits, dtype)
+    """Both kernels of rerank_plan against the plain version: the warp
+    kernel at every CPL (M 1-128), the block kernel at M in the thousands
+    and, launched apart, at the warp kernel's shapes; top_k above M, a
+    query with no valid candidate, all candidates tied (equal table
+    entries)."""
+    from repro_torch.kernels import packed_lut as pl
+    for nq, m, top_k in ((13, 50, 7), (5, 2000, 10), (3, 4, 9), (40, 1, 3),
+                         (9, 31, 40), (33, 32, 10), (300, 64, 10),
+                         (7, 65, 70), (5, 128, 10)):
+        w = -(-33 // (32 // bits))
+        tab, _ = _tables(gen, nq, w, bits, dtype)
         cand = _words(gen, nq * m, 33, bits).reshape(nq, m, -1)
         valid = torch.rand((nq, m), generator=gen, device="cuda") > 0.3
-        assert _same(ops.packed_lut_rerank(tab, cand, valid, bits, top_k,
-                                           impl="kernel"),
-                     ref.packed_lut_rerank_ref(tab, cand, valid, bits, top_k))
+        valid[nq // 2] = False
+        for t in (tab, torch.ones_like(tab)):   # the second: all tied
+            want = ref.packed_lut_rerank_ref(t, cand, valid, bits, top_k)
+            p = pl.rerank_plan(nq, m, w, bits, t.dtype, device=t.device)
+            assert p["kernel"] == ("warp" if m <= 128 else "block")
+            before = ops.launch_counts()["packed_lut_rerank_warp"]
+            assert _same(ops.packed_lut_rerank(t, cand, valid, bits, top_k,
+                                               impl="kernel"), want)
+            assert ops.launch_counts()["packed_lut_rerank_warp"] == \
+                before + (p["kernel"] == "warp")
+            if p["kernel"] == "warp":   # the block kernel at this shape
+                got = (torch.empty_like(want[0]), torch.empty_like(want[1]))
+                pl._launch(dict(kernel="block"), t,
+                           pl.TABLE_DTYPES[t.dtype], cand, valid, bits,
+                           top_k, *got)
+                assert _same(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])

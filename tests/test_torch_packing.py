@@ -17,7 +17,8 @@ from repro.ann import bands as jbands
 from repro.core import packing as jpk
 from repro.kernels import ref as jref
 from repro.kernels.pack_codes import pack_codes_pallas
-from repro.kernels.packed_collision import packed_topk_pallas
+from repro.kernels.packed_collision import (packed_collision_counts_pallas,
+                                           packed_topk_pallas)
 from repro_torch.ann import bands as tbands
 from repro_torch.core import packing as tpk
 from repro_torch.kernels import ops as tops
@@ -248,6 +249,64 @@ def test_count_sweep_default_ranges(nq, qb, s, grid):
     assert (p["n_ranges"], p["grid"][1]) == (7, 4)
     assert pc.plan(nq, 5, 16, 2, 10, n_ranges=64, sms=H100_SMS,
                    blocks_per_sm=1)["n_ranges"] == 5
+
+
+@pytest.mark.parametrize("nq,n,w,bits,block_q,kernel,qb,grid,store", [
+    (256, 4_194_304, 16, 2, None, "tensor", 128, (2, 66), "tma"),  # LSH
+    (256, 4_194_301, 16, 2, None, "tensor", 128, (2, 66), "4-byte"),  # N % 4
+    (256, 4_194_304, 8, 1, None, "tensor", 128, (2, 66), "tma"),   # k 256
+    (64, 262_144, 16, 2, None, "tensor", 64, (1, 132), "tma"),     # QB 64
+    (256, 262_144, 16, 2, 32, "tensor", 64, (4, 33), "tma"),       # a knob
+    (37, 3001, 4, 1, 128, "tensor", 128, (1, 24), "4-byte"),  # 47 tiles
+    (256, 4_194_304, 20, 2, 128, "tensor", 64, (4, 33), "tma"),   # QB 128 too wide
+    (256, 1000, 33, 2, None, "tensor", 64, (4, 8), "tma"),  # the widest one-hot
+    (256, 1000, 34, 2, None, "popcount", 32, (8, 8), None),
+    (256, 4_194_304, 32, 4, None, "popcount", 32, (32768, 8), None),
+    (256, 1000, 64, 8, 64, "popcount", 64, (8, 4), None),
+    (256, 1000, 128, 16, None, "popcount", 32, (8, 8), None)])
+def test_counts_plan(nq, n, w, bits, block_q, kernel, qb, grid, store):
+    """Which all-pairs count kernel a call launches, by shape alone: the
+    tensor-core kernel for 1- and 2-bit codes whose one-hot queries fit,
+    with its QB, persistent grid and store form; the popcount kernel for
+    4, 8 and 16 bits and for wider rows."""
+    from repro_torch.kernels import packed_collision as pc
+    p = pc.counts_plan(nq, n, w, bits, block_q, sms=H100_SMS,
+                       blocks_per_sm=1)
+    assert (p["kernel"], p["block_q"], p["grid"], p["store"]) == \
+        (kernel, qb, grid, store)
+    # plans are cached; each call gets a copy of its own
+    p["grid"] = None
+    assert pc.counts_plan(nq, n, w, bits, block_q, sms=H100_SMS,
+                          blocks_per_sm=1)["grid"] == grid
+    if kernel == "tensor":
+        assert p["smem"] == pc.counts_layout(w, bits, qb) <= pc.SMEM_BLOCK_MAX
+        # the one-hot queries, QB * 64 W bytes, and the staged counts
+        assert p["smem"] >= qb * 64 * w + 2 * qb * 64 * 4
+    else:
+        assert pc.counts_layout(w, bits, 64) is None
+    with pytest.raises(ValueError, match="block_q"):
+        pc.counts_plan(nq, n, w, bits, 0, sms=H100_SMS, blocks_per_sm=1)
+
+
+@pytest.mark.parametrize("bits", [1, 2])
+def test_onehot_identity_matches_counts_pallas_interpret(bits):
+    """k - F + onehot(q) . onehot(row), in plain PyTorch, equals the TPU
+    kernel's counts in interpret mode at k = 100 (padded fields): the
+    k - F term the tensor-core count kernel adds to its products."""
+    rng = np.random.default_rng(20 + bits)
+    k = 100
+    wq = np.asarray(J_PACK(jnp.asarray(_codes(rng, (5, k), bits)), bits))
+    wdb = np.array(J_PACK(jnp.asarray(_codes(rng, (40, k), bits)), bits))
+    wdb[[3, 17]] = wq[2]
+    want = np.asarray(packed_collision_counts_pallas(
+        jnp.asarray(wq), jnp.asarray(wdb), bits, k, block_q=8, block_n=32,
+        block_w=4, interpret=True))
+    f = wq.shape[1] * (32 // bits)
+    hits = tref.onehot_rows(_t(wq), bits, torch.int64) @ \
+        tref.onehot_rows(_t(wdb), bits, torch.int64).T
+    np.testing.assert_array_equal((k - f + hits).to(torch.int32).numpy(),
+                                  want)
+    assert want[2, 3] == want[2, 17] == k
 
 
 def test_pack_codes_pallas_interpret_matches_port():

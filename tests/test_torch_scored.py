@@ -120,6 +120,34 @@ def test_lut_rerank_plain_version_matches_jax(bits, dtype):
                                           top_k))
 
 
+@pytest.mark.parametrize("nq,m,w,bits,dtype,kernel,cpl,warps", [
+    (256, 64, 16, 2, torch.float32, "warp", 2, 1),      # the main path
+    (256, 64, 16, 2, torch.bfloat16, "warp", 2, 1),
+    (1024, 64, 16, 2, torch.float32, "warp", 2, 4),     # a block of 4
+    (300, 64, 16, 2, torch.float32, "warp", 2, 2),
+    (256, 32, 16, 1, torch.float32, "warp", 1, 1),
+    (256, 0, 16, 2, torch.float32, "warp", 1, 1),
+    (256, 65, 16, 4, torch.float32, "warp", 4, 1),
+    (256, 128, 16, 4, torch.bfloat16, "warp", 4, 1),
+    (256, 129, 16, 2, torch.float32, "block", None, None),   # M past a warp
+    (5, 2000, 2, 2, torch.float32, "block", None, None),
+    (256, 64, 16, 8, torch.float32, "block", None, None),    # 8 and 16 bits
+    (256, 64, 16, 16, torch.bfloat16, "block", None, None),
+    (256, 64, 80, 4, torch.float32, "block", None, None)])   # table 40 KB
+def test_rerank_plan(nq, m, w, bits, dtype, kernel, cpl, warps):
+    """Which re-rank kernel a call launches, by shape alone: one warp a
+    query for 1-, 2- and 4-bit codes, at most 128 candidates and a
+    warp's shared memory within its limit; else one block a query."""
+    from repro_torch.kernels import packed_lut as pl
+    p = pl.rerank_plan(nq, m, w, bits, dtype, sms=132)
+    assert (p["kernel"], p["cpl"], p["warps"]) == (kernel, cpl, warps)
+    if kernel == "warp":
+        elem = torch.empty((), dtype=dtype).element_size()
+        table = (w * (32 // bits) << bits) * elem
+        assert p["smem"] == warps * (table + 32 * cpl * (w | 1) * 4)
+        assert p["grid"] == (-(-nq // warps),) and m <= 32 * cpl
+
+
 def test_topk_scored_ties_and_sentinels():
     s = np.array([[1.0, 3.0, 3.0, -np.inf, 3.0, 0.5]], np.float32)
     _eq(ref.topk_scored_ref(torch.from_numpy(s), 8),
