@@ -80,7 +80,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    one candidate's chain of F dependent float adds beside its bytes
    bound, and the kernel row times the block kernel at the same shape.
    Both rows record the form that ran and, in the kernels line, its
-   launches on the path (``form_launches``).
+   launches on the path (``form_launches``). Row 3 (``pack_codes``,
+   ``pack_codes.pack_plan``: 16-byte or 4-byte code loads, the lanes of
+   a word adding by shuffles) is checked in both forms (a one-element
+   storage offset forces the 4-byte one) on codes in range and over all
+   int32, and timed at the query chunk [256 x 256], a mutable add batch
+   [65,536 x 256] and the dense corpus [4,194,304 x 256] (checked in
+   262,144-row slices), each with its bytes bound, share and plan; at the
+   query chunk also a launch's time over 100 back-to-back launches. A
+   one-element add, timed alike, is printed once as ``launch_floor_ms``
+   and stands in rows 3 and 10.
 3. Main path at N = 4,194,304 rows, D = 1024, k = 256, 2-bit codes at
    w = 0.75: seeded Gaussian rows made on the card in 65,536-row chunks
    go through ``CodedRandomProjection.sketch`` into a ``CodeStore``;
@@ -565,12 +574,20 @@ def small_checks(device) -> None:
             log(f"check gemm {scheme:7s} m,d,k={m},{d},{k}: edge flips "
                 f"coded_project={n1} encode_fused={n2}")
     for bits in (1, 2, 4, 8, 16):
-        for m, k in ((1000, 100), (3, 7), (256, 256)):
-            codes = torch.randint(0, 1 << bits, (m, k), generator=gen,
-                                  device=device, dtype=torch.int32)
-            if not torch.equal(ops.pack_codes(codes, bits, impl="kernel"),
-                               ref.pack_codes_ref(codes, bits)):
-                raise AssertionError(f"pack_codes bits={bits} {(m, k)}")
+        # both forms (16-byte loads; 4-byte loads, forced by a one-element
+        # storage offset), ragged words, codes in range and over all int32
+        for m, k in ((1000, 100), (3, 7), (256, 256), (4097, 257)):
+            for lo, hi in ((0, 1 << bits), (-2 ** 31, 2 ** 31)):
+                flat = torch.randint(lo, hi, (m * k + 1,), generator=gen,
+                                     device=device, dtype=torch.int64)
+                flat = flat.to(torch.int32)
+                for offset in (0, 1):
+                    codes = flat[offset:offset + m * k].view(m, k)
+                    if not torch.equal(
+                            ops.pack_codes(codes, bits, impl="kernel"),
+                            ref.pack_codes_ref(codes, bits)):
+                        raise AssertionError(f"pack_codes bits={bits} "
+                                             f"{(m, k)} offset {offset}")
         for nq, n, k, top_k in ((33, 2000, 100, 10), (5, 37, 64, 50),
                                 (8, 100_000, 256, 1024), (9, 70_000, 64, 1)):
             wq = packing.pack_codes(torch.randint(
@@ -1399,23 +1416,7 @@ def kernel_phase(crp, device) -> dict:
             f"ms={ms:.4f} gemm_library_ms={lib_ms:.4f} bound_ms={b_ms:.5f}")
     rows["coded_project"]["buckets"] = buckets
 
-    codes = torch.randint(0, 1 << bits, (CHUNK_Q, K), generator=gen,
-                          device=device, dtype=torch.int32)
-    got = ops.pack_codes(codes, bits, impl="kernel")
-    want = ref.pack_codes_ref(codes, bits)
-    if not torch.equal(got, want):
-        raise AssertionError("pack_codes differs from its plain version")
-    b_ms, b_by, pipe = bound([("int32", 2.0 * CHUNK_Q * K, INT32_OP_S)],
-                             4.0 * CHUNK_Q * (K + w_words))
-    rows["pack_codes"] = dict(
-        max_abs_err=0, ms=time_ms(lambda: ops.pack_codes(codes, bits, impl="kernel")),
-        plain_ms=time_ms(lambda: ref.pack_codes_ref(codes, bits)),
-        bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe, library_ms=None,
-        shape=[CHUNK_Q, K])
-    log(f"kernel pack_codes: [{CHUNK_Q},{K}] bit-exact "
-        f"ms={rows['pack_codes']['ms']:.4f} "
-        f"plain_ms={rows['pack_codes']['plain_ms']:.4f} "
-        f"bound_ms={b_ms:.6f} ({b_by}, {pipe})")
+    pack_codes_rows(rows, gen, bits, device)
 
     codes_q = torch.randint(0, 1 << bits, (CHUNK_Q, K), generator=gen,
                             device=device)
@@ -1453,9 +1454,114 @@ def kernel_phase(crp, device) -> dict:
     scored_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word, gemm_lib)
     masked_kernel_phase(rows, crp, codes_q, wq, wdb, gen, int_word, gemm_lib)
     serve_kernel_phase(rows, crp, codes_q, wq, wdb, gen)
+    for name in ("packed_lut_rerank", "packed_lut_rerank_warp"):
+        rows[name]["launch_floor_ms"] = rows["pack_codes"]["launch_floor_ms"]
     del wdb
     torch.cuda.empty_cache()
     return rows
+
+
+def per_launch_ms(fn, n: int = 100, reps: int = 5) -> tuple:
+    """Device ms a call over ``n`` back-to-back calls between two events,
+    queued behind one spin kernel long enough for the host to enqueue them
+    all (20 ms), so the events bracket the card's work alone; the median
+    of ``reps`` runs -> (ms a call, the host's enqueue ms at most)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times, enqueue = [], 0.0
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10 * SPIN_CYCLES)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        enqueue = max(enqueue, 1e3 * (time.perf_counter() - t0))
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    if enqueue >= 20.0:
+        raise AssertionError(f"enqueueing {n} calls took {enqueue:.3f} ms, "
+                             f"longer than the spin: a host time")
+    return statistics.median(times), enqueue
+
+
+# row 3's shapes: the query chunk (10 launches on the main path), a
+# mutable add or upsert batch, and the dense corpus that AnnEngine.build
+# packs through CodeStore.from_codes, checked in slices of PACK_SLICE rows
+PACK_SHAPES = (("query_chunk", CHUNK_Q), ("add_batch", N_UPSERT),
+               ("corpus", N_ROWS))
+PACK_SLICE = 262_144
+
+
+def pack_checked(codes, bits: int):
+    """``ops.pack_codes`` of [M, K] codes on the kernel, held bit-exact to
+    the plain version in slices of PACK_SLICE rows (its int64
+    temporaries stay small) -> the words."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    got = ops.pack_codes(codes, bits, impl="kernel")
+    for a in range(0, codes.shape[0], PACK_SLICE):
+        if not torch.equal(got[a:a + PACK_SLICE], ref.pack_codes_ref(
+                codes[a:a + PACK_SLICE], bits)):
+            raise AssertionError(f"pack_codes {list(codes.shape)} differs "
+                                 f"from its plain version at rows {a}-")
+    return got
+
+
+def pack_codes_rows(rows, gen, bits: int, device) -> None:
+    """Row 3 (csrc/pack_codes.cu) at PACK_SHAPES, each bit-exact against
+    its plain version and timed beside its bytes bound, its share of it
+    and ``pack_plan``'s plan; at the query chunk also the plain version,
+    the time a launch over back-to-back launches, and the launch floor (a
+    one-element add, timed alike), which row 10 reports too."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import pack_codes as pk
+    from repro_torch.kernels.packed_linear import _sm_count
+    w_words = packing.packed_width(K, bits)
+    one = torch.zeros(1, device=device, dtype=torch.int32)
+    floor_ms = time_ms(lambda: one.add_(1))
+    log(f"launch floor (a one-element add, time_ms): launch_floor_ms="
+        f"{floor_ms:.4f}, beside rows 3 (pack_codes) and 10 "
+        f"(packed_lut_rerank)")
+    shapes = {}
+    for name, m in PACK_SHAPES:
+        codes = torch.randint(0, 1 << bits, (m, K), generator=gen,
+                              device=device, dtype=torch.int32)
+        pack_checked(codes, bits)
+        b_ms, b_by, pipe = bound([("int32", 2.0 * m * K, INT32_OP_S)],
+                                 4.0 * m * (K + w_words))
+        ms = time_ms(lambda: ops.pack_codes(codes, bits, impl="kernel"))
+        plan = pk.pack_plan(m, K, bits, _sm_count(device),
+                            codes.data_ptr() % 16 == 0)
+        shapes[name] = dict(shape=[m, K], ms=ms, bound_ms=b_ms, bound_by=b_by,
+                            bound_pipe=pipe, share=b_ms / ms, plan=plan)
+        more = ""
+        if m == CHUNK_Q:
+            shapes[name]["plain_ms"] = time_ms(
+                lambda: ref.pack_codes_ref(codes, bits))
+            launch_ms, enqueue = per_launch_ms(
+                lambda: ops.pack_codes(codes, bits, impl="kernel"))
+            shapes[name]["per_launch_ms"] = launch_ms
+            more = (f" plain_ms={shapes[name]['plain_ms']:.4f}; back to back "
+                    f"{launch_ms:.5f} ms a launch (100 queued in "
+                    f"{enqueue:.3f} ms)")
+        log(f"kernel pack_codes {name}: [{m},{K}] bit-exact ms={ms:.5f} "
+            f"bound_ms={b_ms:.6f} ({b_by}, {pipe}) share "
+            f"{100 * b_ms / ms:.1f} %{more}; plan {json.dumps(plan)}")
+        del codes
+    torch.cuda.empty_cache()
+    q = shapes["query_chunk"]
+    rows["pack_codes"] = dict(
+        max_abs_err=0, ms=q["ms"], plain_ms=q["plain_ms"],
+        bound_ms=q["bound_ms"], bound_by=q["bound_by"],
+        bound_pipe=q["bound_pipe"], library_ms=None, shape=q["shape"],
+        launch_floor_ms=floor_ms, per_launch_ms=q["per_launch_ms"],
+        plan=q["plan"], shapes=shapes)
 
 
 def int_mm_yardstick(wq, wdb, bits: int) -> dict:

@@ -239,10 +239,14 @@ def csr_group_step(acc: torch.Tensor, indptr: torch.Tensor,
 
 def pack_codes(codes: torch.Tensor, bits: int, impl: str = "auto", *,
                threads: int = None) -> torch.Tensor:
-    """int32 codes [M, K] -> int32 words [M, ceil(K*b/32)]."""
+    """Integer codes [M, K] -> int32 words [M, ceil(K*b/32)]. The kernel
+    takes int32: other integer codes are cast first, which keeps their
+    low 32 bits, as the plain version does."""
     _kstats.record("pack_codes", m=codes.shape[0], k=codes.shape[1],
                    w=_packed_width(codes.shape[1], bits))
     if _use_kernel(impl, codes):
+        if not codes.dtype.is_floating_point:
+            codes = codes.to(torch.int32)
         kw = _tuned("pack_codes", codes.dtype, dict(threads=threads),
                     m=codes.shape[0], k=codes.shape[1])
         return _pack_codes.pack_codes_cuda(codes.contiguous(), bits, **kw)

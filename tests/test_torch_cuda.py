@@ -98,6 +98,49 @@ def test_pack_and_topk_kernels_bit_exact(gen, bits):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("full_range", [False, True])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8, 16])
+def test_pack_codes_kernel_bit_exact(gen, bits, full_range):
+    """Both forms of the packing kernel (16-byte loads of aligned rows;
+    4-byte loads, here forced by a one-element storage offset) against
+    the plain version: K across ragged words and K % 4, M from 0 to more
+    than one block, codes in [0, 2^b) and over the whole int32 range
+    (the word is a sum of shifted codes, so the lane adds must keep it)."""
+    from repro_torch.kernels.pack_codes import pack_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k in (1, 7, 31, 100, 256, 257):
+        for m in (0, 1, 255, 4097):
+            lo, hi = (-2 ** 31, 2 ** 31) if full_range else (0, 1 << bits)
+            flat = torch.randint(lo, hi, (m * k + 1,), generator=gen,
+                                 device="cuda", dtype=torch.int64)
+            flat = flat.to(torch.int32)
+            for offset in (0, 1):
+                codes = flat[offset:offset + m * k].view(m, k)
+                want_form = "16-byte" if k % 4 == 0 and offset == 0 \
+                    else "4-byte"
+                # (an empty tensor's data_ptr is 0: nothing launches)
+                assert m == 0 or pack_plan(
+                    m, k, bits, sms, codes.data_ptr() % 16 == 0
+                )["form"] == want_form
+                got = ops.pack_codes(codes, bits, impl="kernel")
+                assert torch.equal(got, ref.pack_codes_ref(codes, bits)), \
+                    (k, m, offset)
+
+
+def test_pack_codes_casts_integer_codes(gen):
+    """int64 codes (values past 2^31 included) and uint8 codes pack on
+    the card as in the plain version: their low 32 bits."""
+    wide = torch.randint(-2 ** 40, 2 ** 40, (300, 100), generator=gen,
+                         device="cuda", dtype=torch.int64)
+    wide[0, :4] = torch.tensor([2 ** 31, 2 ** 32 + 3, -1, 2 ** 33 - 1])
+    small = torch.randint(0, 256, (300, 100), generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.uint8)
+    for codes in (wide, small):
+        for bits in (1, 2, 8, 16):
+            assert torch.equal(ops.pack_codes(codes, bits),
+                               ops.pack_codes(codes, bits, impl="ref"))
+
+
 def _tables(gen, nq, w, bits, dtype):
     fp = (w * (32 // bits)) << bits
     if dtype == "int8":

@@ -317,6 +317,126 @@ def test_pack_codes_pallas_interpret_matches_port():
         _u32(tops.pack_codes(torch.from_numpy(codes), 2)), want)
 
 
+@pytest.mark.parametrize("bits", [1, 2, 16])
+def test_pack_codes_pallas_interpret_sums_full_range_codes(bits):
+    """On int32 codes over the whole range the TPU kernel's word is the
+    uint32 sum of code << (i*b), not an or; the port's plain version, and
+    the lane adds of its CUDA kernel, keep that sum."""
+    codes = np.random.default_rng(40 + bits).integers(
+        -2 ** 31, 2 ** 31, size=(8, 37), dtype=np.int32)
+    want = np.asarray(pack_codes_pallas(jnp.asarray(codes), bits, block_m=8,
+                                        interpret=True))
+    np.testing.assert_array_equal(
+        _u32(tops.pack_codes(torch.from_numpy(codes), bits)), want)
+
+
+@pytest.mark.parametrize("m,k,bits,aligned,threads,form,slots,lanes,t,grid", [
+    # the query chunk: 16,384 lanes over at least 132 blocks, not 64
+    (256, 256, 2, True, 256, "16-byte", 64, 4, 96, 171),
+    # a mutable add batch and the dense corpus: the resident blocks
+    (65_536, 256, 2, True, 256, "16-byte", 64, 4, 256, 1056),
+    (4_194_304, 256, 2, True, 256, "16-byte", 64, 4, 256, 1056),
+    (4_194_304, 256, 2, True, 1024, "16-byte", 64, 4, 1024, 264),
+    # an unaligned base, or K % 4 != 0: a code a lane
+    (256, 256, 2, False, 256, "4-byte", 256, 16, 256, 256),
+    (5, 7, 4, True, 256, "4-byte", 8, 8, 32, 2),
+    (3, 100, 1, False, 128, "4-byte", 128, 32, 32, 12),
+    # ragged last words: a row's slots padded to whole words
+    (9, 100, 2, True, 256, "16-byte", 28, 4, 32, 8),
+    (3, 100, 1, True, 256, "16-byte", 32, 8, 32, 3),
+    (3, 256, 8, True, 256, "16-byte", 64, 1, 32, 6),
+    (3, 256, 16, True, 256, "16-byte", 64, 1, 32, 6)])  # two words a lane
+def test_pack_plan(m, k, bits, aligned, threads, form, slots, lanes, t, grid):
+    """The packing kernel's form, slots and grid, by shape alone."""
+    from repro_torch.kernels.pack_codes import pack_plan
+    p = pack_plan(m, k, bits, H100_SMS, aligned, threads)
+    assert (p["form"], p["slots"], p["lanes_per_word"], p["threads"],
+            p["grid"]) == (form, slots, lanes, t, grid)
+    assert p["words"] == tpk.packed_width(k, bits)
+    assert p["words_per_lane"] == (2 if form == "16-byte" and bits == 16
+                                   else 1)
+    assert p["threads"] % 32 == 0 and 32 % p["lanes_per_word"] == 0
+    assert p["grid"] <= p["resident"] == \
+        H100_SMS * min(32, 2048 // p["threads"])
+    if m * slots >= H100_SMS * 32:   # enough slots to fill the card
+        assert p["grid"] >= H100_SMS
+    p["grid"] = None                 # a cached plan hands out copies
+    assert pack_plan(m, k, bits, H100_SMS, aligned, threads)["grid"] == grid
+    with pytest.raises(ValueError, match="threads"):
+        pack_plan(m, k, bits, H100_SMS, aligned, 96)
+
+
+PACK_UNROLL = 4   # csrc/pack_codes.cu's UNROLL: strides a lane's step
+
+
+def _pack_lane_model(codes: np.ndarray, bits: int, p: dict) -> np.ndarray:
+    """csrc/pack_codes.cu's walk in numpy: each lane of the planned grid
+    takes its slots as the kernel does (a step of UNROLL strides while its
+    warp's first slot is in range; a dense plan's slot s over the whole
+    array, else (row, slot) advanced by the plan's row_step and
+    slot_step), adds its codes' shifted values into its partial word, and
+    the lanes of a word add theirs into the word; every slot is taken
+    once."""
+    m, k = codes.shape
+    cpw, vec, slots = 32 // bits, p["vec"], p["slots"]
+    lanes = p["lanes_per_word"]
+    assert vec == 1 or k % 4 == 0
+    assert slots % lanes == 0 and 32 % lanes == 0
+    stride = p["grid"] * p["threads"]
+    drow, dj = p["row_step"], p["slot_step"]
+    assert drow * slots + dj == stride
+    flat = (codes.astype(np.int64) & 0xFFFFFFFF).ravel().tolist()
+    out = [0] * (m * p["words"])
+    taken = [0] * (m * slots)
+    for s0 in range(stride):
+        row, j = divmod(s0, slots)
+        base = s0 - s0 % 32
+        while base < m * slots:
+            for u in range(PACK_UNROLL):
+                if p["dense"]:
+                    s = base + s0 % 32 + u * stride
+                    row, j = divmod(s, slots)   # the same slot, flat
+                    first, word = s * vec, s * vec // cpw
+                else:
+                    first = row * k + j * vec
+                    word = row * p["words"] + j * vec // cpw
+                if row < m:
+                    taken[row * slots + j] += 1
+                    for i in range(max(0, min(vec, k - j * vec))):
+                        shift = ((j % lanes) * vec + i) % cpw * bits
+                        out[word + i // cpw] += flat[first + i] << shift
+                if not p["dense"]:
+                    j, row = j + dj, row + drow
+                    if j >= slots:
+                        j, row = j - slots, row + 1
+            base += PACK_UNROLL * stride
+    assert taken == [1] * (m * slots)
+    return (np.array(out, dtype=object).reshape(m, p["words"])
+            & 0xFFFFFFFF).astype(np.uint32)
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_pack_kernel_walk_model(bits):
+    """The kernel's slots, lanes and grid-stride walk (modelled in numpy)
+    give the plain version's words on full-range codes, in both forms, at the
+    planned grid and at grids that walk many strides across rows."""
+    from repro_torch.kernels.pack_codes import pack_plan
+    rng = np.random.default_rng(60 + bits)
+    for m, k, aligned in ((9, 100, True), (7, 257, False), (5, 7, True),
+                          (4, 64, True), (6, 64, False), (0, 64, True)):
+        codes = rng.integers(-2 ** 31, 2 ** 31, size=(m, k), dtype=np.int32)
+        want = _u32(tpk.pack_codes(torch.from_numpy(codes), bits))
+        p = pack_plan(m, k, bits, H100_SMS, aligned)
+        assert p["dense"] == (k % (32 // bits) == 0 or
+                              (p["vec"] == 4 and bits == 16))
+        for grid, threads in ((p["grid"], p["threads"]), (1, 32), (3, 64)):
+            steps = divmod(grid * threads, p["slots"])
+            q = dict(p, grid=grid, threads=threads, row_step=steps[0],
+                     slot_step=steps[1])
+            np.testing.assert_array_equal(_pack_lane_model(codes, bits, q),
+                                          want)
+
+
 def test_packed_topk_pallas_interpret_matches_port():
     rng = np.random.default_rng(6)
     wq = np.asarray(J_PACK(jnp.asarray(_codes(rng, (8, 64), 2)), 2))
