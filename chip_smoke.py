@@ -241,7 +241,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     query, live row and field at 128 adds a clock an SM; 256 x 4,194,304
     codes at k = 256 for the count kernel, beside
     ``k - torch.cdist(q, db, p=0)``).
-12. A ``kernels`` JSON line, the card line, and as the last line
+12. Health (``repro_torch.obs`` quality, shadow and drift; run right
+    after phase 11 on its engines). ``MleRhoEstimator(CodeSpec("2bit",
+    0.75))`` on 65,536 synthetic pairs at k = 256 for each rho in 0.3,
+    0.6, 0.9 and 0.99: cell counts on the card equal to the CPU's, rho_hat
+    equal but at near-ties and never more than a grid step away (the
+    differing count printed), ``mle_rho_2bit`` equal to ``estimate``;
+    4,096 seeded tickets through ``AnnService(engine,
+    quality=QualityConfig(sample_rate=1.0))`` on the immutable engine,
+    whose pooled int64 cell counts must equal a host recount of the
+    sampled (query, candidate) codes and whose report's rho_hat the CPU
+    estimator's on those counts; the 17-segment mutable index behind a
+    quality service whose ``add``, ``upsert`` and ``bulk_load`` fill the
+    shadow reservoir and whose ``delete`` leaves no deleted id in it, each
+    sampled recall equal to a numpy recount from the reservoir's rows and
+    codes and the query's codes; ``fit_store(..., quality=)`` margin
+    moments within 1e-6 relative of numpy's on the same margins. Printed,
+    not gated: served count-ranked queries/s with ``quality=None``,
+    ``QualityConfig()`` (1 % sampled) and ``sample_rate=1.0`` in
+    alternating runs, three of each, and MLE pairs/s, with the card line.
+13. A ``kernels`` JSON line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -394,6 +413,11 @@ PATH_KERNELS = {
               "packed_counts_tc", "packed_lut_topk",
               "packed_lut_topk_masked", "collision_counts",
               "packed_linear_fwd", "packed_linear_bwd", "packed_topk_tc"),
+    # quality-audited serving: query coding, the count sweep on both
+    # engines, ingest into the audited mutable index, fit_store's margins
+    "health": ("encode_fused", "coded_project", "pack_codes", "packed_topk",
+               "packed_topk_masked", "packed_topk_tc", "packed_linear_fwd",
+               "packed_linear_bwd"),
 }
 # registers and spill bytes of each instance of the tensor-core count
 # sweep, "bits,QB" -> (registers, spill stores), from the build's report
@@ -3883,7 +3907,8 @@ SERVE_SIZES = (1, 5, 8, 40, 64, 200, 256, 300)
 def serve_phase(engine, queries, device, profile: bool = False) -> tuple:
     """The serving front end (``repro_torch.serve.AnnService``) at the
     main path's width, over the engine after ``add`` (4,259,840 rows) and
-    a 17-segment mutable index. Returns (launch counts, rates).
+    a 17-segment mutable index. Returns (launch counts, rates, the
+    mutable index).
     ``profile`` adds torch.profiler breakdowns of a 40-ticket and a
     300-ticket count-ranked flush on a cold cache."""
     import numpy as np
@@ -4128,8 +4153,7 @@ def serve_phase(engine, queries, device, profile: bool = False) -> tuple:
     log(f"serve mutable: {len(steps) + 1} rounds of 1,024 tickets, every "
         f"result bit-exact against a direct search at its generation (no "
         f"stale hit; {inval} cache invalidations); segments {segs}")
-    del mut, msvc
-    torch.cuda.empty_cache()
+    del msvc          # the index stays for the health phase
 
     # 5. classify with a model trained by fit_store on the main store,
     # labels from a seeded teacher's margins
@@ -4209,6 +4233,240 @@ def serve_phase(engine, queries, device, profile: bool = False) -> tuple:
     log(f"serve registry: queries/s enabled {qps['on']} against disabled "
         f"{qps['off']} (order on, off, off, on)")
     autotune.set_cache(prev_cache)
+    return counts, rates, mut
+
+
+HEALTH_SEED = 2018
+HEALTH_PAIRS = 65_536
+HEALTH_RHOS = (0.3, 0.6, 0.9, 0.99)
+HEALTH_TICKETS = 4096
+
+
+def health_phase(engine, mut, queries, device) -> tuple:
+    """The paper's estimator math and the quality monitors at the main
+    path's width (README of ``chip_smoke.py``, phase 12): the MLE on the
+    card, the collision audit through the served immutable engine, the
+    shadow reservoir on the 17-segment mutable index, the post-fit
+    margins, and the served rates with the monitors off, at 1 % and at
+    100 %. Returns (launch counts, rates)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.core.estimators import MleRhoEstimator, mle_rho_2bit
+    from repro_torch.core.schemes import CodeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.learn import LearnConfig, PackedLinearModel, \
+        feature_spec_for, fit_store
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs.quality import (QualityConfig, QualityMonitors,
+                                         synthetic_code_pairs)
+    from repro_torch.serve import AnnService, AnnServiceConfig
+    crp, bits = engine.sketcher, engine.sketcher.spec.bits
+    rates = {}
+    rng = np.random.default_rng(HEALTH_SEED)
+    gen = torch.Generator(device=device).manual_seed(HEALTH_SEED)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+    # 1. the MLE over the 4x4 table on the card against the CPU
+    spec = CodeSpec("2bit", 0.75)
+    est = MleRhoEstimator(spec)
+    step = est.rho_max / (est.grid_size - 1)
+    mle = {}
+    for i, rho in enumerate(HEALTH_RHOS):
+        a, b = synthetic_code_pairs(spec, K, rho, HEALTH_PAIRS,
+                                    seed=HEALTH_SEED + i)
+        ca, cb = torch.from_numpy(a), torch.from_numpy(b)
+        ga, gb = ca.to(device), cb.to(device)
+        cc = est.cell_counts(ga, gb)
+        if not (cc.device.type == ga.device.type
+                and torch.equal(cc.cpu(), est.cell_counts(ca, cb))):
+            raise AssertionError(f"MLE cell counts on the card differ from "
+                                 f"the CPU's at rho {rho}")
+        got = est.estimate(ga, gb)
+        want = est.estimate(ca, cb)
+        diff = (got.cpu() - want).abs()
+        if float(diff.max()) > step * 1.0001:
+            raise AssertionError(f"MLE on the card more than a grid step from "
+                                 f"the CPU's at rho {rho}")
+        if not torch.equal(mle_rho_2bit(ga, gb, 0.75), got):
+            raise AssertionError("mle_rho_2bit differs from estimate")
+        ms = time_ms(lambda: est.estimate(ga, gb), reps=10)
+        mle[str(rho)] = dict(differ=int((diff > 0).sum()),
+                             mean=float(got.mean()), std=float(got.std()),
+                             ms=ms, pairs_s=HEALTH_PAIRS / (ms / 1e3))
+        log(f"health mle rho {rho}: cell counts on the card equal the CPU's; "
+            f"{mle[str(rho)]['differ']} of {HEALTH_PAIRS} rho_hat differ from "
+            f"the CPU's (by one grid step, {step:.6f}); rho_hat mean "
+            f"{mle[str(rho)]['mean']:.6f} std {mle[str(rho)]['std']:.6f} "
+            f"(k = {K}); estimate {ms:.4f} ms = "
+            f"{mle[str(rho)]['pairs_s']:.0f} pairs/s ({card_line()})")
+    rates["mle"] = mle
+
+    picks = rng.integers(0, N_QUERIES, HEALTH_TICKETS)
+
+    def drive(svc, picks):
+        pos, i = 0, 0
+        while pos < len(picks):
+            batch = picks[pos:pos + SERVE_SIZES[i % len(SERVE_SIZES)]]
+            pos, i = pos + len(batch), i + 1
+            for j in batch:
+                svc.submit(queries[j])
+            svc.flush()
+
+    # 2. the collision audit through the served immutable engine
+    qm = QualityMonitors(crp, QualityConfig(sample_rate=1.0, seed=HEALTH_SEED),
+                         registry=MetricsRegistry())
+    svc = AnnService(engine, AnnServiceConfig(), quality=qm,
+                     registry=qm.registry)
+    seen = {"ids": [], "q": []}
+    codes_for_ids = engine.codes_for_ids
+    observe_pairs = qm.collision.observe_pairs
+
+    def record_ids(ids):
+        seen["ids"].append(np.asarray(ids).copy())
+        return codes_for_ids(ids)
+
+    def record_q(a, b):
+        seen["q"].append(a[0].cpu().numpy())
+        return observe_pairs(a, b)
+    engine.codes_for_ids = record_ids
+    qm.collision.observe_pairs = record_q
+    try:
+        drive(svc, picks)
+    finally:
+        del engine.codes_for_ids
+        qm.collision.observe_pairs = observe_pairs
+        engine.quality = None
+    n = qm.collision.n_codes
+    host = engine.store.words.cpu()
+    recount = np.zeros(n * n, np.int64)
+    for ids, q in zip(seen["ids"], seen["q"]):
+        cand = packing.unpack_codes(host[torch.from_numpy(ids)], bits,
+                                    K).numpy()
+        recount += np.bincount((q[None, :] * n + cand).ravel(),
+                               minlength=n * n)
+    if not (seen["ids"] and np.array_equal(qm.collision.counts, recount)):
+        raise AssertionError("the collision monitor's pooled counts differ "
+                             "from a host recount of the sampled pairs")
+    rep = qm.collision.report()
+    cpu_rho = float(MleRhoEstimator(spec).from_counts(
+        torch.from_numpy(qm.collision.counts)))
+    if rep["rho_hat"] != cpu_rho:
+        # a near-tie between two grid points: the float64 log-likelihoods
+        # must agree within the float32 table's rounding
+        ll = qm.collision.counts @ qm.collision._logp.T
+        g = qm.collision._rho_grid
+        i0 = int(np.argmin(np.abs(g - rep["rho_hat"])))
+        i1 = int(np.argmin(np.abs(g - cpu_rho)))
+        if abs(i0 - i1) > 1 or abs(ll[i0] - ll[i1]) > 1e-6 * abs(ll[i0]):
+            raise AssertionError(f"report rho_hat {rep['rho_hat']} != the CPU "
+                                 f"estimator's {cpu_rho}")
+    rates["collision"] = {k: rep[k] for k in (
+        "pairs", "rho_hat", "p_hat", "p_theory", "z_diag", "chi2_per_cell")}
+    rates["collision"]["cpu_rho_hat"] = cpu_rho
+    log(f"health collision audit: {len(picks)} tickets on {engine.n} rows, "
+        f"{len(seen['ids'])} sampled searches, {rep['pairs']} pairs; pooled "
+        f"counts equal a host recount; rho_hat {rep['rho_hat']:.6f} (CPU "
+        f"estimator {cpu_rho:.6f}), p_hat {rep['p_hat']:.6f} against "
+        f"{rep['p_theory']:.6f}, chi2/cell {rep['chi2_per_cell']:.3f}")
+
+    # 3. the shadow reservoir on the 17-segment mutable index
+    hsvc = AnnService(mut, AnnServiceConfig(),
+                      quality=QualityConfig(sample_rate=1.0, seed=HEALTH_SEED))
+    hq = hsvc.quality
+    hsvc.add(unit_rows(CHUNK, D, gen, device))
+    hsvc.upsert(rng.choice(mut.store.live_ids(), N_UPSERT, replace=False),
+                unit_rows(N_UPSERT, D, gen, device))
+    hsvc.bulk_load(unit_rows(CHUNK, D, gen, device), chunk_rows=CHUNK)
+    held = len(hq.reservoir)
+    kill = np.unique(np.r_[hq.reservoir.ids()[::2],
+                           rng.choice(mut.store.live_ids(), N_DELETE // 4,
+                                      replace=False)])
+    hsvc.delete(kill, strict=False)
+    if len(hq.reservoir) > held // 2 or \
+            set(kill.tolist()) & set(hq.reservoir.ids().tolist()):
+        raise AssertionError("a deleted id is left in the shadow reservoir")
+    recalls = []
+    observe_query = hq.recall.observe_query
+
+    def recount_query(q_raw, encode_fn, estimator, q_codes=None):
+        r = observe_query(q_raw, encode_fn, estimator, q_codes=q_codes)
+        rows, codes = hq.reservoir.rows(), hq.recall._codes
+        qv = q_raw.cpu().numpy()
+        cos = rows @ (qv / np.linalg.norm(qv)) / np.linalg.norm(rows, axis=1)
+        frac = (codes == q_codes.cpu().numpy()[None, :]).mean(axis=1)
+        gt = np.argsort(-cos, kind="stable")[:hq.cfg.shadow_top_k]
+        got = np.argsort(-frac, kind="stable")[:hq.cfg.shadow_top_k]
+        if r != len(set(gt.tolist()) & set(got.tolist())) / len(gt):
+            raise AssertionError("a sampled recall differs from its recount")
+        recalls.append(r)
+        return r
+    hq.recall.observe_query = recount_query
+    drive(hsvc, picks[:1024])
+    hq.recall.observe_query = observe_query
+    sh = hq.recall.report()
+    if not recalls or len(recalls) != sh["queries"]:
+        raise AssertionError("no shadow check ran on the mutable service")
+    rates["shadow"] = {k: sh[k] for k in ("queries", "recall", "recall_lo",
+                                          "recall_hi", "reservoir_rows",
+                                          "rho_err_mean", "rho_err_std",
+                                          "rho_std_theory")}
+    log(f"health shadow: reservoir {held} rows after add/upsert/bulk_load, "
+        f"{sh['reservoir_rows']} after deleting {len(kill)} ids (none left); "
+        f"{sh['queries']} sampled recalls, each equal to a numpy recount; "
+        f"recall@{hq.cfg.shadow_top_k} {sh['recall']:.4f} "
+        f"[{sh['recall_lo']:.4f}, {sh['recall_hi']:.4f}]; rho error "
+        f"{sh['rho_err_mean']:.4f} +- {sh['rho_err_std']:.4f} against the "
+        f"predicted {sh['rho_std_theory']:.4f}; mutable collision pairs "
+        f"{hq.collision.pairs}")
+    del hsvc
+    mut.quality = None
+
+    # 4. the post-fit margins of fit_store
+    fspec = feature_spec_for(crp)
+    teacher = PackedLinearModel.zeros(fspec, device=device)
+    teacher.tables.normal_(generator=gen)
+    y = torch.where(teacher.margins(engine.store.words)[0] >= 0, 1, -1)
+    mq = QualityMonitors(crp, QualityConfig(), registry=MetricsRegistry())
+    cfg = LearnConfig(steps=20)
+    model = fit_store(engine.store, y, crp, cfg, quality=mq)
+    idx = np.sort(np.random.default_rng(cfg.seed).choice(
+        engine.n, mq.cfg.margin_sample, replace=False))
+    m = model.margins(engine.store.words[torch.from_numpy(idx).to(device)])
+    m = m.cpu().numpy().astype(np.float64)[0]
+    mo = mq.margins.moments
+    if mo.n != len(m) or abs(mo.mean - m.mean()) > 1e-6 * abs(m.mean()) or \
+            abs(mo.std - m.std(ddof=1)) > 1e-6 * m.std(ddof=1):
+        raise AssertionError("fit_store's margin moments differ from numpy's")
+    log(f"health margins: fit_store ({cfg.steps} steps over {engine.n} rows) "
+        f"fed {mo.n} margins, mean {mo.mean:.6f} std {mo.std:.6f}, within "
+        f"1e-6 of numpy's")
+
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require_launched(counts, "health")
+    log(f"launch counts on the health path: {json.dumps(counts)}")
+
+    # 5. served rates with the monitors off, at 1 % and at 100 %
+    qps = {"off": [], "1%": [], "100%": []}
+    for state in ("off", "1%", "100%", "100%", "1%", "off", "off", "1%",
+                  "100%"):
+        engine.quality = None
+        quality = {"off": None, "1%": QualityConfig(),
+                   "100%": QualityConfig(sample_rate=1.0)}[state]
+        tsvc = AnnService(engine, AnnServiceConfig(), quality=quality)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drive(tsvc, picks)
+        torch.cuda.synchronize()
+        qps[state].append(len(picks) / (time.perf_counter() - t0))
+    engine.quality = None
+    rates["served_queries_s"] = qps
+    log(f"health served count-ranked queries/s ({len(picks)} tickets a run, "
+        f"order off, 1%, 100%, 100%, 1%, off, off, 1%, 100%): monitors off "
+        f"{qps['off']}, QualityConfig() {qps['1%']}, sample_rate=1.0 "
+        f"{qps['100%']} ({card_line()})")
     return counts, rates
 
 
@@ -4403,11 +4661,16 @@ def main(argv) -> int:
     log(f"repairs: {json.dumps(rates_repair)}")
     log(f"phase repairs: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts_serve, rates_serve = serve_phase(engine, state["queries"], device,
-                                            profile="--profile" in argv)
+    counts_serve, rates_serve, mut = serve_phase(
+        engine, state["queries"], device, profile="--profile" in argv)
     log(f"serve path: {json.dumps(rates_serve)}")
     log(f"phase serve path: {time.perf_counter() - t0:.1f} s")
-    del engine, queries, state
+    t0 = time.perf_counter()
+    counts_health, rates_health = health_phase(engine, mut, state["queries"],
+                                               device)
+    log(f"health path: {json.dumps(rates_health)}")
+    log(f"phase health path: {time.perf_counter() - t0:.1f} s")
+    del engine, queries, state, mut
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     url_crp = CodedRandomProjection(SketchConfig(k=K, scheme="2bit", w=0.75,

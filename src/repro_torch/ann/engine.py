@@ -23,7 +23,10 @@ Under a deep ``obs.Tracer`` every chunk runs under device-synced spans
 (``search.chunk``, ``search.fused``, or ``search.coarse`` then
 ``search.rerank`` for two-stage scored search); otherwise one
 submission-timed ``search.chunks`` span covers the call. Each search
-appends an ``ann.search`` flight event.
+appends an ``ann.search`` flight event, and with an attached
+``obs.quality.QualityMonitors`` (``attach_quality``) offers its results
+to the budgeted collision audit, which reads back to the host only on a
+sampled call.
 """
 from __future__ import annotations
 
@@ -225,6 +228,7 @@ class AnnEngine:
         self.db_band_hashes = db_band_hashes      # uint32 values, int64 [n, L]
         self._coder = QueryCoder(sketcher)
         self._rank_tables = rank_tables
+        self.quality = None       # obs.quality.QualityMonitors, if attached
 
     # -- construction / ingestion -------------------------------------------
     @classmethod
@@ -252,9 +256,11 @@ class AnnEngine:
         codes = self._coder.encode(x, impl=impl)
         hashes = torch.cat([self.db_band_hashes,
                             band_hashes(codes, self.band_spec)])
-        return AnnEngine(self.sketcher, self.store.add(codes, impl=impl),
-                         self.band_spec, db_band_hashes=hashes,
-                         rank_tables=self._rank_tables)
+        new = AnnEngine(self.sketcher, self.store.add(codes, impl=impl),
+                        self.band_spec, db_band_hashes=hashes,
+                        rank_tables=self._rank_tables)
+        new.quality = self.quality
+        return new
 
     @property
     def n(self) -> int:
@@ -275,8 +281,16 @@ class AnnEngine:
         """x [Q, D] (dense or ``encode.CsrMatrix``) -> int32 codes [Q, k]."""
         return self._coder.encode(x, impl=impl)
 
+    def attach_quality(self, monitors) -> "AnnEngine":
+        """Attach an ``obs.quality.QualityMonitors`` bundle: every search
+        gets a budgeted chance (its ``sample_rate``) of feeding one
+        query's candidates to the collision monitor. Returns self."""
+        self.quality = monitors
+        return self
+
     def codes_for_ids(self, ids) -> torch.Tensor:
-        """int32 codes [m, k] of store rows ``ids``."""
+        """int32 codes [m, k] of store rows ``ids`` (on the store's
+        device), the small gather the quality audit re-scores."""
         words = self.store.take(torch.as_tensor(ids))
         return _packing.unpack_codes(words, self.sketcher.spec.bits,
                                      self.sketcher.cfg.k)
@@ -328,6 +342,8 @@ class AnnEngine:
         default_flight_recorder().record(
             "ann.search", t0, time.perf_counter(), batch=int(q),
             outcome=cfg.mode, synced=deep)
+        if self.quality is not None:
+            self.quality.observe_search(q_codes, out[0], self.codes_for_ids)
         return out
 
     def _traced_chunk(self, chunk: torch.Tensor, cfg: SearchConfig):

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["MASK32", "as_u32", "as_i32", "codes_per_word", "packed_width",
-           "pack_codes", "unpack_codes", "field_lsb_mask",
+           "pack_codes", "unpack_codes", "hamming_packed",
+           "match_count_packed_1bit", "field_lsb_mask",
            "fold_nonzero_fields", "mismatch_count_words",
            "match_count_packed", "bitmask_width", "pack_bitmask",
            "unpack_bitmask"]
@@ -79,6 +80,19 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return ((x * 0x01010101) & MASK32) >> 24
+
+
+def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamming distance between int32 word rows of 1-bit codes [..., W]
+    -> int32 [...]: the summed popcount of a ^ b."""
+    return _popcount32(as_u32(a) ^ as_u32(b)).sum(dim=-1).to(torch.int32)
+
+
+def match_count_packed_1bit(a: torch.Tensor, b: torch.Tensor,
+                            k: int) -> torch.Tensor:
+    """Colliding 1-bit codes: k - hamming (zero padding cancels in the
+    xor)."""
+    return k - hamming_packed(a, b)
 
 
 def field_lsb_mask(bits: int) -> int:

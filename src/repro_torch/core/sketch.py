@@ -23,7 +23,7 @@ of a bin edge.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -200,3 +200,23 @@ class CodedRandomProjection:
         ca = _packing.unpack_codes(words_a, self.spec.bits, self.cfg.k)
         cb = _packing.unpack_codes(words_b, self.spec.bits, self.cfg.k)
         return self.estimate_rho(ca, cb)
+
+    def asymptotic_std(self, rho) -> torch.Tensor:
+        """Predicted std of rho_hat at k projections, float64."""
+        return self._estimator.asymptotic_std(rho, self.cfg.k)
+
+    # -- storage accounting (the paper's headline economy) -------------------
+    def bytes_per_vector(self) -> int:
+        """Bytes of one packed code row."""
+        return 4 * _packing.packed_width(self.cfg.k, self.spec.bits)
+
+    def fp32_bytes_per_vector(self) -> int:
+        """Bytes of one float32 projection row."""
+        return 4 * self.cfg.k
+
+    def with_scheme(self, scheme: str, w: float = None):
+        """A sketcher with another coding scheme on the same R: the seed,
+        D and device carry over."""
+        cfg = replace(self.cfg, scheme=scheme,
+                      w=self.cfg.w if w is None else w)
+        return CodedRandomProjection(cfg, self.d, device=self.device)

@@ -23,7 +23,9 @@ m covers every segment's live rows.
 
 Each segment's search runs under ``search.fused``, or ``search.coarse``
 and ``search.rerank``, spans (synced only under a deep ``obs.Tracer``),
-and each search appends an ``index.search`` flight event.
+and each search appends an ``index.search`` flight event and, with
+quality monitors attached (``attach_quality``), offers its results to
+the budgeted collision audit.
 """
 from __future__ import annotations
 
@@ -83,6 +85,7 @@ class MutableAnnEngine:
         self.store = store
         self.band_spec = store.band_spec
         self._coder = QueryCoder(sketcher)
+        self.quality = None       # obs.quality.QualityMonitors, if attached
 
     # -- mutation ------------------------------------------------------------
     @property
@@ -174,14 +177,19 @@ class MutableAnnEngine:
         """x [Q, D] (dense or ``encode.CsrMatrix``) -> int32 codes [Q, k]."""
         return self._coder.encode(x, impl=impl)
 
-    def attach_quality(self, monitors):
-        """Quality monitors: not yet ported."""
-        raise NotImplementedError(
-            "attach_quality (obs.quality monitors) is ROADMAP queue A item "
-            "10, not yet ported to repro_torch")
+    def attach_quality(self, monitors) -> "MutableAnnEngine":
+        """Attach an ``obs.quality.QualityMonitors`` bundle: every search
+        gets a budgeted chance (its ``sample_rate``) of feeding one
+        query's candidates to the collision monitor, and the bundle's
+        shadow reservoir subscribes to the store's delete events, so its
+        ground truth stays tombstone-aware. Returns self."""
+        self.quality = monitors
+        self.store.add_listener(monitors.on_store_event)
+        return self
 
     def codes_for_ids(self, ids) -> np.ndarray:
-        """int32 codes [m, k] of live external ids."""
+        """int32 codes [m, k] of live external ids (host numpy), the small
+        gather the quality audit re-scores."""
         return self.store.take_codes(ids)
 
     def search(self, queries, top_k: int = 10, *, mode: str = "exact",
@@ -223,6 +231,8 @@ class MutableAnnEngine:
             "index.search", t0, time.perf_counter(), batch=int(q),
             generation=self.generation, outcome=cfg.mode,
             synced=deep_tracing_active())
+        if self.quality is not None:
+            self.quality.observe_search(q_codes, out[0], self.codes_for_ids)
         return out
 
     def _lsh_coarse(self, seg: Segment, q_words, qh, top: int,

@@ -27,9 +27,14 @@ appends a ``learn.fit`` flight event); each minibatch step runs under a
 ``learn.step`` span, timed into ``learn.step_s`` only under a deep
 tracer (whose span sync would otherwise serialise the steps).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``packed_grads_sharded`` and ``fit_words(mesh=...)`` (queue A item
-4, with ``search_sharded``), ``quality=`` (item 10).
+``quality`` (an ``obs.quality.QualityMonitors``) on ``fit_words``,
+``fit_store`` and ``fit_log`` receives the trained model's margins over
+a seeded sample of at most ``cfg.margin_sample`` rows: the calibration
+baseline of its ``margin_mean`` drift series.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+``packed_grads_sharded`` and ``mesh=`` (queue A item 4, with
+``search_sharded``).
 """
 from __future__ import annotations
 
@@ -58,15 +63,29 @@ def _as_fspec(spec, k: int = None,
     return feature_spec_for(spec, k, normalize=normalize)
 
 
-def _not_ported(mesh=None, quality=None) -> None:
+def _not_ported(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "sharded training (mesh=, packed_grads_sharded) is not ported "
             "yet: ROADMAP queue A item 4, with search_sharded")
-    if quality is not None:
-        raise NotImplementedError(
-            "quality monitors (quality=) are not ported yet: ROADMAP queue "
-            "A item 10")
+
+
+def _observe_fit_margins(model, words, quality, seed: int) -> None:
+    """Feed a trained model's margins over a seeded sample of rows (the
+    reference's draw: ``np.random.default_rng(seed).choice(n, cap,
+    replace=False)``, sorted) to an ``obs.quality.QualityMonitors``
+    bundle: the post-fit calibration snapshot its ``margin_mean`` drift
+    series baselines against."""
+    if quality is None or not quality.enabled:
+        return
+    n = int(words.shape[0])
+    if n == 0:
+        return
+    cap = quality.cfg.margin_sample
+    if n > cap:
+        idx = np.random.default_rng(seed).choice(n, size=cap, replace=False)
+        words = words[torch.from_numpy(np.sort(idx)).to(words.device)]
+    quality.observe_margins(model.margins(words))
 
 
 def packed_grads_sharded(*args, **kwargs):
@@ -129,8 +148,10 @@ def fit_words(words, y, spec, cfg: LearnConfig = LearnConfig(), *,
     ``spec``: PackedFeatureSpec, CodeSpec (+ ``k``), or a sketcher. y:
     ±1 [n] (binary) or int class ids (``n_outputs`` > 1), any array or
     tensor. ``cfg.batch`` 0 trains full batch; > 0 streams minibatches.
-    ``valid_words`` masks tombstoned rows (full batch only)."""
-    _not_ported(mesh, quality)
+    ``valid_words`` masks tombstoned rows (full batch only). ``quality``
+    (an ``obs.quality.QualityMonitors``) receives the trained model's
+    margins over a sampled row subset."""
+    _not_ported(mesh)
     del axis
     fspec = _as_fspec(spec, k, normalize=normalize)
     y_pm = targets_pm(y, n_outputs, words.device)
@@ -149,8 +170,10 @@ def fit_words(words, y, spec, cfg: LearnConfig = LearnConfig(), *,
     t1 = _count_fit(n, cfg.steps, t0)
     default_flight_recorder().record("learn.fit", t0, t1, batch=n,
                                      synced=True)
-    return PackedLinearModel(fspec=fspec, tables=tables, bias=bias,
-                             loss=cfg.loss)
+    model = PackedLinearModel(fspec=fspec, tables=tables, bias=bias,
+                              loss=cfg.loss)
+    _observe_fit_margins(model, words, quality, cfg.seed)
+    return model
 
 
 def _check_store(fspec: PackedFeatureSpec, store) -> None:
@@ -161,14 +184,16 @@ def _check_store(fspec: PackedFeatureSpec, store) -> None:
 
 def fit_store(store, y, spec, cfg: LearnConfig = LearnConfig(), *,
               n_outputs: int = 1, normalize: bool = True, mesh=None,
-              axis: str = "data") -> PackedLinearModel:
+              axis: str = "data", quality=None) -> PackedLinearModel:
     """Train straight off an ``ann.CodeStore``: its packed words are the
     training set. ``spec`` supplies n_codes (a CodeSpec or sketcher; k
-    and bits are checked against the store)."""
+    and bits are checked against the store); ``quality`` as for
+    ``fit_words``."""
     _not_ported(mesh)
     fspec = _as_fspec(spec, getattr(store, "k", None), normalize=normalize)
     _check_store(fspec, store)
-    return fit_words(store.words, y, fspec, cfg, n_outputs=n_outputs)
+    return fit_words(store.words, y, fspec, cfg, n_outputs=n_outputs,
+                     quality=quality)
 
 
 def _segment_targets(seg, labels, n_outputs: int) -> torch.Tensor:
@@ -197,8 +222,10 @@ def fit_log(store, labels, spec, cfg: LearnConfig = LearnConfig(), *,
     segments' data gradients in log order onto zeros and adds the L2
     term once. ``labels`` maps external ids to labels (dict-like or
     callable(ids) -> labels). The segments are read at call time;
-    mutate, then refit to pick up churn."""
-    _not_ported(quality=quality)
+    mutate, then refit to pick up churn: subscribe the refit to a
+    ``quality`` bundle's drift alarms (``on_drift``) and pass the same
+    bundle here, so each refit re-baselines the margin series over
+    ``live_words()``."""
     if cfg.batch:
         raise ValueError("fit_log trains full-batch over the segment "
                          "snapshot; cfg.batch is unsupported (stream "
@@ -228,5 +255,8 @@ def fit_log(store, labels, spec, cfg: LearnConfig = LearnConfig(), *,
         tables, bias = adam_cosine_train(params, grad_fn, cfg.steps, cfg.lr)
         _finish(sp, tables, bias)
     _count_fit(store.n_live, cfg.steps, t0)
-    return PackedLinearModel(fspec=fspec, tables=tables, bias=bias,
-                             loss=cfg.loss)
+    model = PackedLinearModel(fspec=fspec, tables=tables, bias=bias,
+                              loss=cfg.loss)
+    if quality is not None and quality.enabled:
+        _observe_fit_margins(model, store.live_words(), quality, cfg.seed)
+    return model

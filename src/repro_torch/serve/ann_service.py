@@ -35,9 +35,19 @@ flight event per endpoint call to a ``FlightRecorder``, and runs
 deadline-relative lateness (oldest ticket age minus ``cfg.deadline_s``).
 Retained requests pin exemplars onto ``serve.flush_s``.
 ``probe_search``/``probe_classify`` run the real path with telemetry
-under ``serve.probe.*`` and a disabled sampler. The health layer's knobs
-(``quality``, ``slo``, ``resources``, ``incidents``) are ROADMAP queue A
-item 10 and raise ``NotImplementedError``.
+under ``serve.probe.*``, a disabled sampler and the quality samplers
+suspended.
+
+Quality (``obs.quality``): ``quality=True | QualityConfig |
+QualityMonitors`` attaches one bundle to the engine (the budgeted
+collision audit of every search; a mutable engine's deletes keep the
+shadow reservoir tombstone-aware) and to the service: ``add``,
+``bulk_load`` and ``upsert`` offer their rows to the reservoir, a
+sampled flush runs one shadow recall check of a real query, a sampled
+``classify`` feeds the margin series, and a drift alarm flags the
+in-flight request's trace for retention. The rest of the health layer
+(``slo``, ``resources``, ``incidents``) is ROADMAP queue A item 10 and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,7 +71,7 @@ __all__ = ["AnnServiceConfig", "AnnService"]
 #: shared no-op sampler for probe traffic: probes never occupy the
 #: retained-trace budget nor move the slow-tail threshold
 _PROBE_SAMPLER = TailSampler(enabled=False)
-_HEALTH_KNOBS = ("quality", "slo", "resources", "incidents")
+_HEALTH_KNOBS = ("slo", "resources", "incidents")
 
 
 @dataclass(frozen=True)
@@ -90,7 +100,7 @@ class AnnService:
     cfg: AnnServiceConfig = field(default_factory=AnnServiceConfig)
     classifier: object = None     # learn.PackedLinearModel (optional)
     registry: object = None       # obs.MetricsRegistry (own one if None)
-    quality: object = None        # ROADMAP A.10: must stay None
+    quality: object = None        # True | QualityConfig | QualityMonitors
     flight: object = None         # obs.FlightRecorder (global if None)
     sampler: object = None        # obs.TailSampler (own one if None)
     incidents: object = None      # ROADMAP A.10: must stay None
@@ -135,6 +145,23 @@ class AnnService:
             self.flight = default_flight_recorder()
         if self.sampler is None:
             self.sampler = TailSampler(registry=reg)
+        self._drift_flags = []    # series that alarmed since last request
+        if self.quality is not None:
+            from repro_torch.obs.quality import QualityConfig, QualityMonitors
+            if self.quality is True:
+                self.quality = QualityConfig()
+            if isinstance(self.quality, QualityConfig):
+                self.quality = QualityMonitors(
+                    self.engine.sketcher, self.quality, registry=reg)
+            # the engine hook samples searches; mutable engines also
+            # subscribe the shadow reservoir to store delete events
+            if getattr(self.engine, "quality", None) is not self.quality:
+                self.engine.attach_quality(self.quality)
+            # drift alarms flag the in-flight request for trace retention
+            self.quality.on_drift(self._on_drift)
+
+    def _on_drift(self, series: str, value: float, detector):
+        self._drift_flags.append(series)
 
     @property
     def stats(self):
@@ -195,6 +222,8 @@ class AnnService:
         cache invalidates on the next flush (generation bump)."""
         t0 = time.perf_counter()
         out = self._mutable().add(x, ids=ids)
+        if self.quality is not None:
+            self.quality.offer_rows(out, x)
         self._mut_event("serve.add", t0, batch=len(np.asarray(out)))
         return out
 
@@ -206,11 +235,15 @@ class AnnService:
         t0 = time.perf_counter()
         out = self._mutable().ingest(x, ids=ids, chunk_rows=chunk_rows,
                                      impl=self.cfg.impl)
+        if self.quality is not None:
+            self.quality.offer_rows(out, x)
         self._mut_event("serve.bulk_load", t0, batch=len(np.asarray(out)))
         return out
 
     def delete(self, ids, strict: bool = True) -> int:
-        """Tombstone external ids; returns the rows killed."""
+        """Tombstone external ids; returns the rows killed. The quality
+        bundle's shadow reservoir (if attached) drops them through the
+        store's delete listener."""
         t0 = time.perf_counter()
         n = self._mutable().delete(ids, strict=strict)
         self._mut_event("serve.delete", t0, batch=int(n))
@@ -220,6 +253,8 @@ class AnnService:
         """Replace or insert vectors under stable external ids."""
         t0 = time.perf_counter()
         out = self._mutable().upsert(ids, x)
+        if self.quality is not None:
+            self.quality.offer_rows(out, x)
         self._mut_event("serve.upsert", t0, batch=len(np.asarray(out)))
         return out
 
@@ -292,7 +327,11 @@ class AnnService:
                            trace_id=rq.trace_id, synced=True)
         if rq.retained:
             self._h_classify.exemplar(t1 - t0, rq.trace_id)
-        return np.concatenate(preds), np.concatenate(margs, axis=1)
+        labels, margins = np.concatenate(preds), np.concatenate(margs, axis=1)
+        qm = self.quality
+        if qm is not None and qm.sample():
+            qm.observe_margins(margins)     # calibration drift series
+        return labels, margins
 
     # -- batch execution -----------------------------------------------------
     def _bucket_for(self, n: int) -> int:
@@ -325,8 +364,9 @@ class AnnService:
         largest bucket; cache hits are served on the host and only misses
         are padded up to a bucket shape and searched. The flush is one
         tail-sampled request, retained when its oldest ticket's lateness
-        against ``cfg.deadline_s`` lands in the slow tail or when it
-        raises."""
+        against ``cfg.deadline_s`` lands in the slow tail, when it
+        raises, or when a quality monitor flagged drift since the last
+        request."""
         t_flush = time.perf_counter()
         with self.sampler.request("search",
                                   pending=len(self._queue)) as rq:
@@ -336,6 +376,10 @@ class AnnService:
                 except Exception:
                     self._c_flush_err.inc()
                     raise
+            if self._drift_flags:
+                for s in self._drift_flags:
+                    rq.flag(s)
+                self._drift_flags = []
         dur = time.perf_counter() - t_flush
         self._h_flush.observe(dur)
         if rq.retained:
@@ -348,15 +392,21 @@ class AnnService:
     def _probe_context(self):
         """Run one probe through the real endpoint code with its telemetry
         segregated: every per-request metric is swapped for a
-        ``serve.probe.*`` twin and the tail sampler for a disabled one.
-        The result cache and engine path are untouched: a probe exercises
-        exactly what user traffic exercises."""
+        ``serve.probe.*`` twin, the tail sampler for a disabled one (a
+        probe never takes trace budget or moves the tail threshold), and
+        quality sampling is suspended at the service and at the engine's
+        hook (a probe advances no seeded sampling stream and skews no
+        collision statistic). The result cache and engine path are
+        untouched: a probe exercises exactly what user traffic
+        exercises."""
         reg = self.registry
         saved = (self._h_flush, self._h_batch, self._h_age,
                  self._h_classify, self._c_queries, self._c_hits,
                  self._c_misses, self._c_batches, self._c_padded,
                  self._c_classified, self._c_flush_err,
-                 self._c_classify_err, self._g_waste, self.sampler)
+                 self._c_classify_err, self._g_waste, self.sampler,
+                 self.quality)
+        eng_quality = getattr(self.engine, "quality", None)
         self._h_flush = reg.histogram("serve.probe.flush_s")
         self._h_batch = reg.histogram("serve.probe.search_batch_s")
         self._h_age = reg.histogram("serve.probe.ticket_age_s")
@@ -371,6 +421,9 @@ class AnnService:
         self._c_classify_err = reg.counter("serve.probe.classify_errors")
         self._g_waste = reg.gauge("serve.probe.padding_waste")
         self.sampler = _PROBE_SAMPLER
+        self.quality = None
+        if eng_quality is not None:      # the engine's collision hook
+            self.engine.quality = None
         try:
             yield
         finally:
@@ -378,7 +431,10 @@ class AnnService:
              self._h_classify, self._c_queries, self._c_hits,
              self._c_misses, self._c_batches, self._c_padded,
              self._c_classified, self._c_flush_err,
-             self._c_classify_err, self._g_waste, self.sampler) = saved
+             self._c_classify_err, self._g_waste, self.sampler,
+             self.quality) = saved
+            if eng_quality is not None:
+                self.engine.quality = eng_quality
 
     def probe_search(self, x):
         """Known-answer canary search of ONE vector [D]; returns (ids,
@@ -452,6 +508,14 @@ class AnnService:
             b = self._bucket_for(n)
             x = self._pad_rows(torch.stack([v for _, v in batch]), b)
             q_codes = self.engine.encode_queries(x, impl=cfg.impl)
+            qm = self.quality
+            if qm is not None and qm.sample():
+                # budgeted shadow check of one real (unpadded) query:
+                # exact-cosine ground truth vs the coded ranking over the
+                # reservoir (obs.shadow)
+                qi = int(qm.rng.integers(n))
+                qm.shadow_check(batch[qi][1], self.engine.encode_queries,
+                                q_codes=q_codes[qi])
             res = [None] * n
             miss = list(range(n))
             keys = None

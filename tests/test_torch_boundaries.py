@@ -107,8 +107,11 @@ def test_mutable_index_on_cpu_on_request(no_cuda, tmp_path):
     assert eng.store.tail.words.device.type == "cpu" and eng.n == 40
     eng.save(str(tmp_path), 1)
     assert MutableAnnEngine.restore(crp, str(tmp_path)).n == 40
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.attach_quality(None)
+    from repro_torch.obs import QualityConfig, QualityMonitors
+    qm = QualityMonitors(crp, QualityConfig(sample_rate=1.0, grid_size=16))
+    assert eng.attach_quality(qm) is eng and eng.quality is qm
+    eng.search(np.ones((2, 8), np.float32), top_k=3)
+    assert qm.collision.pairs == 3
 
 
 @pytest.mark.parametrize("call", [

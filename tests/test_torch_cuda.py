@@ -1014,3 +1014,108 @@ def test_bf16_sketch_kernels_match_plain(gen, scheme, w):
     enc = StreamingEncoder(crp)
     assert torch.equal(enc.encode_packed(csr), enc.encode_packed(csr,
                                                                  impl="ref"))
+
+
+@pytest.mark.parametrize("scheme,w", [("2bit", 0.75), ("sign", 1.0),
+                                      ("uniform", 0.75)])
+def test_mle_estimator_on_the_card(gen, scheme, w):
+    """``MleRhoEstimator.cell_counts`` on the card equals the CPU's bit for
+    bit; ``estimate`` (a float32 product on each device) equals it except
+    at near-ties, never more than one grid step away."""
+    from repro_torch.core.estimators import MleRhoEstimator, mle_rho_2bit
+    from repro_torch.obs.quality import synthetic_code_pairs
+    spec = CodeSpec(scheme, w)
+    est = MleRhoEstimator(spec, grid_size=128)
+    step = est.rho_max / 127
+    for rho in (0.3, 0.9):
+        a, b = synthetic_code_pairs(spec, 100, rho, 500, seed=2)
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        cc = est.cell_counts(ta.cuda(), tb.cuda())
+        assert cc.is_cuda and torch.equal(cc.cpu(), est.cell_counts(ta, tb))
+        got = est.estimate(ta.cuda(), tb.cuda()).cpu()
+        want = est.estimate(ta, tb)
+        assert bool(((got - want).abs() <= step * 1.0001).all())
+        if scheme == "2bit":
+            assert torch.equal(mle_rho_2bit(ta.cuda(), tb.cuda(), w,
+                                            grid_size=128).cpu(), got)
+
+
+@pytest.mark.parametrize("scheme,w", [("2bit", 0.75), ("offset", 1.0)])
+def test_collision_monitor_batch_on_the_card(gen, scheme, w):
+    """A ``CollisionMonitor`` batch reduced on the card pools the same
+    int64 counts and per-pair fractions as on the CPU."""
+    import numpy as np
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs.quality import CollisionMonitor, synthetic_code_pairs
+    spec = CodeSpec(scheme, w)
+    q = torch.full((64,), w / 3) if scheme == "offset" else None
+    a, b = synthetic_code_pairs(spec, 64, 0.7, 300, seed=5, q=q)
+    mons = [CollisionMonitor(spec, 64, registry=MetricsRegistry(),
+                             grid_size=64) for _ in range(2)]
+    out = [m.observe_pairs(torch.from_numpy(a).to(dev),
+                           torch.from_numpy(b).to(dev))
+           for m, dev in zip(mons, ("cuda", "cpu"))]
+    assert out[0] == out[1]
+    np.testing.assert_array_equal(mons[0].counts, mons[1].counts)
+    assert (mons[0].frac.mean, mons[0].frac.std) == \
+        (mons[1].frac.mean, mons[1].frac.std)
+
+
+def test_service_quality_on_the_card(gen):
+    """``AnnService(quality=)`` over a small mutable engine on the card:
+    the collision audit's pooled counts equal a host recount of the
+    sampled pairs, the shadow reservoir holds no deleted id, and each
+    sampled recall equals a numpy recount."""
+    import numpy as np
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.index import MutableAnnEngine
+    from repro_torch.obs.quality import QualityConfig
+    from repro_torch.serve import AnnService, AnnServiceConfig
+    crp = CodedRandomProjection(SketchConfig(k=64), 48)
+    eng = MutableAnnEngine(crp, band_spec=None, tail_rows=256)
+    svc = AnnService(eng, AnnServiceConfig(buckets=(8, 32)),
+                     quality=QualityConfig(sample_rate=1.0, grid_size=64,
+                                           reservoir_rows=128))
+    x = torch.randn((1000, 48), generator=gen, device="cuda")
+    x = x / x.norm(dim=1, keepdim=True)
+    ids = svc.bulk_load(x[:600])
+    svc.add(x[600:900])
+    svc.upsert(ids[:10], x[900:910])
+    kill = np.r_[svc.quality.reservoir.ids()[:30], ids[100:200]]
+    svc.delete(np.unique(kill), strict=False)
+    assert not set(np.unique(kill).tolist()) & \
+        set(svc.quality.reservoir.ids().tolist())
+    qm = svc.quality
+    pairs = []
+    orig = qm.collision.observe_pairs
+
+    def spy(a, b):
+        pairs.append((a.cpu().numpy(), np.asarray(torch.as_tensor(b).cpu())))
+        return orig(a, b)
+    qm.collision.observe_pairs = spy
+    recalls = []
+    orig_q = qm.recall.observe_query
+
+    def spy_q(q_raw, encode_fn, estimator, q_codes=None):
+        r = orig_q(q_raw, encode_fn, estimator, q_codes=q_codes)
+        rows, codes = qm.reservoir.rows(), qm.recall._codes
+        qv = torch.as_tensor(q_raw).cpu().numpy()
+        cos = rows @ (qv / np.linalg.norm(qv)) / np.linalg.norm(rows, axis=1)
+        frac = (codes == q_codes.cpu().numpy()[None, :]).mean(axis=1)
+        gt = np.argsort(-cos, kind="stable")[:10]
+        got = np.argsort(-frac, kind="stable")[:10]
+        assert r == len(set(gt.tolist()) & set(got.tolist())) / 10
+        recalls.append(r)
+        return r
+    qm.recall.observe_query = spy_q
+    for lo in range(0, 40, 10):
+        for i in range(lo, lo + 10):
+            svc.submit(x[i] + 0.05 * torch.randn(48, generator=gen,
+                                                 device="cuda"))
+        svc.flush()
+    n = qm.collision.n_codes
+    want = np.zeros(n * n, np.int64)
+    for a, b in pairs:
+        want += np.bincount((a * n + b).ravel(), minlength=n * n)
+    assert pairs and np.array_equal(qm.collision.counts, want)
+    assert recalls and len(recalls) == qm.recall.queries

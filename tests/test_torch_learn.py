@@ -754,10 +754,17 @@ def test_config_errors_and_left_out_arguments():
         tl.packed_grads_sharded(None, tw, None, None, None)
     with pytest.raises(NotImplementedError, match="item 4"):
         tl.fit_store(CodeStore(words=tw, k=16, bits=2), y, spec, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tl.fit_words(tw, y, spec, k=16, quality=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tl.fit_log(store, lambda ids: [1] * len(ids), spec, quality=object())
+    # quality= feeds the post-fit margins (tests/test_torch_health.py);
+    # a bundle whose registry is off takes nothing
+    from repro_torch.obs import MetricsRegistry, QualityConfig, QualityMonitors
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    off = QualityMonitors(CodedRandomProjection(
+        SketchConfig(k=16), 4, device="cpu"), QualityConfig(grid_size=16),
+        registry=MetricsRegistry(enabled=False))
+    tl.fit_words(tw, y, spec, tl.LearnConfig(steps=1), k=16, quality=off)
+    tl.fit_log(store, lambda ids: [1] * len(ids), spec,
+               tl.LearnConfig(steps=1), quality=off)
+    assert off.margins.moments.n == 0
     model = tl.PackedLinearModel.zeros(tl.feature_spec_for(spec, 16), 2,
                                        device="cpu")
     with pytest.raises(ValueError, match="binary-only"):

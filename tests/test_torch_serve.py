@@ -430,9 +430,11 @@ def test_service_matches_jax(mutable):
 def test_service_refuses_the_health_layer():
     _, tc = _sketchers()
     eng = MutableAnnEngine(tc, tail_rows=64)
-    for knob in ("quality", "slo", "resources", "incidents"):
+    for knob in ("slo", "resources", "incidents"):
         with pytest.raises(NotImplementedError, match="item 10"):
             AnnService(eng, **{knob: True})
+    # the quality knob is ported (tests/test_torch_health.py)
+    assert AnnService(eng, quality=True).quality is eng.quality
     with pytest.raises(TypeError, match="immutable"):
         AnnService(AnnEngine(tc, convert.store_from_numpy(
             np.zeros((1, 4), np.uint32), K, BITS, device="cpu"))).add(
