@@ -260,7 +260,44 @@ Phases, in order; any failure raises and the script exits non-zero:
     not gated: served count-ranked queries/s with ``quality=None``,
     ``QualityConfig()`` (1 % sampled) and ``sample_rate=1.0`` in
     alternating runs, three of each, and MLE pairs/s, with the card line.
-13. A ``kernels`` JSON line, the card line, and as the last line
+13. The rest of the health layer (``repro_torch.obs`` slo, probe,
+    incident, resources, dashboard; run right after phase 12):
+    ``AnnService(quality=QualityConfig(), slo=True, resources=True,
+    incidents=<dir>)`` over the engine with 1,000 neighbourhood rows
+    added (100 centres, 10 rows each at cosines 0.80 to 0.95 to theirs,
+    offered to its shadow reservoir) and over a fresh 17-segment index of
+    the main corpus with the same rows added through the service, warmed
+    up. Each serves 4,096 tickets near the centres, one a flush (so about
+    1 % of them get a shadow check); the index then serves four rounds of
+    1,024 phase queries with ``delete``, ``upsert``, ``add`` and
+    ``bulk_load`` before each. Then each ``slo.health()`` must be ok with
+    no alert, with at least the policies' ``min_events`` (20) events on
+    the ``search.quality`` budget (else it could not have alerted), and
+    ``resources.compiles_since_mark`` 0 (every source was built in an
+    earlier phase, so this count cannot move here); 64 canaries a
+    service (``CanaryProber``, drawn from the shadow reservoir) must come
+    back at recall 1.0, all ok within ``deadline_s``, with
+    ``serve.flush_s``, ``serve.queries``, the sampler's retained traces and
+    the quality report as they were, and rows 2, 3 and 4 (engine) or 6
+    (index) launched under them; ``resources.collect()`` must report
+    ``engine.store`` as ``store.nbytes`` and ``cuda0.bytes_in_use`` as
+    ``torch.cuda.memory_allocated(0)``; the corrupted-ranking drill (an
+    ``SloEngine`` on a fake clock, ``engine.search_codes`` returning a
+    row that does not exist) must trip ``slo.search.quality`` within the
+    60 s fast window and leave an incident bundle of kind ``drift`` that
+    loads back with that series and the degraded SLO state; the
+    dashboard's roofline rows must be the H100 model's. Printed: the
+    ``search.quality`` events and bad events and the shadow recall of
+    each service; ms a canary against ``deadline_s``; host ms of
+    ``slo.tick(force=True)``, ``resources.collect()``, ``gather``,
+    ``render_html`` (and the page's bytes) and an incident capture (and
+    the bundle's bytes); served count-ranked queries/s with slo,
+    resources and incidents off against on at the default 1 % quality
+    sampling, eight runs of at least 5 s each in the order off, on, on,
+    off, off, on, on, off, each after a full garbage collection, with
+    each run's flush p99 and maximum, SLO ticks and collections inside,
+    and the card line.
+14. A ``kernels`` JSON line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -418,6 +455,10 @@ PATH_KERNELS = {
     "health": ("encode_fused", "coded_project", "pack_codes", "packed_topk",
                "packed_topk_masked", "packed_topk_tc", "packed_linear_fwd",
                "packed_linear_bwd"),
+    # canaries through probe_search on both engines: query coding and the
+    # count sweep (rows 2, 3, 4 and 6)
+    "slo": ("coded_project", "pack_codes", "packed_topk",
+            "packed_topk_masked", "packed_topk_tc"),
 }
 # registers and spill bytes of each instance of the tensor-core count
 # sweep, "bits,QB" -> (registers, spill stores), from the build's report
@@ -4470,6 +4511,434 @@ def health_phase(engine, mut, queries, device) -> tuple:
     return counts, rates
 
 
+SLO_SEED = 2019
+SLO_PROBES = 64
+SLO_ROUND = 1024          # mutable rounds: tickets between mutations
+# neighbourhoods for the shadow check: 100 centres, 10 rows each at
+# cosines 0.80..0.95 to their centre, queries at about 0.98 to one centre
+SLO_CENTRES, SLO_MEMBERS, SLO_QUERY_NOISE = 100, 10, 0.2
+SLO_COST_S = 5.0          # seconds a layer-cost run serves at least
+
+
+def _nan_safe(report) -> str:
+    """A report as sorted JSON (NaN written as NaN), for equality."""
+    return json.dumps(report, sort_keys=True, default=str)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def neighbourhoods(gen, device) -> tuple:
+    """(rows [SLO_CENTRES * SLO_MEMBERS, D], centres [SLO_CENTRES, D]):
+    each centre's rows at cosines 0.80 to 0.95 to it, so a query near a
+    centre has those rows as its exact top 10 by a wide gap (a random
+    unit row lies within about 0.1 of 0 at D 1,024). On rows of the
+    corpus's kind, which lie near no query, a shadow check's exact top 10
+    is noise and its recall chance."""
+    import torch
+    centres = unit_rows(SLO_CENTRES, D, gen, device)
+    a = torch.linspace(0.80, 0.95, SLO_MEMBERS, device=device)
+    a = a.repeat(SLO_CENTRES)[:, None]
+    u = unit_rows(SLO_CENTRES * SLO_MEMBERS, D, gen, device)
+    rows = a * centres.repeat_interleave(SLO_MEMBERS, 0) + \
+        (1 - a * a).sqrt() * u
+    return rows / rows.norm(dim=1, keepdim=True), centres
+
+
+def slo_phase(engine, queries, device) -> tuple:
+    """The rest of the health layer at the main path's width (phase 13):
+    ``AnnService(quality=QualityConfig(), slo=True, resources=True,
+    incidents=<dir>)`` over the engine after ``add`` (with 1,000
+    neighbourhood rows added) and over a fresh 17-segment mutable index
+    of the same corpus, warmed up; served traffic, canaries, the
+    probe-exclusion invariant, resource accounting, the corrupted-ranking
+    drill on a fake clock, the dashboard, and the layer's cost. The
+    incident and dashboard directory is deleted after. Returns (launch
+    counts under the canaries, rates)."""
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="health-", dir=os.path.join(ROOT, "build"))
+    try:
+        return _slo_phase(engine, queries, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _slo_phase(engine, queries, device, tmp) -> tuple:
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.ann import BandSpec
+    from repro_torch.index import MutableAnnEngine
+    from repro_torch.kernels import ops
+    from repro_torch.obs import (CanaryProber, DEFAULT_POLICIES,
+                                 MetricsRegistry, ProbeConfig, SloEngine,
+                                 gather, jit_compiles, render_html,
+                                 write_dashboard)
+    from repro_torch.obs import kernelstats
+    from repro_torch.obs.quality import QualityConfig
+    from repro_torch.serve import AnnService, AnnServiceConfig
+    rates = {}
+    rng = np.random.default_rng(SLO_SEED)
+    gen = torch.Generator(device=device).manual_seed(SLO_SEED)
+    card = card_line()
+    picks = rng.integers(0, N_QUERIES, HEALTH_TICKETS)
+    min_events = max(p.min_events for p in DEFAULT_POLICIES)
+
+    def drive(svc, picks):
+        pos, i = 0, 0
+        while pos < len(picks):
+            batch = picks[pos:pos + SERVE_SIZES[i % len(SERVE_SIZES)]]
+            pos, i = pos + len(batch), i + 1
+            for j in batch:
+                svc.submit(queries[j])
+            svc.flush()
+
+    def near_traffic(svc):
+        # one ticket a flush (light load: the shadow check samples 1 %
+        # of flushes), each query near one centre, no two alike
+        near = centres[rng.integers(0, SLO_CENTRES, HEALTH_TICKETS)] + \
+            SLO_QUERY_NOISE * unit_rows(HEALTH_TICKETS, D, gen, device)
+        for q in near / near.norm(dim=1, keepdim=True):
+            svc.submit(q)
+            svc.flush()
+
+    def knobs(name):
+        return dict(quality=QualityConfig(), slo=True, resources=True,
+                    incidents=os.path.join(tmp, name))
+
+    # 1. the two services, warmed up: the engine with the neighbourhood
+    # rows added (ids from engine.n on) and offered to its reservoir; a
+    # fresh 17-segment index of the main corpus, ingested before its
+    # service exists, the neighbourhood rows added through the service
+    nb_rows, centres = neighbourhoods(gen, device)
+    engine.quality = None
+    eng = engine.add(nb_rows)
+    nb_ids = np.arange(engine.n, eng.n)
+    mut = MutableAnnEngine(engine.sketcher, band_spec=BandSpec(16, 4),
+                           tail_rows=TAIL_ROWS)
+    cgen = torch.Generator(device=device).manual_seed(CORPUS_SEED)
+    for _ in range(N_ROWS // CHUNK):
+        mut.ingest(corpus_chunk(cgen, device)[0], chunk_rows=CHUNK)
+    svc = AnnService(eng, AnnServiceConfig(), **knobs("engine"))
+    msvc = AnnService(mut, AnnServiceConfig(), **knobs("mutable"))
+    svc.quality.offer_rows(nb_ids, nb_rows)
+    msvc.add(nb_rows)
+    if len(svc.quality.reservoir) != len(nb_ids) or \
+            len(msvc.quality.reservoir) != len(nb_ids):
+        raise AssertionError("slo: the reservoirs do not hold the "
+                             "neighbourhood rows")
+    segs = mut.store.n_segments
+    if segs != N_ROWS // TAIL_ROWS + 1:
+        raise AssertionError(f"slo: the index has {segs} segments")
+    t0 = time.perf_counter()
+    svc.warmup(D)
+    msvc.warmup(D)
+    torch.cuda.synchronize()
+    log(f"slo warmup: both services in {time.perf_counter() - t0:.3f} s; "
+        f"the index {segs} segments; the compile mark at {jit_compiles()} "
+        f"nvcc calls of this process (every source was built in an earlier "
+        f"phase, so no later call can compile: compiles since the mark can "
+        f"only move where a kernel's first use comes after warmup)")
+
+    # 2. healthy traffic: 4,096 neighbourhood tickets on each service, one
+    # a flush; then on the index rounds of 1,024 phase queries with
+    # delete, upsert, add and bulk_load before each
+    near_traffic(svc)
+    near_traffic(msvc)
+    steps = [
+        lambda: msvc.delete(np.unique(np.r_[
+            msvc.quality.reservoir.ids()[::4],
+            rng.choice(mut.store.live_ids(), N_UPSERT, replace=False)]),
+            strict=False),
+        lambda: msvc.upsert(
+            rng.choice(mut.store.live_ids(), N_UPSERT, replace=False),
+            unit_rows(N_UPSERT, D, gen, device)),
+        lambda: msvc.add(unit_rows(CHUNK, D, gen, device)),
+        lambda: msvc.bulk_load(unit_rows(CHUNK, D, gen, device),
+                               chunk_rows=CHUNK),
+    ]
+    for mutate in steps:
+        mutate()
+        drive(msvc, rng.integers(0, N_QUERIES, SLO_ROUND))
+    torch.cuda.synchronize()
+    healthy = {}
+    for name, s in (("engine", svc), ("mutable", msvc)):
+        s.slo.tick(force=True)
+        h = s.slo.health()
+        served = s.registry.counters["serve.queries"].value
+        n_q, bad_q = s.slo.ledgers["search.quality"].totals()
+        rec = s.quality.report()["shadow"]
+        if h["status"] != "ok" or h["alerts"]:
+            raise AssertionError(f"slo: healthy traffic on the {name} raised "
+                                 f"{h['alerts']} ({h['status']})")
+        if n_q < min_events:
+            raise AssertionError(f"slo: {n_q} quality events on the {name}, "
+                                 f"fewer than a policy's {min_events}: the "
+                                 f"quality budget could not have alerted")
+        if s.resources.compiles_since_mark != 0:
+            raise AssertionError(f"slo: {s.resources.compiles_since_mark} "
+                                 f"compiles after warm-up on the {name}")
+        if served < HEALTH_TICKETS:
+            raise AssertionError(f"slo: {served} tickets on the {name}")
+        fl = s.registry.histograms["serve.flush_s"]
+        healthy[name] = dict(tickets=served, flushes=fl.count,
+                             quality_events=n_q, quality_bad=bad_q,
+                             shadow_recall=rec["recall"])
+        at = (f" over {mut.store.n_segments} segments (17 before the "
+              f"mutations)" if name == "mutable" else "")
+        log(f"slo healthy {name}{at}: {served} tickets in {fl.count} "
+            f"flushes, status ok, no alert; search.quality {n_q} events "
+            f"({bad_q} bad, the policies need {min_events}), shadow "
+            f"recall@10 {rec['recall']:.4f} over {rec['queries']} checks; "
+            f"compiles since mark 0; flush p99 "
+            f"{1e3 * fl.percentile(0.99):.3f} ms (bucket bound) against "
+            f"deadline_s {s.cfg.deadline_s}; budgets "
+            + ", ".join(f"{k} {v['events']} events burn {v['burn_fast']:.3f}"
+                        for k, v in sorted(h["slos"].items())))
+    rates["healthy"] = healthy
+    left = set(msvc.quality.reservoir.ids().tolist()) - \
+        set(mut.store.live_ids().tolist())
+    if left:
+        raise AssertionError(f"slo: {len(left)} dead ids in the reservoir")
+
+    # 3. canaries through probe_search: all found, user series untouched,
+    # the count-ranked kernels launched under them
+    probe_counts = {}
+    canary = {}
+    for name, s in (("engine", svc), ("mutable", msvc)):
+        reg = s.registry
+        before = (reg.histograms["serve.flush_s"].count,
+                  reg.counters["serve.queries"].value,
+                  _nan_safe(dict(s.sampler.retained)),
+                  _nan_safe(s.quality.report()))
+        prober = CanaryProber(s, slo=s.slo, cfg=ProbeConfig(
+            n_probes=SLO_PROBES, seed=SLO_SEED, classify=False))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = prober.run_once()
+        t_run = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            probe_counts[k] = probe_counts.get(k, 0) + v
+        after = (reg.histograms["serve.flush_s"].count,
+                 reg.counters["serve.queries"].value,
+                 _nan_safe(dict(s.sampler.retained)),
+                 _nan_safe(s.quality.report()))
+        if "skipped" in rep or not rep["ok"] or rep["recall"] != 1.0 or \
+                rep["probes"] != SLO_PROBES:
+            summary = {k: v for k, v in rep.items() if k != "detail"}
+            raise AssertionError(f"slo canaries on the {name}: {summary}")
+        if after != before:
+            raise AssertionError(f"slo canaries on the {name} moved a "
+                                 f"user-facing series: {before} -> {after}")
+        if reg.counters["serve.probe.queries"].value != SLO_PROBES:
+            raise AssertionError("slo: the probe twins missed canaries")
+        need = ("coded_project", "pack_codes", "packed_topk_tc",
+                "packed_topk" if name == "engine" else "packed_topk_masked")
+        missing = [k for k in need if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"slo canaries on the {name} launched no "
+                                 f"{missing}")
+        lat = [p["latency_s"] for p in rep["detail"]]
+        canary[name] = dict(
+            ms_mean=1e3 * t_run / rep["probes"],
+            ms_median=1e3 * statistics.median(lat),
+            ms_max=1e3 * rep["max_latency_s"],
+            margin_mean=rep["margin_mean"], deadline_s=s.cfg.deadline_s,
+            segments=mut.store.n_segments if name == "mutable" else 1)
+        at = (f" ({mut.store.n_segments} segments)" if name == "mutable"
+              else "")
+        log(f"slo canaries {name}{at}: {rep['probes']} through probe_search, "
+            f"recall 1.0, all ok; {canary[name]['ms_mean']:.3f} ms a canary "
+            f"(median {canary[name]['ms_median']:.3f}, max "
+            f"{canary[name]['ms_max']:.3f}) against deadline_s "
+            f"{s.cfg.deadline_s}; margin mean {rep['margin_mean']:.4f}; "
+            f"serve.flush_s, serve.queries, the sampler and the quality "
+            f"report untouched; launches {json.dumps(counts)} ({card})")
+    rates["canary"] = canary
+    require_launched(probe_counts, "slo")
+
+    # 4. resource accounting
+    res = svc.resources.collect()
+    used = torch.cuda.memory_allocated(0)
+    if res["tracked"]["engine.store"] != eng.store.nbytes:
+        raise AssertionError("slo: tracked engine.store != store.nbytes")
+    if res["device"]["cuda0.bytes_in_use"] != used or \
+            used < eng.store.nbytes:
+        raise AssertionError(f"slo: cuda0.bytes_in_use "
+                             f"{res['device']['cuda0.bytes_in_use']} against "
+                             f"memory_allocated {used}")
+    mres = msvc.resources.collect()
+    if mres["tracked"]["engine.store"] != mut.store.nbytes:
+        raise AssertionError("slo: tracked index store != store.nbytes")
+    log(f"slo resources: engine.store {res['tracked']['engine.store']:.0f} "
+        f"bytes (= store.nbytes), index store "
+        f"{mres['tracked']['engine.store']:.0f}; cuda0 bytes in use {used} "
+        f"(= torch.cuda.memory_allocated(0)), peak "
+        f"{res['device']['cuda0.peak_bytes']}; host RSS "
+        f"{res['host']['rss_bytes']:.0f} bytes")
+
+    # 5. the corrupted-ranking drill on a fake clock (cache off, so no
+    # cached pre-fault answer masks it), canaries from the engine's
+    # reservoir
+    clock = {"t": 0.0}
+    dreg = MetricsRegistry()
+    dslo = SloEngine(registry=dreg, clock=lambda: clock["t"],
+                     resolution=1.0)
+    dsvc = AnnService(eng, AnnServiceConfig(cache_size=0), registry=dreg,
+                      slo=dslo, resources=True,
+                      incidents=os.path.join(tmp, "drill"))
+    dprober = CanaryProber(dsvc, slo=dslo, reservoir=svc.quality.reservoir,
+                           cfg=ProbeConfig(n_probes=4, seed=SLO_SEED,
+                                           classify=False))
+    for _ in range(8):
+        rep = dprober.run_once()
+        if not rep["ok"] or rep["recall"] != 1.0:
+            raise AssertionError("slo drill: a healthy canary failed")
+        clock["t"] += 1.0
+    if dslo.health()["status"] != "ok" or dsvc.incidents.captured:
+        raise AssertionError("slo drill: unhealthy before the fault")
+    wrong = N_ROWS * 2            # no such row
+    eng.search_codes = lambda q, cfg: (
+        torch.full((q.shape[0], TOP_K), wrong, dtype=torch.int32,
+                   device=q.device),
+        torch.zeros((q.shape[0], TOP_K), device=q.device))
+    t_fault = clock["t"]
+    try:
+        for _ in range(60):
+            rep = dprober.run_once()
+            if rep["ok"] or rep["recall"] != 0.0:
+                raise AssertionError("slo drill: a corrupted canary passed")
+            clock["t"] += 1.0
+            if dslo.health()["status"] == "degraded":
+                break
+    finally:
+        del eng.search_codes
+    h = dslo.health()
+    if "slo.search.quality" not in h["alerts"] or \
+            clock["t"] - t_fault > 60.0:
+        raise AssertionError(f"slo drill: no quality alert within the fast "
+                             f"window ({h['alerts']})")
+    bundle = dsvc.incidents.load()
+    if bundle["kind"] != "drift" or \
+            bundle["context"]["series"] != "slo.search.quality" or \
+            bundle["slo"]["status"] != "degraded" or \
+            "slo.search.quality" not in bundle["slo"]["alerts"]:
+        raise AssertionError("slo drill: the incident bundle lacks the alert")
+    if not dprober.run_once()["ok"]:
+        raise AssertionError("slo drill: the engine was not restored")
+    log(f"slo drill: corrupted ranking tripped slo.search.quality after "
+        f"{clock['t'] - t_fault:.0f} fake seconds (fast window 60 s), "
+        f"health degraded, shed {h['shed_fraction']:.3f}; incident "
+        f"{bundle['incident']} loaded back: kind drift, series "
+        f"slo.search.quality, SLO status degraded; engine restored")
+
+    # 6. the dashboard; the costs of the slow-path calls (host clock)
+    def host_ms(fn, reps=20):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts)
+
+    kw = dict(registry=svc.registry, slo=svc.slo, flight=svc.flight,
+              quality=svc.quality, resources=svc.resources)
+    snap = gather(**kw)
+    hw = kernelstats.HW()
+    roof = snap.get("roofline", {})
+    if not roof or any(r["t_model_s"] != max(r["flops"] / hw.peak_flops,
+                                             r["hbm_bytes"] / hw.hbm_bw)
+                       for r in roof.values()):
+        raise AssertionError("slo dashboard: roofline not the H100 model's")
+    page_path = write_dashboard(os.path.join(tmp, "dash", "index.html"),
+                                snap)
+    with open(page_path, encoding="utf-8") as f:
+        page = f.read()
+    if page != render_html(snap) or "<script" in page or \
+            "roofline (modeled)" not in page:
+        raise AssertionError("slo dashboard: the written page is wrong")
+    costs = dict(
+        tick_ms=host_ms(lambda: svc.slo.tick(force=True)),
+        collect_ms=host_ms(svc.resources.collect),
+        gather_ms=host_ms(lambda: gather(**kw)),
+        render_html_ms=host_ms(lambda: render_html(snap)),
+        page_bytes=len(page.encode("utf-8")))
+    cap = []
+
+    def capture():
+        cap.append(svc.incidents.capture("timing", "capture cost"))
+    costs["capture_ms"] = host_ms(capture, reps=5)
+    if not all(cap):
+        raise AssertionError("slo: an incident capture failed")
+    costs["bundle_bytes"] = _dir_bytes(cap[-1])
+    rates["costs"] = costs
+    log(f"slo costs (host clock, median of 20; capture of 5): tick(force) "
+        f"{costs['tick_ms']:.4f} ms, resources.collect() "
+        f"{costs['collect_ms']:.4f} ms, gather {costs['gather_ms']:.4f} ms, "
+        f"render_html {costs['render_html_ms']:.4f} ms for a page of "
+        f"{costs['page_bytes']} bytes ({len(roof)} roofline rows, H100 "
+        f"model); incident capture {costs['capture_ms']:.3f} ms for a "
+        f"bundle of {costs['bundle_bytes']} bytes ({card})")
+
+    # 7. the layer's cost: served count-ranked queries/s, slo, resources
+    # and incidents off against on, both at the default 1 % sampling; each
+    # run serves the phase's tickets over and over for SLO_COST_S, so that
+    # several ticks fall inside, after a full collection (so the garbage of
+    # the run before is not collected inside this one)
+    qps = {"off": [], "on": []}
+    runs = []
+    for i, state in enumerate(("off", "on", "on", "off",
+                               "off", "on", "on", "off")):
+        eng.quality = None
+        extra = {} if state == "off" else dict(
+            slo=True, resources=True,
+            incidents=os.path.join(tmp, f"qps{i}"))
+        tsvc = AnnService(eng, AnnServiceConfig(),
+                          quality=QualityConfig(), **extra).warmup(D)
+        gc.collect()
+        torch.cuda.synchronize()
+        gcs = sum(g["collections"] for g in gc.get_stats())
+        served, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < SLO_COST_S:
+            drive(tsvc, picks)
+            served += len(picks)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        fl = tsvc.registry.histograms["serve.flush_s"]
+        qps[state].append(served / t)
+        runs.append(dict(
+            state=state, queries_s=served / t, tickets=served, s=t,
+            flush_p99_ms=1e3 * fl.percentile(0.99),
+            flush_max_ms=1e3 * fl.vmax,
+            gc_collections=sum(g["collections"] for g in gc.get_stats())
+            - gcs,
+            ticks=(len(tsvc.slo.ledgers["search.latency"].ring)
+                   if tsvc.slo is not None else 0)))
+        del tsvc
+    rates["served_queries_s"] = qps
+    rates["cost_runs"] = runs
+    for r in runs:
+        log(f"slo cost run {r['state']}: {r['tickets']} tickets in "
+            f"{r['s']:.3f} s = {r['queries_s']:.1f} queries/s; flush p99 "
+            f"{r['flush_p99_ms']:.3f} ms (bucket bound), max "
+            f"{r['flush_max_ms']:.3f} ms; {r['ticks']} SLO ticks (with "
+            f"warm-up's) and "
+            f"{r['gc_collections']} garbage collections inside")
+    log(f"slo served count-ranked queries/s (at least {SLO_COST_S} s a run, "
+        f"QualityConfig() in both, order off, on, on, off, off, on, on, "
+        f"off): off {qps['off']} median {statistics.median(qps['off']):.1f}"
+        f", slo+resources+incidents on {qps['on']} median "
+        f"{statistics.median(qps['on']):.1f} ({card})")
+    return probe_counts, rates
+
+
 def profile_main_path(engine, queries, device) -> None:
     """``--profile``: device time by kernel for 8 ``sketch`` calls, each
     on a 65,536-row chunk made beforehand and each followed by a
@@ -4670,6 +5139,10 @@ def main(argv) -> int:
                                                device)
     log(f"health path: {json.dumps(rates_health)}")
     log(f"phase health path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_slo, rates_slo = slo_phase(engine, state["queries"], device)
+    log(f"slo path: {json.dumps(rates_slo)}")
+    log(f"phase slo path: {time.perf_counter() - t0:.1f} s")
     del engine, queries, state, mut
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -8,6 +8,10 @@ Each ``csrc/<name>.cu`` has a plain C interface (with the shared
 libraries go to ``build/kernels`` at the repository root, named by a hash
 of their source and flags, and are loaded with ``ctypes``. Nothing here
 runs at import time: the CPU tests import every module without ``nvcc``.
+
+``COMPILES`` counts the ``nvcc`` calls this process made: the port's
+compiles, which ``obs.resources.jit_compiles`` reads for the serving
+path's never-recompile invariant.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "function"]
+__all__ = ["SOURCES", "BUILD_DIR", "COMPILES", "build_all", "function"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -30,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict = {}
 _fns: dict = {}
+COMPILES = 0     # nvcc calls made by build_all in this process
 
 
 def _nvcc() -> str:
@@ -56,6 +61,7 @@ def build_all(verbose: bool = False) -> dict:
     sources it compiled (the ``-Xptxas -v`` register and spill report
     when ``verbose``); raises with the compiler's messages if any build
     fails."""
+    global COMPILES
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -70,6 +76,7 @@ def build_all(verbose: bool = False) -> dict:
     logs, failed = {}, []
     for name, (out, tmp, proc) in procs.items():
         logs[name] = proc.communicate()[0]
+        COMPILES += 1
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{logs[name]}")
         else:

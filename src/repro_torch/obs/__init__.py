@@ -1,6 +1,6 @@
-"""Observability base: metrics, traces, flight events, kernel stats.
+"""Observability: metrics, traces, flight events, kernel stats, health.
 
-Counterpart of the base of ``repro.obs`` (ROADMAP queue A item 7):
+Counterpart of ``repro.obs``, with the same names:
 
 registry    — ``MetricsRegistry``: counters, gauges, fixed-log-bucket
               histograms (p50/p95/p99 without storing samples);
@@ -26,9 +26,29 @@ shadow      — seeded reservoir of raw rows (capped, tombstone-aware) +
               recall@k and rho-estimation error with Wilson intervals
 drift       — Page-Hinkley/CUSUM detectors over the monitored series;
               registered callbacks fire on alarm
-
-The rest of the reference's health layer (slo, probe, incident,
-resources, dashboard) is ROADMAP queue A item 10 and is not ported yet.
+incident    — ``IncidentManager``: on a drift alarm, burn-rate alarm or
+              endpoint error, dump a self-contained bundle (flight tail,
+              retained traces, registry snapshot, quality state, SLO
+              health, store generation) through ``repro_torch.checkpoint``
+              in the reference's format; restores to a readable dict
+slo         — ``SloEngine``: declarative per-endpoint ``SloSpec``s
+              (latency/availability/quality), rolling multi-window error
+              budgets from cumulative-counter snapshots, multi-window
+              multi-burn-rate alerts on the ``DriftMonitor`` callback
+              contract, and the machine-readable ``health()`` verdict
+probe       — ``CanaryProber``: deterministic known-answer canaries drawn
+              from the shadow reservoir, replayed through the service's
+              probe endpoints with telemetry segregated; verdicts feed
+              the SLO quality budgets
+resources   — ``ResourceMonitor``: bytes of tracked stores, the CUDA
+              caching allocator's bytes in use and peak per card, host
+              RSS, and the process-wide compile counter (the ``nvcc``
+              calls of ``kernels._build``) behind the never-recompile
+              invariant
+dashboard   — one ``gather`` snapshot rendered as terminal text or a
+              static self-contained HTML page (SLO budgets and burn
+              sparklines, latency, resources, the H100 roofline,
+              quality, flight tail), written atomically
 """
 from repro_torch.obs.registry import (Counter, Gauge, Histogram,  # noqa: F401
                                       HistogramSpec, MetricsRegistry,
@@ -51,3 +71,12 @@ from repro_torch.obs.quality import (CollisionMonitor,  # noqa: F401
 from repro_torch.obs.shadow import (RecallMonitor,  # noqa: F401
                                     ShadowReservoir, wilson_interval)
 from repro_torch.obs.drift import Cusum, DriftMonitor, PageHinkley  # noqa: F401
+from repro_torch.obs.slo import (AlertState, BurnPolicy,  # noqa: F401
+                                 DEFAULT_POLICIES, SloEngine, SloSpec)
+from repro_torch.obs.incident import IncidentManager  # noqa: F401
+from repro_torch.obs.probe import CanaryProber, ProbeConfig  # noqa: F401
+from repro_torch.obs.resources import (ResourceMonitor,  # noqa: F401
+                                       install_compile_counter,
+                                       jit_compiles)
+from repro_torch.obs.dashboard import (gather, render_html,  # noqa: F401
+                                       render_text, write_dashboard)

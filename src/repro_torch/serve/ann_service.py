@@ -45,9 +45,26 @@ shadow reservoir tombstone-aware) and to the service: ``add``,
 ``bulk_load`` and ``upsert`` offer their rows to the reservoir, a
 sampled flush runs one shadow recall check of a real query, a sampled
 ``classify`` feeds the margin series, and a drift alarm flags the
-in-flight request's trace for retention. The rest of the health layer
-(``slo``, ``resources``, ``incidents``) is ROADMAP queue A item 10 and
-raises ``NotImplementedError``.
+in-flight request's trace for retention and, when an
+``IncidentManager`` is attached (``incidents``: a directory string or a
+manager), dumps an incident bundle; endpoint errors in ``flush`` and
+``classify`` are captured as bundles too.
+
+Closed-loop health: ``slo=True`` (or an injected ``obs.SloEngine``)
+registers the default ``SloSpec``s per endpoint — latency against
+``cfg.deadline_s`` over ``serve.flush_s``/``serve.classify_s``,
+availability from the ``serve.*_errors`` counters, and a search quality
+SLO fed by each shadow recall check and by canary verdicts — and ticks
+the engine after every flush and classify (self-limited to its
+resolution). Burn-rate alarms ride the drift wiring (flag the in-flight
+trace, dump an incident bundle carrying the SLO state);
+``service.slo.health()`` is the admission-control verdict.
+``resources=True`` attaches an ``obs.ResourceMonitor`` that tracks the
+engine's store bytes; ``warmup`` ends by pinning its compile baseline
+and arming the SLO's recompile ledger (``mark_steady``), so a kernel
+built after warm-up burns the never-recompile budget.
+``obs.CanaryProber`` replays known-answer rows through
+``probe_search``/``probe_classify``.
 """
 from __future__ import annotations
 
@@ -63,15 +80,15 @@ import torch
 from repro_torch.ann.engine import SearchConfig
 from repro_torch.core import packing as _packing
 from repro_torch.kernels import ops as _ops
-from repro_torch.obs import (MetricsRegistry, TailSampler,
-                             default_flight_recorder, span)
+from repro_torch.obs import (IncidentManager, MetricsRegistry,
+                             ResourceMonitor, SloEngine, SloSpec,
+                             TailSampler, default_flight_recorder, span)
 
 __all__ = ["AnnServiceConfig", "AnnService"]
 
 #: shared no-op sampler for probe traffic: probes never occupy the
 #: retained-trace budget nor move the slow-tail threshold
 _PROBE_SAMPLER = TailSampler(enabled=False)
-_HEALTH_KNOBS = ("slo", "resources", "incidents")
 
 
 @dataclass(frozen=True)
@@ -103,17 +120,11 @@ class AnnService:
     quality: object = None        # True | QualityConfig | QualityMonitors
     flight: object = None         # obs.FlightRecorder (global if None)
     sampler: object = None        # obs.TailSampler (own one if None)
-    incidents: object = None      # ROADMAP A.10: must stay None
-    slo: object = None            # ROADMAP A.10: must stay None
-    resources: object = None      # ROADMAP A.10: must stay None
+    incidents: object = None      # obs.IncidentManager | directory str
+    slo: object = None            # True | obs.SloEngine
+    resources: object = None      # True | obs.ResourceMonitor
 
     def __post_init__(self):
-        for knob in _HEALTH_KNOBS:
-            if getattr(self, knob) is not None:
-                raise NotImplementedError(
-                    f"AnnService({knob}=...) needs the observability health "
-                    f"layer, ROADMAP queue A item 10, not yet ported to "
-                    f"repro_torch")
         self._device = self.engine.sketcher.device
         self._queue = []          # [(ticket, vector [D])]
         self._results = {}        # ticket -> (ids [top_k], rho [top_k])
@@ -145,6 +156,11 @@ class AnnService:
             self.flight = default_flight_recorder()
         if self.sampler is None:
             self.sampler = TailSampler(registry=reg)
+        if isinstance(self.incidents, str):
+            self.incidents = IncidentManager(
+                self.incidents, flight=self.flight, sampler=self.sampler,
+                registry=reg, generation_fn=lambda: getattr(
+                    self.engine, "generation", 0))
         self._drift_flags = []    # series that alarmed since last request
         if self.quality is not None:
             from repro_torch.obs.quality import QualityConfig, QualityMonitors
@@ -157,11 +173,48 @@ class AnnService:
             # subscribe the shadow reservoir to store delete events
             if getattr(self.engine, "quality", None) is not self.quality:
                 self.engine.attach_quality(self.quality)
-            # drift alarms flag the in-flight request for trace retention
+            # drift alarms flag the in-flight request for trace
+            # retention and (when wired) dump an incident bundle
             self.quality.on_drift(self._on_drift)
+            if self.incidents is not None and \
+                    getattr(self.incidents, "quality", None) is None:
+                self.incidents.quality = self.quality
+        if self.resources is True:
+            self.resources = ResourceMonitor(registry=reg)
+        if self.resources is not None:
+            store = getattr(self.engine, "store", None)
+            if store is not None and hasattr(store, "nbytes"):
+                self.resources.track("engine.store", store)
+        if self.slo is True:
+            self.slo = SloEngine(registry=reg)
+        if self.slo is not None:
+            # default endpoint objectives: latency against the flush
+            # deadline, availability from the error counters, quality
+            # fed by shadow recall (floor 0.8) and probe verdicts
+            if "search" not in self.slo.specs:
+                self.slo.add(SloSpec(
+                    "search", latency_hist="serve.flush_s",
+                    latency_target_s=self.cfg.deadline_s,
+                    error_counter="serve.flush_errors",
+                    quality_min=0.8))
+            if "classify" not in self.slo.specs:
+                self.slo.add(SloSpec(
+                    "classify", latency_hist="serve.classify_s",
+                    latency_target_s=self.cfg.deadline_s,
+                    error_counter="serve.classify_errors"))
+            if self.resources is not None:
+                self.slo.attach_resources(self.resources)
+            # burn-rate alarms ride the drift wiring: flag the in-flight
+            # trace for retention and dump an incident bundle
+            self.slo.subscribe(self._on_drift)
+            if self.incidents is not None and \
+                    getattr(self.incidents, "slo", None) is None:
+                self.incidents.slo = self.slo
 
     def _on_drift(self, series: str, value: float, detector):
         self._drift_flags.append(series)
+        if self.incidents is not None:
+            self.incidents.on_drift(series, value, detector)
 
     @property
     def stats(self):
@@ -316,8 +369,11 @@ class AnnService:
                             m).cpu().numpy()[:n])
                         margs.append(sp.sync(m).cpu().numpy()[:, :n])
                     self._c_classified.inc(int(x.shape[0]))
-                except Exception:
+                except Exception as e:
                     self._c_classify_err.inc()
+                    if self.incidents is not None:
+                        self.incidents.capture(
+                            "error", f"classify: {type(e).__name__}: {e}")
                     raise
         t1 = time.perf_counter()
         self._h_classify.observe(t1 - t0)
@@ -331,6 +387,8 @@ class AnnService:
         qm = self.quality
         if qm is not None and qm.sample():
             qm.observe_margins(margins)     # calibration drift series
+        if self.slo is not None:
+            self.slo.tick()
         return labels, margins
 
     # -- batch execution -----------------------------------------------------
@@ -366,15 +424,19 @@ class AnnService:
         tail-sampled request, retained when its oldest ticket's lateness
         against ``cfg.deadline_s`` lands in the slow tail, when it
         raises, or when a quality monitor flagged drift since the last
-        request."""
+        request. An error is also captured as an incident bundle when an
+        ``IncidentManager`` is wired."""
         t_flush = time.perf_counter()
         with self.sampler.request("search",
                                   pending=len(self._queue)) as rq:
             with span("serve.flush", pending=len(self._queue)) as sp:
                 try:
                     out = self._flush(sp, rq)
-                except Exception:
+                except Exception as e:
                     self._c_flush_err.inc()
+                    if self.incidents is not None:
+                        self.incidents.capture(
+                            "error", f"flush: {type(e).__name__}: {e}")
                     raise
             if self._drift_flags:
                 for s in self._drift_flags:
@@ -385,6 +447,8 @@ class AnnService:
         if rq.retained:
             self._h_flush.exemplar(dur, rq.trace_id)
         self._g_pending.set(len(self._queue))
+        if self.slo is not None:
+            self.slo.tick()
         return out
 
     # -- canary-probe endpoints ----------------------------------------------
@@ -514,8 +578,12 @@ class AnnService:
                 # exact-cosine ground truth vs the coded ranking over the
                 # reservoir (obs.shadow)
                 qi = int(qm.rng.integers(n))
-                qm.shadow_check(batch[qi][1], self.engine.encode_queries,
-                                q_codes=q_codes[qi])
+                r = qm.shadow_check(batch[qi][1],
+                                    self.engine.encode_queries,
+                                    q_codes=q_codes[qi])
+                if r is not None and self.slo is not None:
+                    # shadow recall is the quality SLO's ground truth
+                    self.slo.observe_quality("search", r)
             res = [None] * n
             miss = list(range(n))
             keys = None
@@ -617,4 +685,10 @@ class AnnService:
                     scored=cfg.scored, rerank_m=cfg.rerank_m,
                     fused=cfg.fused, table_dtype=cfg.table_dtype))
                 self._c_warm.inc()
+        # warm-up builds are free; a compile after this burns the
+        # never-recompile budget (obs.resources, obs.slo)
+        if self.resources is not None:
+            self.resources.mark()
+        if self.slo is not None:
+            self.slo.mark_steady()
         return self

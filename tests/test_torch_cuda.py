@@ -1119,3 +1119,94 @@ def test_service_quality_on_the_card(gen):
         want += np.bincount((a * n + b).ravel(), minlength=n * n)
     assert pairs and np.array_equal(qm.collision.counts, want)
     assert recalls and len(recalls) == qm.recall.queries
+
+
+def test_resource_monitor_reads_the_allocator(gen):
+    """``ResourceMonitor.collect()`` on the card: ``cuda0.bytes_in_use``
+    is ``torch.cuda.memory_allocated(0)`` read back to back, the peak at
+    least that, ``live_bytes`` the sum over cards, and the gauges carry
+    the same numbers."""
+    from repro_torch.obs import MetricsRegistry, ResourceMonitor
+    x = torch.randn((1 << 20,), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    rm = ResourceMonitor(registry=MetricsRegistry())
+    rm.track("x", lambda: x.nbytes)
+    out = rm.collect()
+    want = torch.cuda.memory_allocated(0)
+    dev = out["device"]
+    assert dev["cuda0.bytes_in_use"] == want >= x.nbytes
+    assert dev["cuda0.peak_bytes"] >= want
+    assert dev["live_bytes"] == sum(
+        dev[f"cuda{i}.bytes_in_use"] for i in range(torch.cuda.device_count()))
+    assert out["tracked"]["x"] == x.nbytes
+    gauges = rm.registry.gauges
+    assert gauges["resources.device.cuda0.bytes_in_use"].value == want
+    assert gauges["resources.device.live_bytes"].value == dev["live_bytes"]
+
+
+def _health_service(device):
+    """A small serving path with every health knob on: scaled basis
+    vectors s * e_i (s a power of two), whose
+    projections the card's 3xTF32 product and the CPU's float32 product
+    give alike, bulk-loaded into a mutable index; warmed up."""
+    import numpy as np
+    from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+    from repro_torch.index import MutableAnnEngine
+    from repro_torch.obs.quality import QualityConfig
+    from repro_torch.serve import AnnService, AnnServiceConfig
+    d = 48
+    crp = CodedRandomProjection(SketchConfig(k=64), d, device=device)
+    eng = MutableAnnEngine(crp, band_spec=None, tail_rows=128)
+    svc = AnnService(eng, AnnServiceConfig(buckets=(1, 8, 32)),
+                     quality=QualityConfig(sample_rate=0.0,
+                                           reservoir_rows=128),
+                     slo=True, resources=True)
+    scales = np.array([0.25, -0.5, 1.0, -2.0, 4.0], np.float32)
+    rows = np.zeros((d * len(scales), d), np.float32)
+    for j, s in enumerate(scales):
+        rows[j * d:(j + 1) * d] = s * np.eye(d, dtype=np.float32)
+    svc.bulk_load(torch.from_numpy(rows).to(device), chunk_rows=64)
+    svc.warmup(d)
+    return svc, rows
+
+
+def test_served_traffic_compiles_nothing_after_warmup(gen):
+    """After ``warmup`` the kernels are built: flushes and classify-free
+    traffic leave ``jit_compiles()`` where warm-up left it, the recompile
+    ledger takes good trials only and the service stays healthy."""
+    from repro_torch.obs import jit_compiles
+    svc, rows = _health_service("cuda")
+    base = jit_compiles()
+    assert svc.resources.compiles_since_mark == 0
+    for lo in range(0, 200, 40):
+        for r in rows[lo:lo + 40]:
+            svc.submit(r)
+        svc.flush()
+        svc.slo.tick(force=True)
+    assert jit_compiles() == base and svc.resources.compiles_since_mark == 0
+    led = svc.slo.ledgers["runtime.recompile"]
+    assert led.total >= 5 and led.bad == 0
+    assert svc.slo.health()["status"] == "ok"
+
+
+def test_canary_probes_on_the_card_match_the_cpu(gen):
+    """One ``CanaryProber`` run over the same service on the card and on
+    the CPU: the same canaries, every one found, the returned ids bit-equal
+    and the margins equal."""
+    import math
+    import numpy as np
+    from repro_torch.obs import CanaryProber, ProbeConfig
+    reps, ids = {}, {}
+    for device in ("cuda", "cpu"):
+        svc, rows = _health_service(device)
+        cfg = ProbeConfig(n_probes=32, classify=False,
+                          latency_budget_s=math.inf)
+        reps[device] = CanaryProber(svc, slo=svc.slo, cfg=cfg).run_once()
+        ids[device] = [svc.probe_search(r)[0] for r in rows[::7]]
+        assert all(isinstance(i, np.ndarray) for i in ids[device])
+    card, cpu = reps["cuda"], reps["cpu"]
+    assert card["ok"] and card["recall"] == 1.0 and card["probes"] == 32
+    assert [(p["id"], p["hit"], p["margin"]) for p in card["detail"]] == \
+        [(p["id"], p["hit"], p["margin"]) for p in cpu["detail"]]
+    for a, b in zip(ids["cuda"], ids["cpu"]):
+        assert np.array_equal(a, b)

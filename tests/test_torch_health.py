@@ -676,7 +676,7 @@ def test_fits_feed_the_margin_monitor_like_jax():
     assert off.margins.moments.n == 0
 
 
-def test_service_quality_knobs_and_drift_flags():
+def test_service_quality_knobs_and_drift_flags(tmp_path):
     _, tc, corpus, queries, words = _case("2bit", 0.75, 100)
     eng = AnnEngine(tc, convert.store_from_numpy(words, 100, 2,
                                                  device="cpu"))
@@ -696,6 +696,32 @@ def test_service_quality_knobs_and_drift_flags():
     assert not svc2._drift_flags
     retained = svc2.sampler.retained_traces()
     assert retained and "margin_mean" in str(retained[-1])
-    for knob in ("slo", "resources", "incidents"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            AnnService(eng, **{knob: True})
+    # with the rest of the health layer on: each shadow check reaches the
+    # search quality SLO, and a drift alarm also dumps an incident bundle
+    # carrying the quality report and the SLO state
+    svc3 = AnnService(eng, AnnServiceConfig(buckets=(8,)), quality=mon,
+                      registry=svc.registry, slo=True, resources=True,
+                      incidents=str(tmp_path / "incidents"))
+    assert svc3.incidents.quality is mon and svc3.incidents.slo is svc3.slo
+    mon.offer_rows(np.arange(100), corpus[:100])
+    seen = []
+    observe = svc3.slo.observe_quality
+    svc3.slo.observe_quality = lambda name, r, floor=None: (
+        seen.append((name, r)), observe(name, r, floor))
+    checks = mon.recall.queries
+    for q in queries[:3]:
+        svc3.submit(q)
+    svc3.flush()
+    assert mon.recall.queries == checks + 1
+    assert len(seen) == 1 and seen[0][0] == "search" and 0 <= seen[0][1] <= 1
+    led = svc3.slo.ledgers["search.quality"]
+    assert (led.total, led.bad) == (1, int(seen[0][1] < 0.8))
+    for i in range(30):
+        mon.drift.update("margin_mean", 0.0 if i > 15 else 5.0)
+    assert svc3.incidents.captured >= 1
+    bundle = svc3.incidents.load()
+    assert bundle["kind"] == "drift"
+    assert bundle["context"]["series"] == "margin_mean"
+    assert set(bundle["quality"]) == set(mon.report())
+    assert bundle["slo"]["status"] == "ok"
+    eng.quality = None

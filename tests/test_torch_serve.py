@@ -427,12 +427,56 @@ def test_service_matches_jax(mutable):
     assert dict(tsvc.stats) == dict(jsvc.stats)
 
 
-def test_service_refuses_the_health_layer():
+def test_service_refuses_the_health_layer(tmp_path):
+    """The health knobs build and wire as the reference's do (they were
+    refused until the layer was ported; what the service still refuses is
+    a mutation on an immutable engine): ``slo=True`` registers the
+    search and classify specs and watches the resource monitor, which
+    tracks the store; ``incidents=`` a directory builds a manager over
+    the service's flight recorder, sampler and registry, holding the SLO
+    engine and the quality bundle; a flush ticks the SLO; ``warmup``
+    pins the compile baseline and arms the recompile ledger."""
+    from repro_torch.obs import IncidentManager, ResourceMonitor, SloEngine
     _, tc = _sketchers()
     eng = MutableAnnEngine(tc, tail_rows=64)
-    for knob in ("slo", "resources", "incidents"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            AnnService(eng, **{knob: True})
+    svc = AnnService(eng, AnnServiceConfig(buckets=(1, 8)), quality=True,
+                     slo=True, resources=True,
+                     incidents=str(tmp_path / "incidents"))
+    assert isinstance(svc.slo, SloEngine)
+    assert isinstance(svc.resources, ResourceMonitor)
+    assert isinstance(svc.incidents, IncidentManager)
+    assert svc.slo.registry is svc.registry is svc.incidents.registry
+    assert svc.resources.registry is svc.registry
+    assert set(svc.slo.specs) == {"search", "classify"}
+    assert svc.slo.specs["search"].latency_target_s == svc.cfg.deadline_s
+    assert set(svc.slo.ledgers) == {
+        "search.latency", "search.availability", "search.quality",
+        "classify.latency", "classify.availability", "runtime.recompile"}
+    assert svc.slo._resources is svc.resources
+    assert (svc.incidents.slo, svc.incidents.quality) == (svc.slo,
+                                                          svc.quality)
+    assert (svc.incidents.flight, svc.incidents.sampler) == (svc.flight,
+                                                             svc.sampler)
+    assert svc.incidents.directory == str(tmp_path / "incidents")
+    ids = svc.add(np.eye(D, dtype=np.float32)[:4])
+    assert svc.incidents.generation_fn() == eng.generation
+    assert svc.resources.collect()["tracked"]["engine.store"] == \
+        eng.store.nbytes > 0
+    assert svc.slo._last_tick == -np.inf
+    svc.submit(np.eye(D, dtype=np.float32)[0])
+    assert svc.flush() and svc.slo._last_tick > -np.inf   # ticked
+    assert "slo.search.latency.burn_fast" in svc.registry.gauges
+    assert svc.slo._compile_mark is None
+    svc.warmup(D)
+    assert svc.slo._compile_mark == svc.resources.jit_compiles()
+    assert svc.resources.compiles_since_mark == 0
+    assert svc.delete(ids[:1]) == 1
+    # given objects are used as they are
+    slo = SloEngine(registry=svc.registry)
+    mgr = IncidentManager(str(tmp_path / "other"))
+    svc2 = AnnService(eng, slo=slo, incidents=mgr, registry=svc.registry)
+    assert svc2.slo is slo and svc2.incidents is mgr and mgr.slo is slo
+    assert svc2.resources is None and "runtime.recompile" not in slo.ledgers
     # the quality knob is ported (tests/test_torch_health.py)
     assert AnnService(eng, quality=True).quality is eng.quality
     with pytest.raises(TypeError, match="immutable"):
