@@ -297,7 +297,42 @@ Phases, in order; any failure raises and the script exits non-zero:
     off, off, on, on, off, each after a full garbage collection, with
     each run's flush p99 and maximum, SLO ticks and collections inside,
     and the card line.
-14. A ``kernels`` JSON line, the card line, and as the last line
+14. Sharded search and encode (right after phase 13, on its engine and
+    the 1,024 phase queries), over a world-size-1 NCCL group on a
+    ``FileStore`` under ``build/`` and its ``("data",)`` mesh
+    (``launch.make_dp_mesh``): ``AnnEngine.search_sharded`` count-ranked,
+    two-stage scored (rerank_m 64), fused with float32 and with int8
+    tables, then ``encode_sharded`` on 262,144 rows of the main corpus (1
+    GiB of float32), with launch counts reset before these calls and read
+    after (the ``sharded`` path). Gates: ids and rho_hat bit-identical to
+    ``search(mode="exact")`` with the same settings (and to a second
+    sharded call); the encoded words equal to ``encode_packed``'s but at
+    fields within 1e-5 of a bin edge (the sharded encode projects through
+    ``torch.matmul`` in float32, ``encode_packed`` through the 3xTF32
+    kernel), and bit-identical to ``project`` + ``code_pack``. Printed:
+    queries/s sharded (two calls) against unsharded for each mode (the
+    cost of the gather and the merge at world size 1), rows/s of
+    ``encode_sharded`` against ``encode_packed``, the card line.
+15. Sharded training and the gradient compressor (right after phase 9,
+    on the learn path's store: C = 1 over 2,330,594 rows), over a new
+    one-card NCCL mesh: ``packed_grads_sharded`` at seeded random tables,
+    then ``fit_words(mesh=)`` full batch and minibatch (65,536 rows), 50
+    steps each, counted (the ``sharded_learn`` path: rows 12 and 14).
+    Gates: the gradient within rtol 1e-5, atol 1e-6 of
+    ``packed_loss_and_grads``; each fit's tables within rtol 1e-4, atol
+    1e-5 of the same fit without a mesh, with equal held-out predictions.
+    Then ``GradCompressor`` (2-bit, rate 8, chunk 1,024) bound to the 14
+    leaf shapes of qwen2-0.5B's parameters (494,032,768 float32
+    gradients, written out in ``QWEN2_05B_GRAD``): ``wire_bytes()`` must
+    be 17,368,344 and ``fp32_bytes()`` 1,976,131,072, and ``sync`` at
+    world size 1 must agree with ``sync_local`` (the gradient and the EF
+    state within rtol 1e-5 plus 1e-5 of the largest magnitude: ``sync``
+    scales the decoded cells before the back-projection, ``decode``
+    after). Printed: ms of ``encode``, ``decode`` and ``sync`` and the
+    gradient GB/s each reaches, row-steps/s of each fit sharded and not,
+    the card line. The group is destroyed at the end of each phase, and
+    the launches of both sharded paths are printed as one JSON line.
+16. A ``kernels`` JSON line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -459,6 +494,14 @@ PATH_KERNELS = {
     # count sweep (rows 2, 3, 4 and 6)
     "slo": ("coded_project", "pack_codes", "packed_topk",
             "packed_topk_masked", "packed_topk_tc"),
+    # search_sharded in four modes and encode_sharded over a one-card mesh
+    # (rows 2, 3, 4, 5, 8 and 10, and R's draw)
+    "sharded": ("coded_project", "pack_codes", "packed_topk",
+                "packed_topk_tc", "fused_scored_topk", "packed_lut_rerank",
+                "packed_lut_rerank_warp", "code_pack", "normal_unit"),
+    # packed_grads_sharded and fit_words(mesh=): the masked forward and
+    # backward (rows 12 and 14)
+    "sharded_learn": ("packed_linear_fwd_masked", "packed_linear_bwd_masked"),
 }
 # registers and spill bytes of each instance of the tensor-core count
 # sweep, "bits,QB" -> (registers, spill stores), from the build's report
@@ -3533,7 +3576,7 @@ def learn_path(device, rows, profile: bool = False) -> tuple:
     del mut, live_words
     learn_kernel_phase(rows, store.words, device)
     torch.cuda.empty_cache()
-    return counts, rates
+    return counts, rates, (store, y_tr, held_words, crp)
 
 
 def serve_checks(device) -> None:
@@ -4939,6 +4982,308 @@ def _slo_phase(engine, queries, device, tmp) -> tuple:
     return probe_counts, rates
 
 
+# phase 14: sharded search and encode at world size 1 over NCCL
+SHARD_ENCODE_ROWS = 262_144          # 1 GiB of float32 rows at D = 1024
+SHARD_MODES = {
+    "count": dict(),
+    "two_stage": dict(scored=True, fused=False, rerank_m=RERANK_M),
+    "fused_f32": dict(scored=True, table_dtype="f32", rerank_m=RERANK_M),
+    "fused_int8": dict(scored=True, table_dtype="int8", rerank_m=RERANK_M),
+}
+# phase 15: the gradient of qwen2-0.5B as float32 leaves, by shape: the 14
+# leaves of repro.models.lm.model_param_specs(config()) for
+# src/repro/configs/qwen2_0_5b.py (24 layers stacked, d_model 896, 14
+# heads and 2 KV heads of 64, d_ff 4864, vocab 151,936, QKV bias, tied
+# embeddings): 494,032,768 floats
+QWEN2_05B_GRAD = {
+    "blocks": {"p0": {
+        "attn": {"bk": (24, 2, 64), "bq": (24, 14, 64), "bv": (24, 2, 64),
+                 "wk": (24, 896, 2, 64), "wo": (24, 14, 64, 896),
+                 "wq": (24, 896, 14, 64), "wv": (24, 896, 2, 64)},
+        "ffn": {"w_down": (24, 4864, 896), "w_gate": (24, 896, 4864),
+                "w_up": (24, 896, 4864)},
+        "ln1": (24, 896), "ln2": (24, 896)}},
+    "embed": (151936, 896), "ln_f": (896,)}
+GC_RATE, GC_CHUNK = 8, 1024
+GC_WIRE_BYTES, GC_FP32_BYTES = 17_368_344, 1_976_131_072
+SHARD_LEARN_STEPS, SHARD_SEED = 50, 2020
+
+
+class nccl_mesh:
+    """A world-size-1 NCCL group on a ``FileStore`` under ``build/`` and
+    its ``("data",)`` mesh on the card; the group is destroyed on exit."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        from repro_torch.launch import make_dp_mesh
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        self.path = os.path.join(ROOT, "build", f"nccl-store-{os.getpid()}")
+        if os.path.exists(self.path):
+            os.remove(self.path)
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(self.path, 1),
+                                rank=0, world_size=1)
+        return make_dp_mesh()
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        if os.path.exists(self.path):
+            os.remove(self.path)
+        return False
+
+
+def timed_call(fn):
+    """(result, seconds) of ``fn()`` between two synchronisations."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sharded_phase(engine, queries, device) -> tuple:
+    """Phase 14: ``search_sharded`` in four modes and ``encode_sharded``
+    over a one-card NCCL mesh, launch counts over the sharded calls, then
+    the gates against the unsharded calls and the timings. Returns
+    (counts, rates)."""
+    import torch
+    from repro_torch.encode import encode_sharded
+    from repro_torch.kernels import ops
+    card = card_line()
+    crp = engine.sketcher
+    enc = crp.stream_encoder()
+    gen = torch.Generator(device=device).manual_seed(CORPUS_SEED)
+    x = torch.cat([corpus_chunk(gen, device)[0]
+                   for _ in range(SHARD_ENCODE_ROWS // CHUNK)])
+    nq = queries.shape[0]
+    rates, got = {}, {}
+    with nccl_mesh() as mesh:
+        def sharded(kw):
+            return engine.search_sharded(queries, mesh, top_k=TOP_K, **kw)
+
+        def unsharded(kw):
+            return engine.search(queries, top_k=TOP_K, mode="exact",
+                                 chunk_q=CHUNK_Q, **kw)
+
+        # the path: every sharded call, counted from zero
+        ops.reset_launch_counts()
+        for name, kw in SHARD_MODES.items():
+            engine.search_sharded(queries[:CHUNK_Q], mesh, top_k=TOP_K, **kw)
+            got[name] = sharded(kw)
+        words_sh = encode_sharded(enc, x, mesh)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        log(f"launch counts on the sharded path: {json.dumps(counts)}")
+        require_launched(counts, "sharded")
+        # the gates, then sharded and unsharded calls in turns (S U U S,
+        # twice), each between two synchronisations
+        for name, kw in SHARD_MODES.items():
+            want = unsharded(kw)
+            ids, rho = got[name]
+            if not (torch.equal(ids, want[0]) and torch.equal(rho, want[1])):
+                raise AssertionError(f"search_sharded {name} differs from "
+                                     f"search(mode='exact') at world size 1")
+            times = {"s": [], "u": []}
+            for who in "suussuus":
+                out, t = timed_call(lambda: (sharded if who == "s"
+                                             else unsharded)(kw))
+                if not torch.equal(out[0], ids):
+                    raise AssertionError(f"search {name} not repeatable")
+                times[who].append(t)
+            rates[name] = dict(
+                sharded_queries_s=[nq / t for t in times["s"]],
+                unsharded_queries_s=[nq / t for t in times["u"]])
+            med = {w: nq / statistics.median(t) for w, t in times.items()}
+            log(f"sharded search {name}: {nq} queries over {engine.n} rows, "
+                f"ids and rho bit-identical to search(mode='exact'); "
+                f"queries/s (order S U U S S U U S) sharded "
+                f"{[round(v, 1) for v in rates[name]['sharded_queries_s']]} "
+                f"median {med['s']:.1f}, unsharded "
+                f"{[round(v, 1) for v in rates[name]['unsharded_queries_s']]}"
+                f" median {med['u']:.1f} ({card})")
+        times = {"s": [], "p": []}
+        for who in "sppssp":
+            _, t = timed_call(lambda: encode_sharded(enc, x, mesh)
+                              if who == "s" else enc.encode_packed(x))
+            times[who].append(t)
+    words = enc.encode_packed(x)
+    z = crp.project(x)
+    n_edge = check_codes(ref_unpack(words_sh, crp), ref_unpack(words, crp),
+                         z, crp.spec, crp._offsets,
+                         "encode_sharded vs encode_packed")
+    if not torch.equal(words_sh, ops.code_pack(z, crp.spec, crp._offsets)):
+        raise AssertionError("encode_sharded differs from project + "
+                             "code_pack of the same rows")
+    rs = {w: [SHARD_ENCODE_ROWS / t for t in ts] for w, ts in times.items()}
+    rates["encode"] = dict(sharded_rows_s=rs["s"], packed_rows_s=rs["p"],
+                           edge_fields=n_edge)
+    log(f"encode_sharded: {SHARD_ENCODE_ROWS} rows of the main corpus "
+        f"({4 * SHARD_ENCODE_ROWS * D} bytes of float32), rows/s (order S P "
+        f"P S S P): encode_sharded {[round(v, 1) for v in rs['s']]} "
+        f"(project through torch.matmul, float32, then code_pack), "
+        f"encode_packed {[round(v, 1) for v in rs['p']]} (the 3xTF32 "
+        f"kernel); words equal but at {n_edge} fields within {EDGE_TOL} of "
+        f"a bin edge, and equal to project + code_pack ({card})")
+    del x, z, words, words_sh
+    torch.cuda.empty_cache()
+    return counts, rates
+
+
+def ref_unpack(words, crp):
+    from repro_torch.core import packing
+    return packing.unpack_codes(words, crp.spec.bits, crp.cfg.k)
+
+
+def qwen_leaves(tree, fn):
+    """QWEN2_05B_GRAD's structure with ``fn(shape)`` at each leaf."""
+    if isinstance(tree, dict):
+        return {k: qwen_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def sharded_learn_phase(store, y_tr, held_words, crp, device) -> tuple:
+    """Phase 15: ``packed_grads_sharded`` and ``fit_words(mesh=)`` on the
+    learn path's store, counted, against the unsharded calls; then the
+    gradient compressor at qwen2-0.5B's gradient size. Returns (counts,
+    rates)."""
+    import torch
+    from repro_torch.core.gradient_compression import (
+        GradCompressionConfig, GradCompressor)
+    from repro_torch.kernels import ops
+    from repro_torch.learn import (LearnConfig, feature_spec_for, fit_words,
+                                   packed_grads_sharded)
+    from repro_torch.learn.linear import packed_loss_and_grads, targets_pm
+    card = card_line()
+    fspec = feature_spec_for(crp, K)
+    gen = torch.Generator(device=device).manual_seed(SHARD_SEED)
+    params = (torch.randn((1, fspec.table_width), generator=gen,
+                          device=device) * fspec.entry_mask(device),
+              torch.randn(1, generator=gen, device=device))
+    y_pm = targets_pm(y_tr, 1, device)
+    words = store.words
+    full = LearnConfig(steps=SHARD_LEARN_STEPS)
+    mb = LearnConfig(steps=SHARD_LEARN_STEPS, batch=LEARN_BATCH)
+    rates = {}
+    with nccl_mesh() as mesh:
+        def fit(cfg, on_mesh):
+            return fit_words(words, y_tr, fspec, cfg,
+                             mesh=mesh if on_mesh else None)
+
+        ops.reset_launch_counts()
+        sh = packed_grads_sharded(params, words, y_pm, fspec, mesh)
+        fits = {name: fit(cfg, True) for name, cfg in (("full_batch", full),
+                                                       ("minibatch", mb))}
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        log(f"launch counts on the sharded learn path: "
+            f"{json.dumps(counts)}")
+        require_launched(counts, "sharded_learn")
+
+        un = packed_loss_and_grads(params, words, y_pm, fspec)
+        for a, b, what in ((sh[0], un[0], "loss"), (sh[1][0], un[1][0], "dt"),
+                           (sh[1][1], un[1][1], "db")):
+            err = (a - b).abs()
+            if bool((err > 1e-6 + 1e-5 * b.abs()).any()):
+                raise AssertionError(f"packed_grads_sharded {what} beyond "
+                                     f"rtol 1e-5, atol 1e-6: max "
+                                     f"{float(err.max()):.3e}")
+        times = {"s": [], "u": []}
+        for who in "suussuus":
+            times[who].append(timed_call(
+                lambda: packed_grads_sharded(params, words, y_pm, fspec, mesh)
+                if who == "s" else
+                packed_loss_and_grads(params, words, y_pm, fspec))[1])
+        ms = {w: [1e3 * t for t in ts] for w, ts in times.items()}
+        rates["grads_ms"] = dict(sharded=ms["s"], unsharded=ms["u"])
+        log(f"packed_grads_sharded over {words.shape[0]} rows: loss "
+            f"{float(sh[0]):.6f} against {float(un[0]):.6f}, dTables max "
+            f"diff {float((sh[1][0] - un[1][0]).abs().max()):.3e} (within "
+            f"rtol 1e-5, atol 1e-6); ms a call (host clock, synced, order S "
+            f"U U S S U U S) {[round(v, 4) for v in ms['s']]} against "
+            f"packed_loss_and_grads {[round(v, 4) for v in ms['u']]} "
+            f"({card})")
+        for name, cfg in (("full_batch", full), ("minibatch", mb)):
+            m_sh, m_un = fits[name], fit(cfg, False)
+            diff = (m_sh.tables - m_un.tables).abs()
+            agree = bool(torch.equal(m_sh.predict(held_words),
+                                     m_un.predict(held_words)))
+            if bool((diff > 1e-5 + 1e-4 * m_un.tables.abs()).any()) or \
+                    not agree:
+                raise AssertionError(f"fit_words(mesh=) {name} departs from "
+                                     f"the unsharded fit")
+            rows = words.shape[0] if cfg.batch == 0 else cfg.batch
+            times = {"s": [], "u": []}
+            for who in "suus":
+                times[who].append(timed_call(lambda: fit(cfg, who == "s"))[1])
+            rs = {w: [rows * cfg.steps / t for t in ts]
+                  for w, ts in times.items()}
+            rates[f"fit_{name}"] = dict(sharded_row_steps_s=rs["s"],
+                                        unsharded_row_steps_s=rs["u"])
+            log(f"fit_words(mesh=) {name}: {cfg.steps} steps, tables within "
+                f"{float(diff.max()):.3e} of the unsharded fit (rtol 1e-4, "
+                f"atol 1e-5), held-out predictions equal; row-steps/s (order "
+                f"S U U S) sharded {[round(v, 1) for v in rs['s']]}, "
+                f"unsharded {[round(v, 1) for v in rs['u']]} ({card})")
+        del fits
+
+        # the compressor: 2-bit codes at rate 8 in chunks of 1,024
+        tpl = qwen_leaves(QWEN2_05B_GRAD,
+                          lambda s: torch.empty(s, device="meta"))
+        cfg = GradCompressionConfig(scheme="2bit", rate=GC_RATE,
+                                    chunk=GC_CHUNK)
+        (comp, t_init) = timed_call(lambda: GradCompressor(cfg, tpl,
+                                                           device=device))
+        if (comp.wire_bytes(), comp.fp32_bytes()) != (GC_WIRE_BYTES,
+                                                      GC_FP32_BYTES):
+            raise AssertionError(f"compressor bytes {comp.wire_bytes()}, "
+                                 f"{comp.fp32_bytes()}")
+        grads = qwen_leaves(QWEN2_05B_GRAD, lambda s: torch.randn(
+            s, generator=gen, device=device))
+        ef = qwen_leaves(QWEN2_05B_GRAD, lambda s: 0.01 * torch.randn(
+            s, generator=gen, device=device))
+        g_hat, ef_new = comp.sync(grads, ef, mesh, step=1)
+        l_hat, l_ef = comp.sync_local(grads, ef, step=1)
+        flat = [comp._flatten(t) for t in (g_hat, l_hat, ef_new, l_ef)]
+        for a, b, what in ((flat[0], flat[1], "gradient"),
+                           (flat[2], flat[3], "EF state")):
+            top = float(b.abs().max())
+            err = (a - b).abs()
+            if bool((err > 1e-5 * top + 1e-5 * b.abs()).any()):
+                raise AssertionError(f"sync {what} departs from sync_local: "
+                                     f"max {float(err.max()):.3e}")
+            rates[f"sync_{what.split()[0].lower()}_max_diff"] = \
+                float(err.max())
+        del flat, g_hat, ef_new, l_hat, l_ef
+        vec = comp._flatten(grads)
+        codes, scales = comp.encode(vec, 1)
+        ms = dict(encode=time_ms(lambda: comp.encode(vec, 1), reps=5),
+                  decode=time_ms(lambda: comp.decode(codes, scales, 1),
+                                 reps=5),
+                  sync=time_ms(lambda: comp.sync(grads, ef, mesh, step=1),
+                               reps=5))
+        gbs = {k: comp.fp32_bytes() / (1e-3 * v) / 1e9 for k, v in ms.items()}
+        rates["compressor"] = dict(ms=ms, gradient_gb_s=gbs,
+                                   init_s=t_init,
+                                   wire_bytes=comp.wire_bytes(),
+                                   fp32_bytes=comp.fp32_bytes())
+        log(f"compressor on qwen2-0.5B's gradient ({comp.total} floats, "
+            f"{len(comp.shapes)} leaves, {comp.n_chunks} chunks of {GC_CHUNK}, 2-bit at rate "
+            f"{GC_RATE}): wire {comp.wire_bytes()} bytes against "
+            f"{comp.fp32_bytes()} float32 bytes; R drawn and factored in "
+            f"{t_init:.3f} s; ms (median of 5, CUDA events): encode "
+            f"{ms['encode']:.3f}, decode {ms['decode']:.3f}, sync "
+            f"{ms['sync']:.3f}; gradient GB/s encode {gbs['encode']:.1f}, "
+            f"decode {gbs['decode']:.1f}, sync {gbs['sync']:.1f}; sync "
+            f"against sync_local max diff {rates['sync_gradient_max_diff']:.3e}"
+            f" (gradient), {rates['sync_ef_max_diff']:.3e} (EF) ({card})")
+        del grads, ef, vec, codes, scales, comp
+    torch.cuda.empty_cache()
+    return counts, rates
+
+
 def profile_main_path(engine, queries, device) -> None:
     """``--profile``: device time by kernel for 8 ``sketch`` calls, each
     on a 65,536-row chunk made beforehand and each followed by a
@@ -5143,6 +5488,11 @@ def main(argv) -> int:
     counts_slo, rates_slo = slo_phase(engine, state["queries"], device)
     log(f"slo path: {json.dumps(rates_slo)}")
     log(f"phase slo path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_sharded, rates_sharded = sharded_phase(engine, state["queries"],
+                                                  device)
+    log(f"sharded path: {json.dumps(rates_sharded)}")
+    log(f"phase sharded path: {time.perf_counter() - t0:.1f} s")
     del engine, queries, state, mut
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5159,10 +5509,19 @@ def main(argv) -> int:
     log(f"dense cross-check: {json.dumps(rates_dense)}")
     log(f"phase dense cross-check: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts_learn, rates_learn = learn_path(device, rows,
-                                           profile="--profile" in argv)
+    counts_learn, rates_learn, learn_state = learn_path(
+        device, rows, profile="--profile" in argv)
     log(f"learn path: {json.dumps(rates_learn)}")
     log(f"phase learn path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_shl, rates_shl = sharded_learn_phase(*learn_state, device)
+    del learn_state
+    log(f"sharded learn path: {json.dumps(rates_shl)}")
+    log(f"phase sharded learn path: {time.perf_counter() - t0:.1f} s")
+    log("sharded launches: " + json.dumps(
+        {"sharded": {k: counts_sharded[k] for k in PATH_KERNELS["sharded"]},
+         "sharded_learn": {k: counts_shl[k]
+                           for k in PATH_KERNELS["sharded_learn"]}}))
     path_counts = {"main": counts, "scored": counts_scored,
                    "mutable": counts_mutable, "url": counts_url,
                    "dense": counts_dense,

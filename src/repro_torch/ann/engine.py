@@ -16,8 +16,13 @@ in chunks of ``chunk_q`` rows. Two candidate modes:
 calibrates rho_hat from them; ``fused=False`` (and every scored LSH
 search) takes the two-stage path: coarse top-m by count, then the LUT
 re-rank kernel over the gathered candidates. Count-ranked rho_hat
-comes from the paper's collision estimator. The sharded search is a
-later slice and raises ``NotImplementedError`` naming its ROADMAP item.
+comes from the paper's collision estimator.
+
+``search_sharded`` is the exact search with the corpus row-sharded over
+a ``DeviceMesh`` dim: every rank holds the whole store, searches its own
+block of rows (the same kernels as above), and the ranks' lists are
+all-gathered and merged, with ties going to the lower shard, so every
+rank returns the same result.
 
 Under a deep ``obs.Tracer`` every chunk runs under device-synced spans
 (``search.chunk``, ``search.fused``, or ``search.coarse`` then
@@ -43,6 +48,7 @@ from repro_torch.core.sketch import CodedRandomProjection
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.obs import default_flight_recorder, deep_tracing_active, span
+from repro_torch.parallel.collectives import all_gather_stack, axis_group
 from repro_torch.rank.tables import RankTables, build_rank_tables
 
 __all__ = ["SearchConfig", "AnnEngine", "QueryCoder", "merge_topk",
@@ -369,11 +375,70 @@ class AnnEngine:
         with span("search.rerank", top_k=cfg.top_k) as sp:
             return sp.sync(self._rerank(chunk, cand_ids, cfg))
 
-    def search_sharded(self, *args, **kwargs):
-        """Row-sharded search across devices: not yet ported."""
-        raise NotImplementedError(
-            "search_sharded (torch.distributed merge) is ROADMAP queue A "
-            "item 4, not yet ported to repro_torch")
+    def search_sharded(self, queries, mesh, axis: str = "data",
+                       top_k: int = 10, impl: str = "auto",
+                       scored: bool = False, rerank_m: int = 0,
+                       fused: bool = True, table_dtype: str = "auto"):
+        """Exact search with the corpus row-sharded over ``mesh[axis]``
+        (a ``DeviceMesh`` on the store's device type; n must divide).
+
+        queries [Q, D] -> (ids int32 [Q, top_k], rho_hat float32
+        [Q, top_k]), the same on every rank. Each rank codes the queries,
+        takes the top-k of its own rows by count (or, scored, LUT-scores
+        its local coarse top-m, m = ``resolve_m`` of its rows: the fused
+        kernel, or the two-stage re-rank with ``fused=False``), offsets
+        its ids to global ones, and the ranks' lists are all-gathered and
+        merged by ``merge_topk`` in rank order. At world size 1 this is
+        ``search(mode="exact")`` bit for bit; above it, scored search
+        picks its coarse candidates per shard and need not equal it."""
+        _, rank, _ = axis_group(mesh, axis, self.store.words)
+        local = self.store.shard(mesh, axis)
+        q_codes = self.encode_queries(queries, impl=impl)
+        cfg = SearchConfig(top_k=top_k, impl=impl, scored=scored,
+                           rerank_m=rerank_m, fused=fused,
+                           table_dtype=table_dtype)
+        if cfg.table_dtype == "int8" and not cfg.use_fused():
+            raise ValueError("table_dtype='int8' requires the fused "
+                             "scored path (scored=True, fused=True)")
+        q = q_codes.shape[0]
+        if q == 0 or self.store.n == 0:
+            dev = self.store.words.device
+            return (torch.full((q, top_k), -1, dtype=torch.int32,
+                               device=dev),
+                    torch.full((q, top_k), -1.0, dtype=torch.float32,
+                               device=dev))
+        tables = self.rank_tables if scored else None
+        bits, k, words = local.bits, self.sketcher.cfg.k, local.words
+        m = cfg.resolve_m(local.n)
+
+        def local_chunk(chunk, c):
+            """One query chunk over this rank's rows -> (values, local
+            ids): counts, or scores with -inf empty."""
+            qw = _ops.pack_codes(chunk, bits, impl=impl)
+            if not scored:
+                return _ops.packed_topk(qw, words, bits, k, top_k,
+                                        impl=impl)
+            if c.use_fused():
+                q_tables, scales = resolve_query_tables(tables, chunk,
+                                                        c.table_dtype)
+                return _ops.fused_scored_topk(qw, q_tables, words, bits, k,
+                                              m, top_k, scales=scales,
+                                              impl=impl)
+            cvals, cids = _ops.packed_topk(qw, words, bits, k, m, impl=impl)
+            cids = torch.where(cvals < 0, torch.full_like(cids, -1), cids)
+            rows, scores = lut_rerank_stage(tables, chunk, cids, words,
+                                            top_k, impl=impl)
+            return scores, rows
+
+        vals, ids = run_chunked(q_codes, cfg, local_chunk)
+        ids = torch.where(ids < 0, torch.full_like(ids, -1),
+                          ids + rank * local.n)
+        vals_g = all_gather_stack(vals, mesh, axis)      # [world, Q, top_k]
+        ids_g = all_gather_stack(ids, mesh, axis)
+        vals, ids = merge_topk(list(vals_g), list(ids_g), top_k)
+        if scored:
+            return ids, rho_scored(tables, ids, vals)
+        return ids, self._rho(vals)
 
     def _rho(self, counts: torch.Tensor) -> torch.Tensor:
         """Collision counts -> rho_hat; empty slots (count < 0) give -1."""

@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/ann/store.py:29-96``: an immutable array of words
 (int32 bit-views of uint32) [n, ceil(k*b/32)] on one device; ``add`` and
-``merge`` return new stores. Row sharding is not ported yet.
+``merge`` return new stores. The row axis is the shard axis:
+``shard``/``row_sharding`` split the store over a mesh's data dim for
+the row-sharded search (``AnnEngine.search_sharded``).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from repro_torch.core import packing as _packing
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as _ops
+from repro_torch.parallel.collectives import axis_group
 
 __all__ = ["CodeStore"]
 
@@ -88,3 +91,26 @@ class CodeStore:
     def take(self, ids: torch.Tensor) -> torch.Tensor:
         """Gather rows -> int32 words [..., n_words]."""
         return self.words[ids.to(self.words.device, torch.int64)]
+
+    # -- device placement ----------------------------------------------------
+    def row_sharding(self, mesh, axis: str = "data") -> list:
+        """The store's layout on ``mesh`` as DTensor placements: rows
+        split over dim ``axis`` (``[Shard(0)]`` on a 1-D mesh),
+        replicated over any other dim."""
+        from torch.distributed.tensor import Replicate, Shard
+        axis_group(mesh, axis)
+        return [Shard(0) if name == axis else Replicate()
+                for name in mesh.mesh_dim_names]
+
+    def shard(self, mesh, axis: str = "data") -> "CodeStore":
+        """This rank's block of rows along ``mesh[axis]``: rows
+        [r * n / world, (r + 1) * n / world) of rank r (n must divide).
+        Every rank holds the whole store; the block is a view of it."""
+        _, rank, world = axis_group(mesh, axis, self.words)
+        if self.n % world != 0:
+            raise ValueError(
+                f"n={self.n} not divisible by mesh axis {axis} ({world})")
+        n_local = self.n // world
+        return CodeStore(words=self.words[rank * n_local:
+                                          (rank + 1) * n_local],
+                         k=self.k, bits=self.bits)

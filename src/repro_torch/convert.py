@@ -8,7 +8,9 @@ as a searchable ``CodeStore``; ``rank_tables_from_numpy`` wraps the
 arrays of a ``repro.rank.RankTables`` so that both packages score with
 identical tables; ``linear_model_from_numpy`` wraps the tables and bias of
 a ``repro.learn.PackedLinearModel`` so that both compute the same
-margins.
+margins; ``grad_compressor_from_numpy`` builds a gradient compressor
+around a ``repro`` compressor's R (``_r_np``) and offsets, which its own
+QR (LAPACK against cuSOLVER or another LAPACK) gives only to rounding.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.ann.store import CodeStore
+from repro_torch.core.gradient_compression import (GradCompressionConfig,
+                                                   GradCompressor)
 from repro_torch.core.schemes import CodeSpec
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
 from repro_torch.device import resolve_device
@@ -24,7 +28,7 @@ from repro_torch.learn.linear import PackedLinearModel
 from repro_torch.rank.tables import RankTables
 
 __all__ = ["sketch_from_numpy", "store_from_numpy", "rank_tables_from_numpy",
-           "linear_model_from_numpy"]
+           "linear_model_from_numpy", "grad_compressor_from_numpy"]
 
 
 def sketch_from_numpy(cfg: SketchConfig, d: int, r, offsets=None,
@@ -89,3 +93,21 @@ def linear_model_from_numpy(fspec, tables, bias, loss: str = "sq_hinge",
     return PackedLinearModel(
         fspec=fspec, tables=torch.from_numpy(tables.copy()).to(dev),
         bias=torch.from_numpy(bias.copy()).to(dev), loss=loss)
+
+
+def grad_compressor_from_numpy(cfg: GradCompressionConfig, template, r,
+                               offsets=None, device=None) -> GradCompressor:
+    """``GradCompressor`` for the tree ``template`` whose R is ``r``
+    float32 [chunk, k] and whose offsets are ``offsets`` float32 [k]
+    (offset scheme) or None."""
+    r = np.asarray(r, dtype=np.float32)
+    if r.shape != (cfg.chunk, cfg.k):
+        raise ValueError(f"r {r.shape} != ({cfg.chunk}, {cfg.k})")
+    comp = GradCompressor(cfg, template, device=device)
+    if (offsets is None) != (comp._offsets is None):
+        raise ValueError(f"scheme {cfg.scheme!r} and offsets disagree")
+    comp._r = torch.from_numpy(r.copy()).to(comp.device)
+    if offsets is not None:
+        comp._offsets = torch.from_numpy(
+            np.asarray(offsets, dtype=np.float32).copy()).to(comp.device)
+    return comp

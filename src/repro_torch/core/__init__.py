@@ -1,6 +1,7 @@
 """Paper math and the sketch pipeline: schemes, packing, the threefry
 generator behind the canonical R, collision probabilities, estimator
-variances, estimators and the optimal bin width.
+variances, estimators and the optimal bin width; and the coded-sketch
+gradient compressor (``gradient_compression``).
 
 Re-exports the names the reference's ``repro.core`` does.
 """
@@ -21,4 +22,7 @@ from repro_torch.core.optimal import optimal_w  # noqa: F401
 from repro_torch.core.packing import pack_codes, unpack_codes  # noqa: F401
 from repro_torch.core.sketch import (  # noqa: F401
     SketchConfig, CodedRandomProjection,
+)
+from repro_torch.core.gradient_compression import (  # noqa: F401
+    GradCompressionConfig, GradCompressor, code_centroids,
 )

@@ -12,7 +12,8 @@ off:
 * ``random_bits`` hashes the 64-bit flat index of every element, split
   into (hi, lo) words, and XORs the two output words;
 * ``uniform`` puts the top 23 bits into the mantissa of a float in
-  [1, 2) and shifts it to the range;
+  [1, 2) and shifts it to the range; ``bernoulli`` is ``uniform < p``
+  and ``rademacher`` ``2b - 1`` of it, in float32;
 * ``normal`` is ``sqrt(2) * erfinv(max(lo, 2f + lo))`` with
   ``lo = nextafter(-1, 0)``;
 * ``normal(..., dtype=torch.bfloat16)`` follows JAX's bf16 draw: its
@@ -45,8 +46,8 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "normal", "normal_from_bits", "bf16_normal_of_index",
-           "erfinv_xla", "log2_xla"]
+           "bernoulli", "rademacher", "normal", "normal_from_bits",
+           "bf16_normal_of_index", "erfinv_xla", "log2_xla"]
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -126,6 +127,19 @@ def uniform(key: tuple, shape, minval: float = 0.0, maxval: float = 1.0,
     f = _unit_floats(random_bits(key, shape))
     # XLA contracts f * (hi - lo) + lo into one fused multiply-add
     return torch.maximum(lo, _fma(f, (hi - lo).expand_as(f), lo.expand_as(f)))
+
+
+def bernoulli(key: tuple, p: float = 0.5, shape=()) -> torch.Tensor:
+    """bool draws on the CPU, as ``jax.random.bernoulli``: a float32
+    ``uniform`` below float32 ``p``."""
+    return uniform(key, shape) < _f32(p)
+
+
+def rademacher(key: tuple, shape,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """+-1 draws on the CPU, as ``jax.random.rademacher``: 2b - 1 of
+    ``bernoulli(key, 0.5, shape)``."""
+    return (2 * bernoulli(key, 0.5, shape).to(dtype) - 1).to(dtype)
 
 
 def _fma(a, b, c) -> torch.Tensor:

@@ -26,8 +26,9 @@ The streamed and CSR regimes finalize with the code-and-pack kernel
 oracle; the fused kernels take the product as three TF32 tensor-core
 products in their own order (about 1e-6 from the float32 product for
 unit rows), so the regimes agree except where a projection lies that
-close to a bin edge. The data-parallel ``encode_sharded`` is ROADMAP queue A item 4 and
-is not ported.
+close to a bin edge. The data-parallel ``encode.pipeline.encode_sharded``
+projects each rank's rows through ``CodedRandomProjection.project`` and
+codes them with ``ops.code_pack``.
 """
 from __future__ import annotations
 

@@ -15,7 +15,8 @@ linear   — ``PackedLinearModel`` and ``train_packed_linear``: squared
            updated in place
 trainer  — ``fit_words`` (full batch and minibatch), ``fit_store`` off a
            ``CodeStore``, ``fit_log`` over a churning ``SegmentLogStore``
-           with labels keyed by external id
+           with labels keyed by external id, and the data-parallel
+           gradient ``packed_grads_sharded`` behind ``mesh=``
 
 (dense compat wrapper: ``repro_torch.core.svm``)
 """

@@ -27,14 +27,17 @@ appends a ``learn.fit`` flight event); each minibatch step runs under a
 ``learn.step`` span, timed into ``learn.step_s`` only under a deep
 tracer (whose span sync would otherwise serialise the steps).
 
+``packed_grads_sharded``
+    One data-parallel gradient over a ``DeviceMesh`` dim: rows padded to
+    a multiple of 32 * world (the padding carried as dead validity bits),
+    each rank running the masked kernels on its own block, the data loss
+    and gradients all-reduced, the L2 term added once. ``fit_words`` and
+    ``fit_store`` with ``mesh=`` take every gradient through it.
+
 ``quality`` (an ``obs.quality.QualityMonitors``) on ``fit_words``,
 ``fit_store`` and ``fit_log`` receives the trained model's margins over
 a seeded sample of at most ``cfg.margin_sample`` rows: the calibration
 baseline of its ``margin_mean`` drift series.
-
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-``packed_grads_sharded`` and ``mesh=`` (queue A item 4, with
-``search_sharded``).
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import packing as _packing
 from repro_torch.learn.features import PackedFeatureSpec, feature_spec_for
 from repro_torch.learn.linear import (LearnConfig, PackedLinearModel,
                                       _zeros_params, adam_cosine_train,
@@ -51,6 +55,7 @@ from repro_torch.learn.linear import (LearnConfig, PackedLinearModel,
                                       packed_loss_and_grads, targets_pm)
 from repro_torch.obs import (deep_tracing_active, default_flight_recorder,
                              default_registry, span)
+from repro_torch.parallel.collectives import all_reduce_sum, axis_group
 
 __all__ = ["fit_words", "fit_store", "fit_log", "packed_grads_sharded"]
 
@@ -61,13 +66,6 @@ def _as_fspec(spec, k: int = None,
     if isinstance(spec, PackedFeatureSpec):
         return spec
     return feature_spec_for(spec, k, normalize=normalize)
-
-
-def _not_ported(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (mesh=, packed_grads_sharded) is not ported "
-            "yet: ROADMAP queue A item 4, with search_sharded")
 
 
 def _observe_fit_margins(model, words, quality, seed: int) -> None:
@@ -88,15 +86,67 @@ def _observe_fit_margins(model, words, quality, seed: int) -> None:
     quality.observe_margins(model.margins(words))
 
 
-def packed_grads_sharded(*args, **kwargs):
-    """The reference's data-parallel gradient (``shard_map`` with a
-    ``psum``); raises ``NotImplementedError`` naming ROADMAP queue A
-    item 4."""
-    _not_ported(mesh=True)
+@torch.no_grad()
+def packed_grads_sharded(params, words, y_pm, fspec: PackedFeatureSpec,
+                         mesh, axis: str = "data", *, c: float = 1.0,
+                         loss: str = "sq_hinge", valid_words=None,
+                         impl: str = "auto"):
+    """One data-parallel full objective and gradient over ``mesh[axis]``.
+
+    Every rank holds all rows of ``words`` int32 [n, W] and the targets
+    ``y_pm`` [C, n]. The rows are padded to a multiple of 32 * world
+    (padded rows get y = +1 and dead validity bits: data, not shape);
+    rank r runs ``packed_data_grads`` (the masked forward and backward)
+    on its block of rows with the block's validity words; the data loss
+    and both gradients are all-reduced; the L2 term is added once.
+    Returns (loss, (dTables, dBias)), the same on every rank and equal
+    to ``packed_loss_and_grads`` up to float summation order."""
+    block = _rank_block(words, y_pm, valid_words, mesh, axis)
+    return _block_grads(params, block, fspec, mesh, axis, c, loss, impl)
+
+
+def _rank_block(words, y_pm, valid_words, mesh, axis: str) -> tuple:
+    """This rank's (words, targets, validity words) of the rows padded
+    to a multiple of 32 * world, as ``packed_grads_sharded`` splits
+    them."""
+    _, rank, world = axis_group(mesh, axis, words)
+    n = words.shape[0]
+    live = (torch.ones(n, dtype=torch.bool, device=words.device)
+            if valid_words is None
+            else _packing.unpack_bitmask(valid_words, n))
+    pad = (-n) % (32 * world)
+    if pad:
+        words = torch.nn.functional.pad(words, (0, 0, 0, pad))
+        y_pm = torch.nn.functional.pad(y_pm, (0, pad), value=1.0)
+        live = torch.nn.functional.pad(live, (0, pad))
+    n_local = (n + pad) // world
+    lo, hi = rank * n_local, (rank + 1) * n_local
+    vw = _packing.pack_bitmask(live[lo:hi])
+    return words[lo:hi], y_pm[:, lo:hi].contiguous(), vw
 
 
 @torch.no_grad()
-def _fit_minibatch(words, y_pm, fspec, cfg):
+def _block_grads(params, block, fspec, mesh, axis, c, loss, impl):
+    """The objective and gradient from this rank's block: its data term,
+    all-reduced over the dim in one collective, and the L2 term."""
+    words, y_pm, vw = block
+    tables = params[0]
+    data_loss, (dt, db) = packed_data_grads(
+        params, words, y_pm, fspec, c=c, loss=loss, valid_words=vw,
+        impl=impl)
+    # one all-reduce of [loss, dTables, dBias]: each entry is still the
+    # sum of the ranks' values, as the reference's three psums give it
+    flat = all_reduce_sum(torch.cat([data_loss.reshape(1), dt.reshape(-1),
+                                     db]), mesh, axis)
+    data_loss = flat[0]
+    dt = flat[1:1 + dt.numel()].reshape(dt.shape)
+    db = flat[1 + dt.numel():]
+    return (0.5 * torch.sum(tables * tables) + data_loss,
+            (dt + tables, db))
+
+
+@torch.no_grad()
+def _fit_minibatch(words, y_pm, fspec, cfg, mesh=None, axis="data"):
     n = words.shape[0]
     if cfg.batch > n:
         raise ValueError(f"batch {cfg.batch} > rows {n}")
@@ -111,9 +161,14 @@ def _fit_minibatch(words, y_pm, fspec, cfg):
                                           replace=False)).to(words.device)
         t0 = time.perf_counter()
         with span("learn.step", step=i) as sp:
-            g = packed_loss_and_grads(params, words[idx], y_pm[:, idx],
-                                      fspec, c=cfg.c, loss=cfg.loss,
-                                      impl=cfg.impl)[1]
+            if mesh is not None:
+                g = packed_grads_sharded(params, words[idx], y_pm[:, idx],
+                                         fspec, mesh, axis, c=cfg.c,
+                                         loss=cfg.loss, impl=cfg.impl)[1]
+            else:
+                g = packed_loss_and_grads(params, words[idx], y_pm[:, idx],
+                                          fspec, c=cfg.c, loss=cfg.loss,
+                                          impl=cfg.impl)[1]
             adam_update(params, m, v, g, i, cfg.steps, cfg.lr)
             sp.sync(params)
         if traced:
@@ -148,11 +203,11 @@ def fit_words(words, y, spec, cfg: LearnConfig = LearnConfig(), *,
     ``spec``: PackedFeatureSpec, CodeSpec (+ ``k``), or a sketcher. y:
     ±1 [n] (binary) or int class ids (``n_outputs`` > 1), any array or
     tensor. ``cfg.batch`` 0 trains full batch; > 0 streams minibatches.
-    ``valid_words`` masks tombstoned rows (full batch only). ``quality``
-    (an ``obs.quality.QualityMonitors``) receives the trained model's
-    margins over a sampled row subset."""
-    _not_ported(mesh)
-    del axis
+    ``valid_words`` masks tombstoned rows (full batch only). ``mesh``
+    (a ``DeviceMesh`` on the words' device type) runs every gradient
+    data-parallel over ``mesh[axis]`` (``packed_grads_sharded``).
+    ``quality`` (an ``obs.quality.QualityMonitors``) receives the trained
+    model's margins over a sampled row subset."""
     fspec = _as_fspec(spec, k, normalize=normalize)
     y_pm = targets_pm(y, n_outputs, words.device)
     if cfg.batch and valid_words is not None:
@@ -162,10 +217,21 @@ def fit_words(words, y, spec, cfg: LearnConfig = LearnConfig(), *,
     t0 = time.perf_counter()
     with span("learn.fit", rows=n, steps=cfg.steps) as sp:
         if cfg.batch:
-            tables, bias = _fit_minibatch(words, y_pm, fspec, cfg)
+            tables, bias = _fit_minibatch(words, y_pm, fspec, cfg, mesh,
+                                          axis)
         else:
+            grad_fn = None
+            if mesh is not None:
+                # the rows split once; each step runs the block and one
+                # all-reduce, as packed_grads_sharded would
+                block = _rank_block(words, y_pm, valid_words, mesh, axis)
+
+                def grad_fn(p):
+                    return _block_grads(p, block, fspec, mesh, axis, cfg.c,
+                                        cfg.loss, cfg.impl)[1]
             tables, bias = full_batch_fit(words, y_pm, fspec, cfg,
-                                          valid_words=valid_words)
+                                          valid_words=valid_words,
+                                          grad_fn=grad_fn)
         _finish(sp, tables, bias)
     t1 = _count_fit(n, cfg.steps, t0)
     default_flight_recorder().record("learn.fit", t0, t1, batch=n,
@@ -187,13 +253,12 @@ def fit_store(store, y, spec, cfg: LearnConfig = LearnConfig(), *,
               axis: str = "data", quality=None) -> PackedLinearModel:
     """Train straight off an ``ann.CodeStore``: its packed words are the
     training set. ``spec`` supplies n_codes (a CodeSpec or sketcher; k
-    and bits are checked against the store); ``quality`` as for
-    ``fit_words``."""
-    _not_ported(mesh)
+    and bits are checked against the store); ``mesh``, ``axis`` and
+    ``quality`` as for ``fit_words``."""
     fspec = _as_fspec(spec, getattr(store, "k", None), normalize=normalize)
     _check_store(fspec, store)
     return fit_words(store.words, y, fspec, cfg, n_outputs=n_outputs,
-                     quality=quality)
+                     mesh=mesh, axis=axis, quality=quality)
 
 
 def _segment_targets(seg, labels, n_outputs: int) -> torch.Tensor:

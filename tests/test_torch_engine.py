@@ -152,16 +152,6 @@ def test_empty_store_and_empty_queries():
     assert bool((rho == -1.0).all())
 
 
-@pytest.mark.parametrize("kwargs", [dict(), dict(scored=True)])
-def test_later_slices_raise(kwargs):
-    # the row-sharded search is the one mode of the reference's engine
-    # still to port
-    tc = CodedRandomProjection(SketchConfig(k=32), 8, device="cpu")
-    eng = AnnEngine.build(tc, np.ones((4, 8), np.float32), BandSpec(4, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        eng.search_sharded(np.ones((2, 8), np.float32), **kwargs)
-
-
 def test_streaming_regime_raises_above_cap():
     """Above the cap, as in the reference: ``r_matrix`` raises ValueError
     and ``encode_packed`` streams the units instead."""

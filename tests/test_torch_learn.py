@@ -748,12 +748,6 @@ def test_config_errors_and_left_out_arguments():
     with pytest.raises(ValueError):
         tl.fit_log(store, lambda ids: [1] * len(ids), spec,
                    tl.LearnConfig(steps=2, batch=4))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tl.fit_words(tw, y, spec, k=16, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tl.packed_grads_sharded(None, tw, None, None, None)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tl.fit_store(CodeStore(words=tw, k=16, bits=2), y, spec, mesh=object())
     # quality= feeds the post-fit margins (tests/test_torch_health.py);
     # a bundle whose registry is off takes nothing
     from repro_torch.obs import MetricsRegistry, QualityConfig, QualityMonitors
