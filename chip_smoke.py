@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # full run: build, kernel checks, main path
     python3 chip_smoke.py --check    # build and the small-shape kernel checks only
     python3 chip_smoke.py --profile  # full run plus torch.profiler breakdowns
+    python3 chip_smoke.py --lm       # phase 16 (the LM path) alone
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -332,7 +333,38 @@ Phases, in order; any failure raises and the script exits non-zero:
     gradient GB/s each reaches, row-steps/s of each fit sharded and not,
     the card line. The group is destroyed at the end of each phase, and
     the launches of both sharded paths are printed as one JSON line.
-16. A ``kernels`` JSON line, the card line, and as the last line
+16. The dense LM path (``repro_torch.models``, ``serve.serving``,
+    ``train``, ``optim``, ``data``; right after phase 15), which launches
+    none of the kernels above (every count must stay 0). qwen2-0.5B at its
+    full config (24 layers, d_model 896, 14 heads, 2 KV heads, d_ff
+    4,864, vocab 151,936, bf16; 494,032,768 parameters, checked), weights
+    from ``init_params(seed=0)`` on the card: ``generate`` on 8 prompts of
+    512 tokens from ``TokenPipeline``, 64 greedy tokens then 64 at
+    temperature 0.8, each timed beside ``prefill`` alone; ``decode_step``
+    after ``prefill`` at the last position against ``forward`` over the
+    whole sequence (error over scale below 0.08, the reference's bound);
+    the same widths at two layers in float32 on the card against the CPU
+    port (logits within rtol 1e-3, atol 1e-4 of the largest); 6 steps of
+    ``make_train_step`` at 8 x 4,096 through ``Trainer`` (AdamW lr 1e-3,
+    warm-up 2, master copy) under CUDA's sync debug mode, every loss
+    finite, the last below the first, no host synchronisation in the
+    loop; 3 steps of ``make_compressed_train_step`` over a one-card NCCL
+    group with ``GradCompressor`` (2-bit, rate 8, chunk 1,024; wire bytes
+    17,368,344), then ``sync`` against ``sync_local`` on the model's real
+    gradient within phase 15's bound; a two-layer float32 copy trained 4
+    steps of 2 x 512 uninterrupted against 2 steps, a checkpoint under
+    ``build/`` and a fresh ``Trainer`` resumed to 4 (parameters and
+    optimizer state bit-identical). Then gemma2-9b at its full config (42
+    layers LG, window 4,096, both softcaps, post norms, embedding scale,
+    GeGLU), serving only: one prompt of 8,192 tokens (the L layers through
+    ``banded_attention``, their caches rings of 4,096) and 32 greedy
+    tokens, the decode check at the last position. Printed with the card
+    line: prefill tokens/s, decode ms a token and tokens/s, ms a training
+    step and tokens/s (CUDA events), the compressor's share of a step,
+    the batch time of ``TokenPipeline``, peak allocated memory;
+    ``--profile`` adds one decode step and one training step of qwen2-0.5B
+    by kernel.
+17. A ``kernels`` JSON line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -5284,6 +5316,412 @@ def sharded_learn_phase(store, y_tr, held_words, crp, device) -> tuple:
     return counts, rates
 
 
+# phase 16: the dense LM at full width (src/repro/configs/qwen2_0_5b.py,
+# gemma2_9b.py); qwen2-0.5B's parameters, as phase 15's QWEN2_05B_GRAD
+LM_QWEN, LM_GEMMA = "qwen2-0.5b", "gemma2-9b"
+LM_QWEN_PARAMS = 494_032_768
+LM_SERVE_BATCH, LM_PROMPT, LM_GREEDY, LM_SAMPLED = 8, 512, 64, 64
+LM_TEMPERATURE = 0.8
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 4096, 6
+LM_RESUME_BATCH, LM_RESUME_SEQ, LM_RESUME_STEPS = 2, 512, 4
+LM_COMPRESSED_STEPS = 3
+LM_GEMMA_PROMPT, LM_GEMMA_DECODE = 8192, 32
+LM_DECODE_BOUND = 0.08     # tests/test_models_smoke.py: err / scale
+
+
+class cached_batches:
+    """A ``TokenPipeline`` whose batches are made once a step (a second
+    trainer over the same steps reuses them) and timed by CUDA events."""
+
+    def __init__(self, pipe):
+        self.pipe, self.batches, self.ms = pipe, {}, {}
+
+    def batch_at(self, step: int):
+        import torch
+        if step not in self.batches:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            self.batches[step] = self.pipe.batch_at(step)
+            b.record()
+            self.ms[step] = (a, b)
+        return self.batches[step]
+
+
+def event_timed(fn, marks: list):
+    """``fn`` with a pair of CUDA events recorded around each call into
+    ``marks`` (no synchronisation)."""
+    import torch
+
+    def wrapped(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kw)
+        b.record()
+        marks.append((a, b))
+        return out
+    return wrapped
+
+
+def elapsed(marks) -> list:
+    import torch
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in marks]
+
+
+def decode_gate(params, seq, cfg, what: str) -> tuple:
+    """Prefill ``seq[:, :-1]``, decode its last token at position S-1, and
+    hold the logits to the full forward's last position by the
+    reference's bound (err / scale < 0.08). Returns (err / scale, the
+    length of the first pattern layer's cache)."""
+    import torch
+    from repro_torch.models import lm as L
+    s = seq.shape[1]
+    with torch.no_grad():
+        _, caches = L.prefill(params, seq[:, :-1], cfg, max_len=s)
+        dec, _ = L.decode_step(params, caches, seq[:, -1:], s - 1, cfg)
+        length = caches["groups"]["p0"]["kv"]["k"].shape[2]
+        del caches
+        full = L.lm_logits(L.forward(params, seq, cfg)[0][:, -1:], params,
+                           cfg)
+    err = float((dec - full).abs().max())
+    scale = float(full.abs().max()) + 1e-6
+    if not err / scale < LM_DECODE_BOUND:
+        raise AssertionError(f"{what}: decode departs from the forward, "
+                             f"err {err:.4e} against scale {scale:.4e}")
+    return err / scale, length
+
+
+def served(params, prompt, cfg, n_tokens: int, temperature: float) -> tuple:
+    """``generate`` timed (host clock between synchronisations) beside
+    ``prefill`` alone: (tokens, seconds, prefill seconds)."""
+    import torch
+    from repro_torch.models import lm as L
+    from repro_torch.serve import generate
+    b, s = prompt.shape[:2]
+    with torch.no_grad():
+        _, t_pre = timed_call(lambda: L.prefill(params, prompt, cfg,
+                                                max_len=s + n_tokens))
+    out, t_gen = timed_call(lambda: generate(
+        params, prompt, cfg, n_tokens, temperature=temperature, seed=0))
+    if out.shape[:2] != (b, s + n_tokens) or \
+            not torch.equal(out[:, :s], prompt):
+        raise AssertionError(f"generate gave {tuple(out.shape)}")
+    return out, t_gen, t_pre
+
+
+def lm_phase(device, profile: bool = False) -> dict:
+    """Phase 16: the dense LM path at qwen2-0.5B's and gemma2-9b's full
+    widths: serve, train, resume, compressed training. ``profile`` adds a
+    torch.profiler breakdown of one decode step and one training step.
+    Returns its numbers."""
+    import dataclasses
+    import shutil
+    import warnings
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.core.gradient_compression import (
+        GradCompressionConfig, GradCompressor)
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm as L
+    from repro_torch.models.nn import (count_params, init_params, tree_items,
+                                       tree_leaves, tree_map)
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.serve import make_serve_step
+    from repro_torch.train import (Trainer, TrainState,
+                                   make_compressed_train_step,
+                                   make_train_step)
+    from repro_torch.train.train_loop import loss_and_grads
+    card = card_line()
+    out = {"card": card}
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+
+    # (a) qwen2-0.5B
+    cfg = C.get_config(LM_QWEN)
+    specs = L.model_param_specs(cfg)
+    n_params = count_params(specs)
+    if n_params != LM_QWEN_PARAMS:
+        raise AssertionError(f"{LM_QWEN}: {n_params} parameters")
+    params, t_init = timed_call(lambda: init_params(specs, seed=0,
+                                                    device=device))
+    out["qwen_init_s"] = t_init
+    log(f"LM {LM_QWEN}: {n_params} parameters ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
+        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}), "
+        f"init_params(seed=0) on the card in {t_init:.3f} s ({card})")
+
+    # serve: 8 prompts of 512 tokens, 64 greedy then 64 sampled
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=LM_PROMPT,
+                                    global_batch=LM_SERVE_BATCH, seed=1),
+                         device=device)
+    prompt, t_prompt = timed_call(lambda: pipe.batch_at(0))
+    torch.cuda.reset_peak_memory_stats()
+    greedy, t_g, t_pre = served(params, prompt, cfg, LM_GREEDY, 0.0)
+    sampled, t_s, t_pre2 = served(params, prompt, cfg, LM_SAMPLED,
+                                  LM_TEMPERATURE)
+    peak_serve = torch.cuda.max_memory_allocated()
+    ratio, _ = decode_gate(params, greedy, cfg, LM_QWEN)
+    rows = LM_SERVE_BATCH * LM_PROMPT
+    dec = {k: 1e3 * (t - p) / (n - 1) for k, t, p, n in (
+        ("greedy", t_g, t_pre, LM_GREEDY),
+        ("sampled", t_s, t_pre2, LM_SAMPLED))}
+    out["qwen_serve"] = dict(
+        prompt_batch_s=t_prompt, prefill_s=[t_pre, t_pre2],
+        prefill_tokens_s=[rows / t_pre, rows / t_pre2],
+        generate_s={"greedy": t_g, "sampled": t_s},
+        decode_ms_token=dec,
+        decode_tokens_s={k: LM_SERVE_BATCH / (v / 1e3)
+                         for k, v in dec.items()},
+        decode_vs_forward=ratio, peak_bytes=peak_serve,
+        distinct_sampled=int((sampled[:, LM_PROMPT:] !=
+                              greedy[:, LM_PROMPT:]).sum()))
+    log(f"LM {LM_QWEN} serve: {LM_SERVE_BATCH} prompts of {LM_PROMPT} tokens "
+        f"from TokenPipeline ({t_prompt:.3f} s); prefill {t_pre:.4f}, "
+        f"{t_pre2:.4f} s = {rows / t_pre:,.0f}, {rows / t_pre2:,.0f} "
+        f"tokens/s; generate {LM_GREEDY} greedy {t_g:.3f} s, {LM_SAMPLED} at "
+        f"temperature {LM_TEMPERATURE} {t_s:.3f} s; decode "
+        f"{dec['greedy']:.3f} / {dec['sampled']:.3f} ms a token (batch "
+        f"{LM_SERVE_BATCH}) = {LM_SERVE_BATCH / dec['greedy'] * 1e3:,.1f} / "
+        f"{LM_SERVE_BATCH / dec['sampled'] * 1e3:,.1f} tokens/s; decode "
+        f"against forward err/scale {ratio:.5f} (bound {LM_DECODE_BOUND}); "
+        f"peak allocated {peak_serve / 2**30:.2f} GiB ({card})")
+
+    if profile:
+        with torch.no_grad():
+            _, caches = L.prefill(params, greedy[:, :-1], cfg,
+                                  max_len=greedy.shape[1])
+        serve_step = make_serve_step(cfg)
+        profile_window(f"LM {LM_QWEN} decode step (batch {LM_SERVE_BATCH})",
+                       lambda: serve_step(params, caches, greedy[:, -1:],
+                                          greedy.shape[1] - 1), top=10)
+        del caches
+
+    # the same widths at two layers in float32: the card against the CPU
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p_cpu = init_params(L.model_param_specs(cfg32), seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(device), p_cpu)
+    small = prompt[:2, :64]
+    with torch.no_grad():
+        lg = L.lm_logits(L.forward(p_gpu, small, cfg32)[0], p_gpu,
+                         cfg32).cpu()
+        lc = L.lm_logits(L.forward(p_cpu, small.cpu(), cfg32)[0], p_cpu,
+                         cfg32)
+    err = (lg - lc).abs()
+    top = float(lc.abs().max())
+    if bool((err > 1e-3 * lc.abs() + 1e-4 * top).any()):
+        raise AssertionError(f"float32 logits on the card depart from the "
+                             f"CPU's: max {float(err.max()):.3e}")
+    out["qwen_f32_card_vs_cpu_max_err"] = float(err.max())
+    log(f"LM {LM_QWEN} at 2 layers in float32: logits on the card within "
+        f"rtol 1e-3 (atol 1e-4 of the largest, {top:.3f}) of the CPU port's, "
+        f"max diff {float(err.max()):.3e}")
+    del p_gpu, p_cpu, lg, lc
+
+    # train: 6 steps at 8 x 4,096 through Trainer
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2)
+    train_pipe = cached_batches(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+        global_batch=LM_TRAIN_BATCH), device=device))
+    opt = init_opt_state(params, opt_cfg)
+    marks = []
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(event_timed(make_train_step(cfg, opt_cfg), marks),
+                      TrainState(params, opt), train_pipe, ckpt_dir=None,
+                      log_every=LM_TRAIN_STEPS + 1, log_fn=log)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.run(LM_TRAIN_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    step_ms = elapsed(marks)
+    batch_ms = [a.elapsed_time(b) for a, b in
+                (train_pipe.ms[s] for s in sorted(train_pipe.ms))]
+    losses = [float(m["loss"]) for m in trainer.history]
+    gnorms = [float(m["grad_norm"]) for m in trainer.history]
+    peak_train = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}")
+    if syncs:
+        raise AssertionError(f"the training loop synchronised with the host "
+                             f"{len(syncs)} times: {syncs[:3]}")
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_leaves(params) + tree_leaves(opt))
+    tok_step = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    out["qwen_train"] = dict(
+        losses=losses, grad_norms=gnorms, step_ms=step_ms,
+        tokens_s=[tok_step / (ms / 1e3) for ms in step_ms],
+        batch_ms=batch_ms, run_s=t_train, peak_bytes=peak_train,
+        state_bytes=state_bytes, host_syncs=len(syncs))
+    log(f"LM {LM_QWEN} train: {LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ} through Trainer (AdamW lr 1e-3, warm-up 2, master "
+        f"copy), losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in gnorms]}; ms a step (CUDA events) "
+        f"{[round(x, 1) for x in step_ms]} = "
+        f"{[round(tok_step / x * 1e3) for x in step_ms]} tokens/s; a batch "
+        f"from TokenPipeline {[round(x, 1) for x in batch_ms]} ms; {t_train:.2f} "
+        f"s for the run; no host synchronisation in the loop (sync debug "
+        f"mode); state (weights, moments, master) {state_bytes / 2**30:.2f} "
+        f"GiB, peak allocated {peak_train / 2**30:.2f} GiB ({card})")
+    if profile:
+        step_fn, batch = make_train_step(cfg, opt_cfg), train_pipe.batch_at(0)
+        profile_window(f"LM {LM_QWEN} training step ({LM_TRAIN_BATCH} x "
+                       f"{LM_TRAIN_SEQ})", lambda: step_fn(params, opt, batch),
+                       top=12)
+    del opt, trainer
+
+    # compressed: a one-card NCCL group, 2-bit codes at rate 8
+    gc_cfg = GradCompressionConfig(scheme="2bit", rate=GC_RATE, chunk=GC_CHUNK)
+    opt = init_opt_state(params, opt_cfg)
+    with nccl_mesh() as mesh:
+        comp = GradCompressor(gc_cfg, params, device=device)
+        if comp.wire_bytes() != GC_WIRE_BYTES:
+            raise AssertionError(f"wire bytes {comp.wire_bytes()}")
+        sync_marks, step_marks = [], []
+        comp.sync = event_timed(comp.sync, sync_marks)
+        step_fn = event_timed(make_compressed_train_step(
+            cfg, opt_cfg, mesh, comp), step_marks)
+        tr = Trainer(step_fn, TrainState(params, opt, ef=comp.init_ef(params)),
+                     train_pipe, log_every=LM_COMPRESSED_STEPS + 1,
+                     log_fn=log)
+        tr.run(LM_COMPRESSED_STEPS)
+        c_ms, s_ms = elapsed(step_marks), elapsed(sync_marks)
+        c_loss = [float(m["loss"]) for m in tr.history]
+        if not all(math.isfinite(x) for x in c_loss):
+            raise AssertionError(f"compressed losses {c_loss}")
+        # sync against sync_local on the model's real gradient
+        _, _, grads = loss_and_grads(params, train_pipe.batch_at(0), cfg)
+        ef = tr.state.ef
+        del comp.sync
+        g_hat, ef_new = comp.sync(grads, ef, mesh, step=LM_COMPRESSED_STEPS)
+        l_hat, l_ef = comp.sync_local(grads, ef, step=LM_COMPRESSED_STEPS)
+        diffs = {}
+        for a, b, what in ((g_hat, l_hat, "gradient"), (ef_new, l_ef, "EF")):
+            a, b = comp._flatten(a), comp._flatten(b)
+            e = (a - b).abs()
+            if bool((e > 1e-5 * float(b.abs().max()) + 1e-5 * b.abs()).any()):
+                raise AssertionError(f"sync {what} departs from sync_local: "
+                                     f"max {float(e.max()):.3e}")
+            diffs[what] = float(e.max())
+        del grads, g_hat, ef_new, l_hat, l_ef, ef, tr
+    share = [s / c for s, c in zip(s_ms, c_ms)]
+    out["qwen_compressed"] = dict(
+        losses=c_loss, step_ms=c_ms, sync_ms=s_ms, sync_share=share,
+        wire_bytes=comp.wire_bytes(), fp32_bytes=comp.fp32_bytes(),
+        sync_vs_local=diffs)
+    log(f"LM {LM_QWEN} compressed: {LM_COMPRESSED_STEPS} steps of "
+        f"make_compressed_train_step over a one-card NCCL group "
+        f"(GradCompressor 2-bit, rate {GC_RATE}, chunk {GC_CHUNK}, "
+        f"{len(comp.shapes)} leaves, wire {comp.wire_bytes()} bytes), losses "
+        f"{[round(x, 4) for x in c_loss]}; ms a step "
+        f"{[round(x, 1) for x in c_ms]}, of which sync "
+        f"{[round(x, 1) for x in s_ms]} ({[round(100 * x, 1) for x in share]} "
+        f"%); sync against sync_local on the real gradient max diff "
+        f"{diffs['gradient']:.3e} (gradient), {diffs['EF']:.3e} (EF) ({card})")
+    del comp, opt, params, train_pipe
+    torch.cuda.empty_cache()
+
+    # resume: two layers, full width, float32; bit-exact
+    cfg_r = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    opt_r = AdamWConfig(lr_peak=1e-3, warmup_steps=2, master_fp32=False)
+    pipe_r = cached_batches(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_RESUME_SEQ,
+        global_batch=LM_RESUME_BATCH, seed=2), device=device))
+    ckpt = os.path.join(ROOT, "build", f"lm-resume-{os.getpid()}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def fresh(ckpt_dir):
+        p = init_params(L.model_param_specs(cfg_r), seed=1, device=device)
+        return Trainer(make_train_step(cfg_r, opt_r),
+                       TrainState(p, init_opt_state(p, opt_r)), pipe_r,
+                       ckpt_dir=ckpt_dir, ckpt_every=0, log_fn=lambda *a: None)
+    try:
+        whole = fresh(None)
+        whole.run(LM_RESUME_STEPS)
+        first = fresh(ckpt)
+        _, t_save = timed_call(lambda: first.run(LM_RESUME_STEPS // 2))
+        del first
+        second = fresh(ckpt)
+        _, t_load = timed_call(second.maybe_resume)
+        if second.state.step != LM_RESUME_STEPS // 2:
+            raise AssertionError(f"resumed at step {second.state.step}")
+        second.run(LM_RESUME_STEPS)
+        for (p, a), (_, b) in zip(
+                tree_items({"params": whole.state.params,
+                            "opt": whole.state.opt_state}),
+                tree_items({"params": second.state.params,
+                            "opt": second.state.opt_state})):
+            if not torch.equal(a, b):
+                raise AssertionError(f"resumed {p} differs from the "
+                                     f"uninterrupted run")
+        last = os.path.join(ckpt, f"step_{LM_RESUME_STEPS}")
+        ck_bytes = sum(os.path.getsize(os.path.join(last, f))
+                       for f in os.listdir(last))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["qwen_resume"] = dict(save_run_s=t_save, restore_s=t_load,
+                              checkpoint_bytes=ck_bytes)
+    log(f"LM {LM_QWEN} resume: 2 layers, full width, float32; "
+        f"{LM_RESUME_STEPS} steps of {LM_RESUME_BATCH} x {LM_RESUME_SEQ} "
+        f"uninterrupted against {LM_RESUME_STEPS // 2}, a checkpoint under "
+        f"build/, a fresh Trainer resumed to {LM_RESUME_STEPS}: parameters "
+        f"and optimizer state bit-identical; {LM_RESUME_STEPS // 2} steps "
+        f"and the save {t_save:.2f} s, restore {t_load:.2f} s, the last "
+        f"checkpoint {ck_bytes / 2**20:.1f} MiB")
+    del whole, second, pipe_r
+    torch.cuda.empty_cache()
+
+    # (b) gemma2-9b: serve only, an 8,192-token prompt past the 4,096 window
+    cfg = C.get_config(LM_GEMMA)
+    specs = L.model_param_specs(cfg)
+    params, t_init = timed_call(lambda: init_params(specs, seed=0,
+                                                    device=device))
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=LM_GEMMA_PROMPT, global_batch=1,
+                                    seed=3), device=device)
+    prompt, t_prompt = timed_call(lambda: pipe.batch_at(0))
+    torch.cuda.reset_peak_memory_stats()
+    seq, t_g, t_pre = served(params, prompt, cfg, LM_GEMMA_DECODE, 0.0)
+    peak = torch.cuda.max_memory_allocated()
+    ratio, ring = decode_gate(params, seq, cfg, LM_GEMMA)
+    if ring != cfg.window:
+        raise AssertionError(f"local layers' cache {ring} != {cfg.window}")
+    d_ms = 1e3 * (t_g - t_pre) / (LM_GEMMA_DECODE - 1)
+    out["gemma_serve"] = dict(
+        params=count_params(specs), init_s=t_init, prompt_batch_s=t_prompt,
+        prefill_s=t_pre, prefill_tokens_s=LM_GEMMA_PROMPT / t_pre,
+        generate_s=t_g, decode_ms_token=d_ms, decode_vs_forward=ratio,
+        peak_bytes=peak)
+    log(f"LM {LM_GEMMA}: {count_params(specs)} parameters ({cfg.n_layers} "
+        f"layers {cfg.layer_pattern}, window {cfg.window}, softcaps "
+        f"{cfg.attn_softcap}/{cfg.logit_softcap}, {cfg.activation}), init "
+        f"{t_init:.2f} s; a prompt of {LM_GEMMA_PROMPT} tokens "
+        f"({t_prompt:.2f} s from TokenPipeline): prefill {t_pre:.3f} s = "
+        f"{LM_GEMMA_PROMPT / t_pre:,.0f} tokens/s (the L layers banded, "
+        f"their caches a ring of {ring}); {LM_GEMMA_DECODE} greedy tokens, "
+        f"decode {d_ms:.3f} ms a token; decode at position "
+        f"{seq.shape[1] - 1} against forward err/scale {ratio:.5f} (bound "
+        f"{LM_DECODE_BOUND}); peak allocated {peak / 2**30:.2f} GiB ({card})")
+    del params, seq, prompt, pipe
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the LM path launched kernels: {counts}")
+    return out
+
+
 def profile_main_path(engine, queries, device) -> None:
     """``--profile``: device time by kernel for 8 ``sketch`` calls, each
     on a 65,536-row chunk made beforehand and each followed by a
@@ -5392,6 +5830,13 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     card = card_line()
+    if "--lm" in argv:      # phase 16 alone (it builds and launches no kernel)
+        log(f"card: {card}")
+        t0 = time.perf_counter()
+        log(f"lm path: "
+            f"{json.dumps(lm_phase(device, '--profile' in argv))}")
+        log(f"phase lm path: {time.perf_counter() - t0:.1f} s")
+        return 0
     t0 = time.perf_counter()
     reports = _build.build_all(verbose=True)
     log(f"build: {len(_build.SOURCES)} sources in "
@@ -5522,6 +5967,10 @@ def main(argv) -> int:
         {"sharded": {k: counts_sharded[k] for k in PATH_KERNELS["sharded"]},
          "sharded_learn": {k: counts_shl[k]
                            for k in PATH_KERNELS["sharded_learn"]}}))
+    t0 = time.perf_counter()
+    rates_lm = lm_phase(device, profile="--profile" in argv)
+    log(f"lm path: {json.dumps(rates_lm)}")
+    log(f"phase lm path: {time.perf_counter() - t0:.1f} s")
     path_counts = {"main": counts, "scored": counts_scored,
                    "mutable": counts_mutable, "url": counts_url,
                    "dense": counts_dense,

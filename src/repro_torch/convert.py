@@ -11,6 +11,10 @@ a ``repro.learn.PackedLinearModel`` so that both compute the same
 margins; ``grad_compressor_from_numpy`` builds a gradient compressor
 around a ``repro`` compressor's R (``_r_np``) and offsets, which its own
 QR (LAPACK against cuSOLVER or another LAPACK) gives only to rounding.
+``lm_params_from_numpy`` takes a ``repro`` LM's parameter tree (its
+leaves as numpy arrays, bf16 included) as the port's, and
+``token_pipeline_from_numpy`` builds a token pipeline around a ``repro``
+pipeline's tables.
 """
 from __future__ import annotations
 
@@ -22,13 +26,17 @@ from repro_torch.core.gradient_compression import (GradCompressionConfig,
                                                    GradCompressor)
 from repro_torch.core.schemes import CodeSpec
 from repro_torch.core.sketch import CodedRandomProjection, SketchConfig
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.learn.features import PackedFeatureSpec
 from repro_torch.learn.linear import PackedLinearModel
+from repro_torch.models.lm import ModelConfig, model_param_specs
+from repro_torch.models.nn import torch_dtype, tree_map
 from repro_torch.rank.tables import RankTables
 
 __all__ = ["sketch_from_numpy", "store_from_numpy", "rank_tables_from_numpy",
-           "linear_model_from_numpy", "grad_compressor_from_numpy"]
+           "linear_model_from_numpy", "grad_compressor_from_numpy",
+           "lm_params_from_numpy", "token_pipeline_from_numpy"]
 
 
 def sketch_from_numpy(cfg: SketchConfig, d: int, r, offsets=None,
@@ -111,3 +119,40 @@ def grad_compressor_from_numpy(cfg: GradCompressionConfig, template, r,
         comp._offsets = torch.from_numpy(
             np.asarray(offsets, dtype=np.float32).copy()).to(comp.device)
     return comp
+
+
+def _tensor_of(a) -> torch.Tensor:
+    """A numpy array (bfloat16 included, as JAX hands it over) -> a CPU
+    tensor of the same dtype and bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
+    """The port's parameter tree for ``cfg`` holding ``tree``'s leaves
+    (``np.asarray`` of each leaf of a ``repro`` LM's parameters), checked
+    leaf by leaf against ``model_param_specs(cfg)``'s shapes and dtypes."""
+    dev = resolve_device(device)
+
+    def leaf(spec, a):
+        t = _tensor_of(a)
+        if tuple(t.shape) != tuple(spec.shape) or \
+                t.dtype != torch_dtype(spec.dtype):
+            raise ValueError(f"leaf {tuple(t.shape)} {t.dtype} does not fit "
+                             f"{spec}")
+        return t.to(dev)
+
+    return tree_map(leaf, model_param_specs(cfg), tree)
+
+
+def token_pipeline_from_numpy(cfg: DataConfig, trans, emit_logits,
+                              device=None) -> TokenPipeline:
+    """``TokenPipeline`` around float32 tables ``trans`` [S, S] and
+    ``emit_logits`` [S, V] (a ``repro`` pipeline's ``_trans`` and
+    ``_emit_logits``)."""
+    return TokenPipeline(cfg, device=device, tables=(
+        torch.from_numpy(np.asarray(trans, dtype=np.float32).copy()),
+        torch.from_numpy(np.asarray(emit_logits, dtype=np.float32).copy())))

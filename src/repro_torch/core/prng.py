@@ -16,6 +16,12 @@ off:
   and ``rademacher`` ``2b - 1`` of it, in float32;
 * ``normal`` is ``sqrt(2) * erfinv(max(lo, 2f + lo))`` with
   ``lo = nextafter(-1, 0)``;
+* ``split(key, n)[i]`` hashes the count pair (0, i) under ``key``
+  (JAX's fold-like split), so it equals ``fold_in(key, i)``;
+  ``randint`` draws two words a value from the two keys of
+  ``split(key)`` and reduces them modulo the span as JAX does;
+  ``categorical`` is the argmax of Gumbel noise plus the logits, the
+  noise ``-log(-log(u))`` of a ``uniform`` on [tiny, 1) with XLA's log;
 * ``normal(..., dtype=torch.bfloat16)`` follows JAX's bf16 draw: its
   uniform takes one of 128 values from bits 1-7 of the same 32-bit bits
   (f = m/128, u = max(lo, 2f + lo) with lo = -255/256, exact in bf16),
@@ -45,9 +51,11 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "bernoulli", "rademacher", "normal", "normal_from_bits",
-           "bf16_normal_of_index", "erfinv_xla", "log2_xla"]
+__all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "threefry2x32_i32",
+           "random_bits", "random_bits_of", "uniform", "bernoulli",
+           "rademacher", "randint", "gumbel", "categorical", "normal",
+           "normal_from_bits", "bf16_normal_of_index", "erfinv_xla",
+           "log_xla", "log2_xla"]
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -73,6 +81,42 @@ def threefry2x32(k1: int, k2: int, x1, x2):
     return x1, x2
 
 
+def _i32(v):
+    """A uint32 value (int or int64 tensor) as the int32 of its bits."""
+    if isinstance(v, torch.Tensor):
+        return (v & _M).to(torch.int32) if v.dtype != torch.int32 else v
+    v &= _M
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def threefry2x32_i32(k1, k2, x1, x2):
+    """``threefry2x32`` in int32 arithmetic: keys and counts are int32
+    tensors (or ints) holding uint32 bits, the sums wrap modulo 2^32 and
+    a logical right shift is an arithmetic one masked. Bit-identical to
+    the int64 form at less than half its memory traffic; the bulk draws
+    (``random_bits_of``) use it."""
+    k1, k2 = _i32(k1), _i32(k2)
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = _i32(x1) + ks[0]
+    x2 = _i32(x2) + ks[1]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x1 = x1 + x2
+            x2 = ((x2 << r) | ((x2 >> (32 - r)) & ((1 << r) - 1))) ^ x1
+        x1 = x1 + ks[(i + 1) % 3]
+        x2 = x2 + ks[(i + 2) % 3] + (i + 1)
+    return x1, x2
+
+
+def random_bits_of(k1, k2, counts: torch.Tensor) -> torch.Tensor:
+    """The uint32 bits of flat indices ``counts`` (int64, below 2^32)
+    under keys (k1, k2) (ints, or int64 tensors that broadcast against
+    ``counts``, one key a row), as int32 bit patterns: what
+    ``random_bits`` gives at those indices."""
+    b1, b2 = threefry2x32_i32(k1, k2, 0, counts)
+    return b1 ^ b2
+
+
 def PRNGKey(seed: int) -> tuple:
     """Key of an integer seed, as ``jax.random.PRNGKey`` with 64-bit
     types off: (0, seed mod 2^32)."""
@@ -87,6 +131,12 @@ def fold_in(key: tuple, data: int) -> tuple:
     return threefry2x32(key[0], key[1], 0, int(data))
 
 
+def split(key: tuple, num: int = 2) -> list:
+    """``num`` new keys, as ``jax.random.split`` (fold-like): key i
+    hashes the count pair (0, i)."""
+    return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+
+
 def random_bits(key: tuple, shape, device=None) -> torch.Tensor:
     """uint32 bits (int64 tensor on ``device``, the CPU by default) of
     ``shape``, as ``jax.random.bits``."""
@@ -99,47 +149,88 @@ def random_bits(key: tuple, shape, device=None) -> torch.Tensor:
 def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
     """Floats in [0, 1) from the top 23 of uint32 ``bits`` (the mantissa
     of [1, 2) - 1)."""
-    fb = (bits >> 9) | 0x3F800000
+    fb = ((bits >> 9) & 0x7FFFFF) | 0x3F800000   # int64 or int32 bits
     return fb.to(torch.int32).view(torch.float32) - 1.0
 
 
 def _f32(v, like: torch.Tensor = None) -> torch.Tensor:
-    """0-dim float32 constant, on ``like``'s device when given."""
-    return torch.tensor(np.float32(v), dtype=torch.float32,
-                        device=None if like is None else like.device)
+    """0-dim float32 constant, on ``like``'s device when given (made by a
+    fill there, not copied from the host: no synchronisation)."""
+    return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                      device=None if like is None else like.device)
 
 
 def uniform(key: tuple, shape, minval: float = 0.0, maxval: float = 1.0,
-            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """float32 or bf16 in [minval, maxval), as ``jax.random.uniform``
-    (bf16: f = m/128 from bits 1-7, the bounds and their span rounded to
-    bf16, f * span + lo rounded once to bf16; exact for the draw's and
-    the offsets' bounds)."""
+            dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """float32 or bf16 in [minval, maxval) on ``device`` (the CPU by
+    default), as ``jax.random.uniform`` (bf16: f = m/128 from bits 1-7,
+    the bounds and their span rounded to bf16, f * span + lo rounded once
+    to bf16; exact for the draw's and the offsets' bounds)."""
+    bits = random_bits(key, shape, device)
     if dtype == torch.bfloat16:
         bf = torch.bfloat16
-        lo = torch.tensor(minval, dtype=bf).float()
-        span = (torch.tensor(maxval, dtype=bf).float() - lo).to(bf).float()
-        f = ((random_bits(key, shape) >> 1) & 127).to(torch.float32) / 128
+        lo = torch.full((), minval, dtype=bf, device=bits.device).float()
+        span = (torch.full((), maxval, dtype=bf, device=bits.device).float()
+                - lo).to(bf).float()
+        f = ((bits >> 1) & 127).to(torch.float32) / 128
         return torch.maximum(lo, (f * span + lo).to(bf).float()).to(bf)
     if dtype != torch.float32:
         raise ValueError(f"uniform draws float32 or bfloat16, got {dtype}")
-    lo, hi = _f32(minval), _f32(maxval)
-    f = _unit_floats(random_bits(key, shape))
+    lo, hi = _f32(minval, bits), _f32(maxval, bits)
+    f = _unit_floats(bits)
     # XLA contracts f * (hi - lo) + lo into one fused multiply-add
     return torch.maximum(lo, _fma(f, (hi - lo).expand_as(f), lo.expand_as(f)))
 
 
-def bernoulli(key: tuple, p: float = 0.5, shape=()) -> torch.Tensor:
-    """bool draws on the CPU, as ``jax.random.bernoulli``: a float32
-    ``uniform`` below float32 ``p``."""
-    return uniform(key, shape) < _f32(p)
+def bernoulli(key: tuple, p: float = 0.5, shape=(),
+              device=None) -> torch.Tensor:
+    """bool draws on ``device`` (the CPU by default), as
+    ``jax.random.bernoulli``: a float32 ``uniform`` below float32 ``p``."""
+    u = uniform(key, shape, device=device)
+    return u < _f32(p, u)
 
 
-def rademacher(key: tuple, shape,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """+-1 draws on the CPU, as ``jax.random.rademacher``: 2b - 1 of
-    ``bernoulli(key, 0.5, shape)``."""
-    return (2 * bernoulli(key, 0.5, shape).to(dtype) - 1).to(dtype)
+def rademacher(key: tuple, shape, dtype: torch.dtype = torch.float32,
+               device=None) -> torch.Tensor:
+    """+-1 draws on ``device`` (the CPU by default), as
+    ``jax.random.rademacher``: 2b - 1 of ``bernoulli(key, 0.5, shape)``."""
+    return (2 * bernoulli(key, 0.5, shape, device).to(dtype) - 1).to(dtype)
+
+
+def randint(key: tuple, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """int32 draws in [minval, maxval) on ``device``, as
+    ``jax.random.randint`` with int32: a high and a low word from the
+    keys of ``split(key)``, reduced modulo the span as (hi % span) *
+    (2^32 % span) + lo % span, modulo the span again."""
+    span = maxval - minval
+    if not (-(1 << 31) <= minval and maxval <= (1 << 31) - 1 and
+            0 < span <= _M):
+        raise ValueError(f"randint needs int32 bounds with minval < maxval, "
+                         f"got {minval}, {maxval}")
+    k1, k2 = split(key)
+    mult = ((((1 << 16) % span) ** 2) & _M) % span    # uint32 products wrap
+    hi = random_bits(k1, shape, device) % span
+    lo = random_bits(k2, shape, device) % span
+    return (minval + ((hi * mult + lo) & _M) % span).to(torch.int32)
+
+
+def gumbel(key: tuple, shape, device=None) -> torch.Tensor:
+    """float32 Gumbel draws, as ``jax.random.gumbel`` (mode "low"):
+    ``-log(-log(u))`` of a ``uniform`` on [tiny, 1), XLA's log twice."""
+    u = uniform(key, shape, float(np.finfo(np.float32).tiny), 1.0,
+                device=device)
+    return -_log_xla(-_log_xla(u))
+
+
+def categorical(key: tuple, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """int32 draws from softmax(``logits``) along ``axis``, as
+    ``jax.random.categorical``: the first argmax of Gumbel noise of the
+    logits' shape plus the float32 logits."""
+    logits = logits.to(torch.float32)
+    g = gumbel(key, tuple(logits.shape), logits.device)
+    return torch.argmax(g + logits, dim=axis).to(torch.int32)
 
 
 def _fma(a, b, c) -> torch.Tensor:
@@ -173,6 +264,11 @@ def _log_xla(v: torch.Tensor) -> torch.Tensor:
     x = x - x2 * _f32(0.5, x)
     x = x + y
     return x + e * _f32(0.693359375, x)
+
+
+def log_xla(v: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 log (``jnp.log`` under the reference)."""
+    return _log_xla(v)
 
 
 def log2_xla(v: torch.Tensor) -> torch.Tensor:

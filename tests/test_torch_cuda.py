@@ -1210,3 +1210,53 @@ def test_canary_probes_on_the_card_match_the_cpu(gen):
         [(p["id"], p["hit"], p["margin"]) for p in cpu["detail"]]
     for a, b in zip(ids["cuda"], ids["cpu"]):
         assert np.array_equal(a, b)
+
+
+def test_lm_on_the_card_matches_the_cpu(gen):
+    """qwen2-0.5B's widths at two layers in float32, the same weights
+    (``init_params`` on the CPU, copied): logits, a decode step after
+    prefill, and one train step's loss and parameters on the card against
+    the CPU port, within rtol 1e-3 plus 1e-4 of the largest magnitude
+    (float32 sums in cuBLAS's order against the CPU's, TF32 off). Adam's
+    eps is 1 so that its first step is smooth in the gradient."""
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.models import lm as L
+    from repro_torch.models.nn import init_params, tree_items, tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    def close(a, b, what):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        bound = 1e-3 * b.abs() + 1e-4 * b.abs().max()
+        assert bool(((a - b).abs() <= bound).all()), what
+
+    cfg = dataclasses.replace(C.get_config("qwen2-0.5b"), n_layers=2,
+                              dtype="float32")
+    cpu = init_params(L.model_param_specs(cfg), seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    tok = torch.randint(0, cfg.vocab_size, (2, 48), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(0))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            outs = {}
+            for name, p, t in (("cpu", cpu, tok), ("card", card, tok.cuda())):
+                h = L.forward(p, t, cfg)[0]
+                _, caches = L.prefill(p, t[:, :-1], cfg, max_len=48)
+                dec, _ = L.decode_step(p, caches, t[:, -1:], 47, cfg)
+                outs[name] = (L.lm_logits(h, p, cfg), dec)
+        close(outs["card"][0], outs["cpu"][0], "logits")
+        close(outs["card"][1], outs["cpu"][1], "decode")
+        opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, eps=1.0)
+        step = make_train_step(cfg, opt_cfg)
+        res = {name: step(p, init_opt_state(p, opt_cfg), t)
+               for name, p, t in (("cpu", cpu, tok), ("card", card,
+                                                      tok.cuda()))}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    close(res["card"][2]["loss"], res["cpu"][2]["loss"], "loss")
+    for (path, a), (_, b) in zip(tree_items(res["card"][0]),
+                                 tree_items(res["cpu"][0])):
+        close(a, b, path)
