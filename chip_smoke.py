@@ -5,6 +5,7 @@
     python3 chip_smoke.py --check    # build and the small-shape kernel checks only
     python3 chip_smoke.py --profile  # full run plus torch.profiler breakdowns
     python3 chip_smoke.py --lm       # phase 16 (the LM path) alone
+    python3 chip_smoke.py --lm-families  # phase 17 (MoE, hybrid, SSM) alone
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -364,7 +365,45 @@ Phases, in order; any failure raises and the script exits non-zero:
     the batch time of ``TokenPipeline``, peak allocated memory;
     ``--profile`` adds one decode step and one training step of qwen2-0.5B
     by kernel.
-17. A ``kernels`` JSON line, the card line, and as the last line
+17. The MoE, hybrid and SSM families (``models.moe``, ``mamba2``,
+    ``rwkv6``; right after phase 16), which launch none of the kernels
+    above either (every count must stay 0). Weights from
+    ``init_params(seed=0)`` on the card, each model freed before the
+    next, every parameter count checked against the reference's. Served
+    as phase 16 serves (8 prompts of 512 tokens, 32 greedy tokens then 32
+    at temperature 0.8, the decode check at the last position):
+    olmoe-1b-7b at its full config (16 layers, 64 experts top-8, gates
+    not renormalised; 6,919,100,416 parameters), qwen3-moe-235b-a22b at
+    full width and 2 of its 94 layers (128 experts top-8, renormalised,
+    head_dim 128, 4 KV heads; 6,220,173,824), zamba2-1.2b at its full
+    config (6 groups of ``AMMMMMM`` and an ``MM`` tail; 1,057,589,376) and
+    rwkv6-7b at its full config (32 layers; 7,534,546,944); the MoE decode
+    checks at capacity factor E/k (8 and 16), where no assignment drops,
+    and the share of assignments kept at the configs' 1.25 printed.
+    Trained 4 steps of 8 x 4,096 through ``Trainer`` (AdamW lr 3e-4, the
+    launcher's, warm-up 1) under CUDA's sync debug mode: olmoe at 4 of 16 layers
+    (1,884,310,528), zamba2 at full depth, rwkv6 at 2 of 32 layers
+    (974,229,504; its WKV term in blocks of chunks, the blocking and the
+    decay channels that would overflow the reference's form printed);
+    every loss, aux and gradient norm finite, the last loss below the
+    first, no host synchronisation. Then float32 two-layer copies of all
+    four at full width (zamba2's as two ``AM`` groups) on the card against
+    the CPU on one sequence of 2 x 64: logits within rtol 1e-3 plus 1e-4
+    of the largest, expert ids equal but at near ties (a gap below 1e-5),
+    whose count is printed. The decode check, on all 8 served sequences
+    (``family_decode_gate``): in bf16 at the reference's bound 0.08 on
+    the served weights' first 8 layers (the depth of the deepest config
+    its own test holds to that bound), and on a float32 copy at the served
+    depth within 4 times the float32 forward's own departure between
+    batches of 4 and 8 rows (at least 1e-4); at the served depth in bf16
+    the check and that departure are printed. A decode step whose router
+    picks another expert set at a near tie is compared with a forward
+    that takes its experts there. A failed check lets the other models
+    run and fails the phase at its end. Printed with the card line: prefill
+    tokens/s, decode ms a token, ms a training step and tokens/s (CUDA
+    events), peak allocated memory, the kept share and the phase's
+    seconds.
+18. A ``kernels`` JSON line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -380,6 +419,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# CUDA's caching allocator grows its segments in place instead of cutting
+# new ones (read when torch first allocates on the card): phase 17 loads
+# and frees six models in turn, and with fixed segments zamba2's training
+# step found no 8 GiB piece among 47 GiB cached and free
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet; CUDA C Programming
 # Guide throughput table for compute capability 9.0 at 132 SMs and the
@@ -5722,6 +5766,470 @@ def lm_phase(device, profile: bool = False) -> dict:
     return out
 
 
+# phase 17: the MoE, hybrid and SSM families at full width
+# (src/repro/configs/olmoe_1b_7b.py, qwen3_moe_235b_a22b.py,
+# zamba2_1_2b.py, rwkv6_7b.py). The parameter counts are the reference's
+# count_params of the same specs (tests/test_torch_lm_families.py holds
+# both packages to them), by (arch, layers).
+LMF_OLMOE, LMF_QWEN3 = "olmoe-1b-7b", "qwen3-moe-235b-a22b"
+LMF_ZAMBA, LMF_RWKV = "zamba2-1.2b", "rwkv6-7b"
+LMF_PARAMS = {(LMF_OLMOE, 16): 6_919_100_416, (LMF_OLMOE, 4): 1_884_310_528,
+              (LMF_QWEN3, 2): 6_220_173_824, (LMF_ZAMBA, 38): 1_057_589_376,
+              (LMF_RWKV, 32): 7_534_546_944, (LMF_RWKV, 2): 974_229_504}
+# (arch, layers served, layers trained or None): the depth cuts are
+# qwen3's 2 of 94 layers (its 470 GB of weights are four cards' work,
+# ROADMAP A.13.3), olmoe trained at 4 of 16 layers and rwkv6 at 2 of 32
+LMF_RUNS = ((LMF_OLMOE, 16, 4), (LMF_QWEN3, 2, None), (LMF_ZAMBA, 38, 38),
+            (LMF_RWKV, 32, 2))
+LMF_SERVE_BATCH, LMF_PROMPT, LMF_GREEDY, LMF_SAMPLED = 8, 512, 32, 32
+LMF_TRAIN_BATCH, LMF_TRAIN_SEQ, LMF_TRAIN_STEPS = 8, 4096, 4
+LMF_LR = 3e-4              # launch.train's --lr
+# the float32 copies: two layers of each (zamba2's as two AM groups, so
+# that its shared block runs with two LoRAs), one short sequence
+LMF_F32 = ((LMF_OLMOE, {}), (LMF_QWEN3, {}),
+           (LMF_ZAMBA, {"shared_attn_every": 1}), (LMF_RWKV, {}))
+LMF_F32_BATCH, LMF_F32_SEQ, LMF_TIE_GAP = 2, 64, 1e-5
+# the bf16 decode check's depth: the reference's bound 0.08 was set on
+# its smoke configs, 2-8 layers deep (tests/test_models_smoke.py). Deeper,
+# the bf16 forward does not reproduce itself within it: on an H100
+# rwkv6-7b's last-position logits from batches of 4 and of 8 rows lie
+# 0.157 apart at 32 layers (``forward_spread``), and a decode step's
+# departure grows with depth (scripts/decode_depth_probe.py)
+LMF_BF16_GATE_LAYERS = 8
+# the float32 decode check at the served depth: decode departs from the
+# forward by at most this many times the forward's own departure between
+# batches of 4 and 8 rows, and never needs to be nearer than the floor
+LMF_F32_SPREAD_FACTOR, LMF_F32_FLOOR = 4.0, 1e-4
+LMF_EXP_MAX = 88.72        # ln of float32's largest value
+
+
+class spied:
+    """Within the block, ``module.name`` (a function) runs as before and
+    each call's result is appended to the list the block receives."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self) -> list:
+        fn = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            self.calls.append(out)
+            return out
+        setattr(self.module, self.name, wrapped)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def family_decode_gate(params, seq, cfg, bound: float) -> dict:
+    """``decode_gate`` for any layer kinds: prefill ``seq[:, :-1]``, decode
+    its last token, and compare the logits with the full forward's last
+    position, row by row (a row's err over its largest logit).
+
+    Where the decode step's router picks another expert set than the
+    forward's for a row's last token, the forward takes the decode's
+    experts at that token (gated by its own probabilities), so that the
+    row is held to ``bound`` all the same. Such a flip must be a near
+    tie: the forward's probability of each expert it alone picks exceeds
+    that of each expert the decode alone picks by at most twice the
+    largest difference between the two paths' probabilities at that
+    token, as it must when the decode ranks its own probabilities right.
+    Returns {"ratio": the largest row's err / scale, "bound", "flipped":
+    the rows with such a flip, "tie_slack": the least of twice that
+    difference less the gap over the flips (None without one), "ok":
+    ratio below ``bound`` and every flip a near tie}."""
+    import torch
+    from repro_torch.models import lm as L
+    from repro_torch.models import moe as MOE
+    b, s = seq.shape[:2]
+    last = torch.arange(b, device=seq.device) * s + (s - 1)
+    with torch.no_grad():
+        _, caches = L.prefill(params, seq[:, :-1], cfg, max_len=s)
+        with spied(MOE, "_route") as dec_routes:
+            dec, _ = L.decode_step(params, caches, seq[:, -1:], s - 1, cfg)
+        del caches
+        route, decoded = MOE._route, iter(dec_routes)
+        flipped = torch.zeros(b, dtype=torch.bool, device=seq.device)
+        slack = []
+
+        def aligned(x, w, c):
+            gate, expert, tok, probs = route(x, w, c)
+            k = c.n_per_token
+            _, de, _, dp = next(decoded)
+            de, fe = de.view(b, k), expert.view(-1, k)[last]
+            pf = probs[last]
+            in_f = torch.zeros_like(pf, dtype=torch.bool).scatter_(1, fe, True)
+            in_d = torch.zeros_like(pf, dtype=torch.bool).scatter_(1, de, True)
+            differ = (in_f != in_d).any(dim=1)
+            if not bool(differ.any()):
+                return gate, expert, tok, probs
+            flipped.logical_or_(differ)
+            gap = (torch.where(in_f & ~in_d, pf, -1.0).amax(dim=1)
+                   - torch.where(in_d & ~in_f, pf, 2.0).amin(dim=1))
+            noise = (pf - dp).abs().amax(dim=1)
+            slack.append(float((2 * noise - gap)[differ].min()))
+            vals = pf.gather(1, de)
+            if c.renorm_gates:
+                vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True),
+                                          min=1e-9)
+            rows = last[differ]
+            expert, gate = expert.view(-1, k).clone(), gate.view(-1, k).clone()
+            expert[rows], gate[rows] = de[differ], vals[differ]
+            return gate.reshape(-1), expert.reshape(-1), tok, probs
+
+        MOE._route = aligned
+        try:
+            full = L.lm_logits(L.forward(params, seq, cfg)[0][:, -1:],
+                               params, cfg)
+        finally:
+            MOE._route = route
+    rows = ((dec - full).abs().amax(dim=-1) /
+            (full.abs().amax(dim=-1) + 1e-6)).flatten()
+    ratio = float(rows.max())
+    tie_slack = min(slack) if slack else None
+    return {"ratio": ratio, "bound": bound,
+            "ok": ratio < bound and (tie_slack is None or tie_slack >= 0),
+            "flipped": int(flipped.sum()), "tie_slack": tie_slack}
+
+
+def forward_spread(params, seq, cfg) -> float:
+    """The largest row's departure (err over its largest logit) of the
+    forward's last-position logits on ``seq``'s first and last 4 rows,
+    each a batch, from those on all 8 rows in one batch."""
+    import torch
+    from repro_torch.models import lm as L
+
+    def last_logits(rows):
+        return L.lm_logits(L.forward(params, rows, cfg)[0][:, -1:], params,
+                           cfg)
+    with torch.no_grad():
+        full = last_logits(seq)
+        half = torch.cat([last_logits(seq[:4]), last_logits(seq[4:])])
+    return float(((half - full).abs().amax(dim=-1) /
+                  (full.abs().amax(dim=-1) + 1e-6)).max())
+
+
+def family_config(arch: str, layers: int, **kw):
+    """The full config of ``arch`` at ``layers`` layers; its parameter
+    count checked against the reference's."""
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.models import lm as L
+    from repro_torch.models.nn import count_params
+    cfg = dataclasses.replace(C.get_config(arch), n_layers=layers, **kw)
+    specs = L.model_param_specs(cfg)
+    n = count_params(specs)
+    if (arch, layers) in LMF_PARAMS and n != LMF_PARAMS[(arch, layers)]:
+        raise AssertionError(f"{arch} at {layers} layers: {n} parameters, "
+                             f"not the reference's "
+                             f"{LMF_PARAMS[(arch, layers)]}")
+    return cfg, specs, n
+
+
+def flips(gate: dict) -> str:
+    """The text of a decode check's routing flips, if it had any."""
+    if not gate["flipped"]:
+        return ""
+    return (f"; rows routed at a near tie to another expert set, held "
+            f"with it: {gate['flipped']}, slack {gate['tie_slack']:.3e}")
+
+
+def family_serve(arch: str, layers: int, device, card: str) -> dict:
+    """Serve ``arch`` at ``layers`` layers: ``generate`` on 8 prompts of
+    512 tokens (32 greedy, then 32 at temperature 0.8), the share of
+    expert assignments kept at the config's capacity factor, and the
+    decode check on the 8 greedy sequences (MoE at capacity E/k, where
+    none can drop; ``family_decode_gate``): in bf16 below 0.08 on the
+    model's first 8 layers (the same draws), and on a float32 copy at
+    ``layers`` within 4 times its forward's own ``forward_spread`` (at
+    least 1e-4). The bf16 check at ``layers`` and the bf16 forward's
+    spread are printed."""
+    import dataclasses
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import lm as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.nn import init_params
+    cfg, specs, n = family_config(arch, layers)
+    params, t_init = timed_call(lambda: init_params(specs, seed=0,
+                                                    device=device))
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=LMF_PROMPT,
+                                    global_batch=LMF_SERVE_BATCH, seed=1),
+                         device=device)
+    prompt, t_prompt = timed_call(lambda: pipe.batch_at(0))
+    torch.cuda.reset_peak_memory_stats()
+    # a prefill first (it warms the timed calls up: a cold first prefill
+    # outlasted generate's own, and the decode time came out negative),
+    # the experts' kept mask spied
+    with spied(MOE, "_slots") as calls, torch.no_grad():
+        L.prefill(params, prompt, cfg)
+    kept = sum(float(c[2].sum()) for c in calls) / \
+        sum(c[2].numel() for c in calls) if calls else None
+    greedy, t_g, t_pre = served(params, prompt, cfg, LMF_GREEDY, 0.0)
+    _, t_s, t_pre2 = served(params, prompt, cfg, LMF_SAMPLED,
+                            LM_TEMPERATURE)
+    peak = torch.cuda.max_memory_allocated()
+    gate_cfg = cfg
+    if cfg.n_experts:
+        gate_cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.n_experts_per_token)
+    deep = family_decode_gate(params, greedy, gate_cfg, LM_DECODE_BOUND)
+    deep["forward_spread"] = forward_spread(params, greedy, gate_cfg)
+    del params, prompt, pipe
+    torch.cuda.empty_cache()
+    cut = min(cfg.n_layers, LMF_BF16_GATE_LAYERS)
+    if cut < cfg.n_layers:
+        cut_cfg = dataclasses.replace(gate_cfg, n_layers=cut)
+        p_cut = init_params(L.model_param_specs(cut_cfg), seed=0,
+                            device=device)
+        bf16 = family_decode_gate(p_cut, greedy, cut_cfg, LM_DECODE_BOUND)
+        del p_cut
+        torch.cuda.empty_cache()
+    else:
+        bf16 = deep
+    cfg32 = dataclasses.replace(gate_cfg, dtype="float32")
+    p32 = init_params(L.model_param_specs(cfg32), seed=0, device=device)
+    spread = forward_spread(p32, greedy, cfg32)
+    gate = family_decode_gate(
+        p32, greedy, cfg32, max(LMF_F32_FLOOR, LMF_F32_SPREAD_FACTOR * spread))
+    gate["forward_spread"] = spread
+    del p32
+    rows = LMF_SERVE_BATCH * LMF_PROMPT
+    dec = {k: 1e3 * (t - p) / (m - 1) for k, t, p, m in (
+        ("greedy", t_g, t_pre, LMF_GREEDY),
+        ("sampled", t_s, t_pre2, LMF_SAMPLED))}
+    log(f"LM {arch}: {n} parameters ({cfg.n_layers} layers of "
+        f"{cfg.layer_pattern if cfg.family not in ('hybrid', 'ssm') else cfg.family}"
+        f", d_model {cfg.d_model}"
+        + (f", {cfg.n_experts} experts top-{cfg.n_experts_per_token} "
+           f"(gates {'renormalised' if cfg.renorm_gates else 'as drawn'}, "
+           f"d_ff {cfg.moe_d_ff})" if cfg.n_experts else "")
+        + f", vocab {cfg.vocab_size}, {cfg.dtype}), init {t_init:.2f} s; "
+        f"serve {LMF_SERVE_BATCH} prompts of {LMF_PROMPT} tokens "
+        f"({t_prompt:.2f} s from TokenPipeline): prefill {t_pre:.4f}, "
+        f"{t_pre2:.4f} s = {rows / t_pre:,.0f}, {rows / t_pre2:,.0f} "
+        f"tokens/s; decode {dec['greedy']:.3f} / {dec['sampled']:.3f} ms a "
+        f"token greedy / at temperature {LM_TEMPERATURE} (batch "
+        f"{LMF_SERVE_BATCH})"
+        + (f"; expert assignments kept at capacity factor "
+           f"{cfg.capacity_factor}: {kept:.5f}" if kept is not None else "")
+        + f"; decode against forward at position {greedy.shape[1] - 1}"
+        + (f" (capacity factor {gate_cfg.capacity_factor})"
+           if cfg.n_experts else "")
+        + f", err/scale over {LMF_SERVE_BATCH} rows: bf16 at {cut} layers "
+        f"{bf16['ratio']:.5f} (bound {LM_DECODE_BOUND}: "
+        f"{'held' if bf16['ok'] else 'FAILED'}{flips(bf16)}), a float32 "
+        f"copy at {cfg.n_layers} layers {gate['ratio']:.3e} (bound "
+        f"{gate['bound']:.3e}, {LMF_F32_SPREAD_FACTOR:g} x its forward's "
+        f"own spread {gate['forward_spread']:.3e} between batches of 4 and "
+        f"8 rows, at least {LMF_F32_FLOOR:g}: "
+        f"{'held' if gate['ok'] else 'FAILED'}{flips(gate)}); not gated, "
+        f"bf16 at {cfg.n_layers} layers {deep['ratio']:.5f} beside its "
+        f"forward's own spread {deep['forward_spread']:.5f}{flips(deep)}"
+        + f"; peak allocated {peak / 2**30:.2f} GiB ({card})")
+    del greedy
+    torch.cuda.empty_cache()
+    return dict(params=n, layers=cfg.n_layers, init_s=t_init,
+                prompt_batch_s=t_prompt, prefill_s=[t_pre, t_pre2],
+                prefill_tokens_s=[rows / t_pre, rows / t_pre2],
+                generate_s={"greedy": t_g, "sampled": t_s},
+                decode_ms_token=dec, decode_vs_forward_f32=gate,
+                decode_vs_forward_bf16=bf16, bf16_at_served_depth=deep,
+                kept_share=kept, peak_bytes=peak)
+
+
+def family_train(arch: str, layers: int, device, card: str) -> dict:
+    """Train ``arch`` at ``layers`` layers: 4 steps of 8 x 4,096 through
+    ``Trainer`` under CUDA's sync debug mode; every loss, aux and
+    gradient norm finite (a non-finite gradient makes the norm so), the
+    last loss below the first, no host synchronisation."""
+    import warnings
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import rwkv6 as R
+    from repro_torch.models.nn import init_params, tree_leaves
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import Trainer, TrainState, make_train_step
+    cfg, specs, n = family_config(arch, layers)
+    params, t_init = timed_call(lambda: init_params(specs, seed=0,
+                                                    device=device))
+    extra = ""
+    if cfg.family == "ssm":
+        # at init the decay's LoRA is zero: lw = -exp(clip(w0, -8, 4)); the
+        # reference's masked pairs reach chunk x |lw|, which overflows
+        # float32's exp past 88.72 (ROADMAP C)
+        w0 = params["blocks"]["p0"]["time"]["w0"].float()
+        lw = torch.exp(torch.clamp(w0, -8.0, 4.0))
+        over = int((cfg.rwkv_chunk * lw > LMF_EXP_MAX).sum())
+        nc = LMF_TRAIN_SEQ // cfg.rwkv_chunk
+        # B x Q x Q x H x K float32 a chunk (H x K = d_model)
+        per_chunk = LMF_TRAIN_BATCH * cfg.rwkv_chunk ** 2 * cfg.d_model * 4
+        nb = min(nc, max(1, R.BLOCK_BYTES // per_chunk))
+        extra = (f"; {over} of {w0.numel()} decay channels overflow the "
+                 f"reference's masked exponent at init (chunk "
+                 f"{cfg.rwkv_chunk}); the WKV pairwise decays "
+                 f"[B, nc, Q, Q, H, K] in float32 are "
+                 f"{nc * per_chunk / 2**30:.2f} GiB a layer, taken in "
+                 f"blocks of {nb} of {nc} chunks "
+                 f"({nb * per_chunk / 2**30:.2f} GiB)")
+    # the launcher's learning rate: at 1e-3, Adam moves olmoe's router
+    # logits by about 1.6 a step (2,048 inputs of about 0.8 times the lr),
+    # the routing collapses onto few experts (aux 4.7 -> 11.9 in three
+    # steps) and the fourth step's loss rose above the first's
+    opt_cfg = AdamWConfig(lr_peak=LMF_LR, warmup_steps=1)
+    opt = init_opt_state(params, opt_cfg)
+    pipe = cached_batches(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LMF_TRAIN_SEQ,
+        global_batch=LMF_TRAIN_BATCH), device=device))
+    marks = []
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer = Trainer(event_timed(make_train_step(cfg, opt_cfg), marks),
+                      TrainState(params, opt), pipe, ckpt_dir=None,
+                      log_every=LMF_TRAIN_STEPS + 1, log_fn=log)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.run(LMF_TRAIN_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    step_ms = elapsed(marks)
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    losses = [float(m["loss"]) for m in hist]
+    gnorms = [float(m["grad_norm"]) for m in hist]
+    auxes = [float(m["aux"]) for m in hist] if cfg.n_experts else []
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_leaves(params) + tree_leaves(opt))
+    if not all(math.isfinite(x) for x in losses + gnorms + auxes) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} training: losses {losses}, grad norms "
+                             f"{gnorms}, aux {auxes}")
+    if syncs:
+        raise AssertionError(f"{arch}: the training loop synchronised with "
+                             f"the host {len(syncs)} times: {syncs[:3]}")
+    tok = LMF_TRAIN_BATCH * LMF_TRAIN_SEQ
+    log(f"LM {arch} train: {n} parameters ({cfg.n_layers} layers), "
+        f"{LMF_TRAIN_STEPS} steps of {LMF_TRAIN_BATCH} x {LMF_TRAIN_SEQ} "
+        f"through Trainer (AdamW lr {LMF_LR}, warm-up 1, master copy), losses "
+        f"{[round(x, 4) for x in losses]}"
+        + (f", aux {[round(x, 4) for x in auxes]}" if auxes else "")
+        + f", grad norms {[round(x, 3) for x in gnorms]} (every gradient "
+        f"finite); ms a step (CUDA events) {[round(x, 1) for x in step_ms]}"
+        f" = {[round(tok / x * 1e3) for x in step_ms]} tokens/s; "
+        f"{t_train:.2f} s for the run; no host synchronisation in the loop "
+        f"(sync debug mode); state {state_bytes / 2**30:.2f} GiB, "
+        f"allocated before the first step {base / 2**30:.2f} GiB, peak "
+        f"allocated {peak / 2**30:.2f} GiB{extra} ({card})")
+    del params, opt, trainer, pipe
+    torch.cuda.empty_cache()
+    return dict(params=n, layers=cfg.n_layers, init_s=t_init, losses=losses,
+                aux=auxes, grad_norms=gnorms, step_ms=step_ms,
+                tokens_s=[tok / (ms / 1e3) for ms in step_ms], run_s=t_train,
+                peak_bytes=peak, base_bytes=base, state_bytes=state_bytes,
+                host_syncs=len(syncs))
+
+
+def family_f32(arch: str, extra: dict, device, card: str) -> dict:
+    """Two layers of ``arch`` at full width in float32, the card's weights
+    copied to the CPU: logits on one short sequence within rtol 1e-3 plus
+    1e-4 of the largest, and each MoE layer's expert ids equal but at
+    near ties (a gap below 1e-5 among the top k + 1 probabilities)."""
+    import torch
+    from repro_torch.models import lm as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.nn import init_params, tree_map
+    cfg, specs, _ = family_config(arch, 2, dtype="float32", **extra)
+    p_gpu = init_params(specs, seed=0, device=device)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    tok = torch.randint(0, cfg.vocab_size, (LMF_F32_BATCH, LMF_F32_SEQ),
+                        dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(7))
+    runs = {}
+    for where, p, t in (("card", p_gpu, tok.to(device)), ("cpu", p_cpu, tok)):
+        with spied(MOE, "_route") as calls, torch.no_grad():
+            lg = L.lm_logits(L.forward(p, t, cfg)[0], p, cfg).cpu()
+        runs[where] = (lg, [(c[1].cpu(), c[3].cpu()) for c in calls])
+    (lg, routes_g), (lc, routes_c) = runs["card"], runs["cpu"]
+    err = (lg - lc).abs()
+    top = float(lc.abs().max())
+    if bool((err > 1e-3 * lc.abs() + 1e-4 * top).any()):
+        raise AssertionError(f"{arch}: float32 logits on the card depart "
+                             f"from the CPU's: max {float(err.max()):.3e}")
+    ties = flips = 0
+    k = cfg.n_experts_per_token
+    for (eg, _), (ec, pc) in zip(routes_g, routes_c):
+        srt = torch.sort(pc, dim=-1, descending=True).values[:, :k + 1]
+        near = ((srt[:, :-1] - srt[:, 1:]) < LMF_TIE_GAP).any(dim=1)
+        differ = (eg.view(-1, k) != ec.view(-1, k)).any(dim=1)
+        if bool((differ & ~near).any()):
+            raise AssertionError(f"{arch}: expert ids differ away from a "
+                                 f"near tie at {int((differ & ~near).sum())} "
+                                 f"tokens")
+        ties += int(near.sum())
+        flips += int(differ.sum())
+    log(f"LM {arch} at 2 layers in float32"
+        + (f" ({', '.join(f'{a}={v}' for a, v in extra.items())})"
+           if extra else "")
+        + f": logits on the card within rtol 1e-3 (atol 1e-4 of the "
+        f"largest, {top:.3f}) of the CPU port's, max diff "
+        f"{float(err.max()):.3e}"
+        + (f"; expert ids of {len(routes_c)} MoE layers x "
+           f"{LMF_F32_BATCH * LMF_F32_SEQ} tokens equal but at near ties: "
+           f"{ties} near ties (gap below {LMF_TIE_GAP}), {flips} tokens "
+           f"differ" if cfg.n_experts else "") + f" ({card})")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return dict(max_err=float(err.max()), scale=top, near_ties=ties,
+                id_flips=flips)
+
+
+def lm_families_phase(device) -> dict:
+    """Phase 17: olmoe-1b-7b, qwen3-moe-235b-a22b (2 of 94 layers),
+    zamba2-1.2b and rwkv6-7b served at full width, olmoe (4 layers),
+    zamba2 and rwkv6 (2 layers) trained, and float32 two-layer copies of
+    all four on the card against the CPU. Returns its numbers."""
+    import torch
+    from repro_torch.kernels import ops
+    card = card_line()
+    out = {"card": card}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for arch, served_layers, trained_layers in LMF_RUNS:
+        out[arch] = {"serve": family_serve(arch, served_layers, device,
+                                           card)}
+        if trained_layers:
+            out[arch]["train"] = family_train(arch, trained_layers, device,
+                                              card)
+    for arch, extra in LMF_F32:
+        out[arch]["f32_card_vs_cpu"] = family_f32(arch, extra, device, card)
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the LM families launched kernels: {counts}")
+    out["seconds"] = time.perf_counter() - t0
+    failed = [f"{arch} {what} {g['ratio']:.4g} (bound {g['bound']})"
+              for arch, _, _ in LMF_RUNS
+              for what, g in out[arch]["serve"].items()
+              if what.startswith("decode_vs_forward") and not g["ok"]]
+    if failed:
+        log(f"lm families: {json.dumps(out)}")
+        raise AssertionError(f"decode departs from the forward: "
+                             f"{'; '.join(failed)}")
+    return out
+
+
 def profile_main_path(engine, queries, device) -> None:
     """``--profile``: device time by kernel for 8 ``sketch`` calls, each
     on a 65,536-row chunk made beforehand and each followed by a
@@ -5836,6 +6344,12 @@ def main(argv) -> int:
         log(f"lm path: "
             f"{json.dumps(lm_phase(device, '--profile' in argv))}")
         log(f"phase lm path: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if "--lm-families" in argv:     # phase 17 alone (no kernel either)
+        log(f"card: {card}")
+        t0 = time.perf_counter()
+        log(f"lm families: {json.dumps(lm_families_phase(device))}")
+        log(f"phase lm families: {time.perf_counter() - t0:.1f} s")
         return 0
     t0 = time.perf_counter()
     reports = _build.build_all(verbose=True)
@@ -5971,6 +6485,10 @@ def main(argv) -> int:
     rates_lm = lm_phase(device, profile="--profile" in argv)
     log(f"lm path: {json.dumps(rates_lm)}")
     log(f"phase lm path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rates_families = lm_families_phase(device)
+    log(f"lm families: {json.dumps(rates_families)}")
+    log(f"phase lm families: {time.perf_counter() - t0:.1f} s")
     path_counts = {"main": counts, "scored": counts_scored,
                    "mutable": counts_mutable, "url": counts_url,
                    "dense": counts_dense,

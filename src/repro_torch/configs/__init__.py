@@ -5,8 +5,7 @@
 CPU device. ``ARCHS`` lists all assigned ids.
 
 Counterpart of ``repro.configs``: every config's values are the
-reference's, built on the port's ``ModelConfig``; the port runs the
-dense, vlm and audio families (MoE, hybrid and SSM are ROADMAP A.13.2).
+reference's, built on the port's ``ModelConfig``.
 """
 from __future__ import annotations
 

@@ -162,7 +162,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def step(m, l, acc, kb, vb, pb):
         sc = torch.einsum("bskgd,btkd->bkgst", qg, kb.to(torch.float32))
         sc = _softcap(sc, c.attn_softcap)
-        mask = q_positions[:, None] >= pb[None, :]
+        # a padded key's position precedes every query's, so the causal
+        # test alone would keep it (as the reference's does: ROADMAP C)
+        mask = (q_positions[:, None] >= pb[None, :]) & (pb != _PAD_POS)
         if c.window is not None:
             mask = mask & ((q_positions[:, None] - pb[None, :]) < c.window)
         sc = torch.where(mask, sc, _NEG_INF)

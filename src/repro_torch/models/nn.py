@@ -20,11 +20,14 @@ are ROADMAP A.13.3.
 
 ``fan_in`` is the product of the dims a weight contracts, read from its
 logical axes: the first dim of an [in, ...] weight, every dim but the
-last of a [..., embed] one, stacking dims (``layers``, ``codebooks``)
-aside. For [in, out] matrices that is the reference's ``shape[-2]``; for
-the attention weights it is d_model for wq/wk/wv [d, heads, head_dim]
-and heads x head_dim for wo, where the reference's ``shape[-2]`` takes the
-heads or head_dim (ROADMAP C): its q and k are then 8x too large at
+last of a [..., embed] one, stacking dims (``layers``, ``codebooks``,
+``experts``) aside. For [in, out] matrices, stacked or not, that is the
+reference's ``shape[-2]``: d_model for the experts' ``w_gate``/``w_up``
+[E, d, f] and their hidden width for ``w_down`` [E, f, d]. For the
+weights with a head dim it is d_model for wq/wk/wv (and Mamba2's and
+RWKV6's [d, heads, head_dim] projections) and heads x head_dim for wo
+and their ``w_out``, where the reference's ``shape[-2]`` takes the heads
+or head_dim (ROADMAP C): its q and k are then 8x too large at
 qwen2-0.5B, the attention an argmax, and decode against the full forward
 ill-conditioned in depth.
 """
@@ -47,7 +50,7 @@ __all__ = ["ParamSpec", "init_params", "abstract_params", "rms_norm",
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 _CHUNK = 1 << 24           # values drawn a pass (bounds the int32 temporaries)
-_STACKED = ("layers", "codebooks")
+_STACKED = ("layers", "codebooks", "experts")
 _SQRT2 = math.sqrt(2.0)
 
 
@@ -78,16 +81,18 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(like, leaves):
     """``like``'s structure with its leaves taken in order from the
     iterable ``leaves``."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(s) for s in t)
-        return None if t is None else next(it)
 
-    return build(like)
+def _unflatten(t, it):
+    # a function of the module, not a closure that calls itself: such a
+    # closure and its cell form a cycle that keeps the leaves alive until
+    # the garbage collector next runs
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten(s, it) for s in t)
+    return None if t is None else next(it)
 
 
 def tree_map(fn, tree, *rest):

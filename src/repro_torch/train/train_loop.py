@@ -13,8 +13,11 @@ Counterpart of ``repro/train/train_loop.py``:
   ``compressor=None``, by a mean all-reduce.
 
 ``Trainer`` resumes from the newest checkpoint, checkpoints and stops on
-SIGTERM, retries a failed step once, logs stragglers, and checkpoints
-periodically and at the end, through ``repro_torch.checkpoint`` (whose
+SIGTERM while ``run`` runs (the handler it replaced is put back when
+``run`` returns: the handler refers to the trainer, and through it to
+the parameters and optimizer state, which it would otherwise keep alive
+after the trainer is dropped), retries a failed step once, logs
+stragglers, and checkpoints periodically and at the end, through ``repro_torch.checkpoint`` (whose
 checkpoints both packages read). A step never waits on the host: the
 metrics stay on the device and the only host synchronisations of the
 loop are the floats it logs every ``log_every`` steps and the
@@ -133,12 +136,16 @@ class Trainer:
         self.history = []
 
     def _install_sigterm(self):
+        """Sets ``_preempted`` on SIGTERM. Returns the handler it replaced
+        (``SIG_DFL`` where none was set from Python), None off the main
+        thread, where no handler can be set."""
         def handler(signum, frame):
             self._preempted = True
         try:
-            signal.signal(signal.SIGTERM, handler)
+            previous = signal.signal(signal.SIGTERM, handler)
         except ValueError:  # not the main thread
-            pass
+            return None
+        return signal.SIG_DFL if previous is None else previous
 
     def _tree(self) -> dict:
         tree = {"params": self.state.params, "opt": self.state.opt_state}
@@ -171,7 +178,14 @@ class Trainer:
                             keep=self.keep)
 
     def run(self, n_steps: int) -> list:
-        self._install_sigterm()
+        previous = self._install_sigterm()
+        try:
+            return self._run(n_steps)
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
+
+    def _run(self, n_steps: int) -> list:
         s = self.state
         while s.step < n_steps and not self._preempted:
             tokens = self.pipeline.batch_at(s.step)

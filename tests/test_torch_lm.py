@@ -4,7 +4,11 @@
 Weights go across from the reference's ``init_params`` through
 ``convert.lm_params_from_numpy``, never by seed: the reference keys each
 leaf by Python's salted ``hash`` of its path, which changes from process
-to process (ROADMAP C). The reference runs under ``jax.jit`` at the smoke
+to process (ROADMAP C), and this file keys them by ``zlib.crc32`` of the
+path instead (``_stable_reference_init``), so that every process draws
+the same weights (one draw put an entry of
+``test_value_and_grad_matches_reference``'s W_q gradient 1.8 times
+beyond its bound; twelve others passed). The reference runs under ``jax.jit`` at the smoke
 configs, two layers where the pattern allows, float32 unless stated,
 compiled at XLA's LLVM optimisation level 0 (``_o0``: a third to a sixth
 of the compile time on one core; the arithmetic is the same but for the
@@ -44,6 +48,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import zlib
 from dataclasses import replace
 
 import numpy as np
@@ -60,6 +65,7 @@ from repro.core.gradient_compression import (
 from repro.data import DataConfig as JaxDataCfg
 from repro.data import TokenPipeline as JaxPipeline
 from repro.models import lm as JL
+from repro.models import nn as JNN
 from repro.models.nn import ParamSpec as JaxSpec
 from repro.models.nn import init_params as jax_init
 from repro.optim import AdamWConfig as JaxAdamCfg
@@ -88,15 +94,22 @@ from repro_torch.train import (Trainer, TrainState, make_compressed_train_step,
                                make_train_step)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DENSE = ["qwen2_0_5b", "phi3_mini_3_8b", "gemma2_9b", "gemma3_27b",
-         "chameleon_34b", "musicgen_medium"]
-OTHER = ["olmoe_1b_7b", "qwen3_moe_235b_a22b", "zamba2_1_2b", "rwkv6_7b"]
 # forward/loss parity: gemma2 and gemma3 at S = 20 > their smoke window of
 # 8 (banded attention; gemma3's local rope base), chameleon (qk-norm, an
 # untied head), musicgen (4 codebooks)
 FORWARD = ["qwen2_0_5b", "gemma2_9b", "gemma3_27b", "chameleon_34b",
            "musicgen_medium"]
 B, S = 2, 20
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _stable_reference_init():
+    """The reference's ``init_params`` keys a leaf by ``hash`` of its path,
+    which Python salts in every process: here by ``zlib.crc32`` of it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JNN, "hash", lambda s: zlib.crc32(s.encode()),
+                   raising=False)
+        yield
 
 
 def _close(got, want, frac, rtol=1e-4, what=""):
@@ -228,7 +241,7 @@ def _spec_rows(specs, is_leaf):
              s.scale) for p, s in leaves]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", JC.ARCHS)
 def test_param_specs_match_reference(arch):
     for full in (True, False):
         get = "get_config" if full else "get_smoke_config"
@@ -241,15 +254,6 @@ def test_param_specs_match_reference(arch):
     if arch == "qwen2_0_5b":
         assert count_params(TL.model_param_specs(TC.get_config(arch))) == \
             494_032_768
-
-
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_raise(arch):
-    cfg = TC.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A.13.2"):
-        TL.model_param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="A.13.2"):
-        TL.forward({}, torch.zeros((1, 4), dtype=torch.int32), cfg)
 
 
 # -- forward, logits, loss, gradients -----------------------------------------
